@@ -1,0 +1,63 @@
+"""Carry state between the reference package and the port.
+
+The system has no learned weights: its parameters are the camera
+intrinsics and extrinsics, and its "weights" are the filter, trail and
+tracker state. ``from_jax`` builds the port's cameras and state tuples from
+the reference's, given as numpy trees (``jax.tree.map(np.asarray, ...)``);
+``to_numpy`` goes back. Field names are the same in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ekf.state import EKFState
+from .frontend.tracker import TrackerOutput, TrackerState
+from .geometry.cameras import Camera, build_pinhole
+from .odometry.backend import BackendState, FrameOutput, ImuBatch, TrackerInput
+from .odometry.trail import TrailState
+from .odometry.vio import VioState
+
+_TYPES = {cls.__name__: cls for cls in (
+    VioState, BackendState, EKFState, TrailState, TrackerState, TrackerInput,
+    ImuBatch, FrameOutput, TrackerOutput)}
+
+
+def camera_from_jax(cam) -> Camera:
+    """Port camera from a reference ``Camera`` (arrays or numpy)."""
+    if cam.kind != "pinhole" or cam.has_distortion or cam.has_rotation:
+        raise NotImplementedError(f"{cam.kind} camera with distortion/rotation")
+    return build_pinhole(float(np.asarray(cam.fx)), float(np.asarray(cam.fy)),
+                         float(np.asarray(cam.cx)), float(np.asarray(cam.cy)),
+                         width=cam.width, height=cam.height)
+
+
+def from_jax(tree, device="cpu"):
+    """Reference NamedTuples / tuples of numpy arrays -> port tensors.
+    Threefry keys (uint32) become int64; other dtypes are kept."""
+    if tree is None:
+        return None
+    if hasattr(tree, "kind") and hasattr(tree, "fx"):
+        return camera_from_jax(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = _TYPES[type(tree).__name__]
+        return cls(*(from_jax(getattr(tree, f), device) for f in cls._fields))
+    if isinstance(tree, (tuple, list)):
+        return tuple(from_jax(x, device) for x in tree)
+    arr = np.asarray(tree)
+    if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def to_numpy(tree):
+    """Port tensors -> the same NamedTuples of numpy arrays."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_numpy(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree

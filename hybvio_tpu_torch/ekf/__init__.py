@@ -1,0 +1,13 @@
+from .state import (  # noqa: F401
+    BAA, BAT, BGA, CAM, INER_DIM, MAP_POINT_DIM, ORI, POS, POSE_DIM, Q_ACC,
+    Q_BAA_DRIFT, Q_BGA_DRIFT, Q_DIM, Q_GYRO, SFT, VEL, EKFState, init_state,
+    process_noise_q, state_dim,
+)
+from .predict import make_predict, predict_mean_and_jacobians, process_noise_diag  # noqa: F401
+from .update import (  # noqa: F401
+    VisualUpdateResult, kf_update, normalize_quaternions, update_pseudo_velocity,
+    update_zupt, update_zupt_initialization, visual_track_gate, visual_track_update,
+)
+from .augment import augment_pose, undo_augmentation  # noqa: F401
+from .transforms import initialize_orientation  # noqa: F401
+from .chi2 import CHI2INV95  # noqa: F401

@@ -1,0 +1,206 @@
+"""RANSAC outlier rejection (port of the reference's ``frontend/ransac.py``:
+``ransac2``, ``ransac3`` and the Horn/QCP rotation solve), batch-first.
+
+Every lane draws its hypotheses from its own threefry key, so the hypotheses
+are the reference's, and all of them are solved and scored at once.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import random as jr
+from ..geometry.cameras import pixel_to_ray, ray_to_pixel
+from ..geometry.quaternion import quat_to_rmat
+
+ROT_RANSAC_MAX_ITERS = 100
+
+
+def rotation_from_cross_cov(S, n_newton_iters: int = 20):
+    """Rotation maximizing tr(R S) for cross-covariances S (..., 3, 3):
+    Horn's quaternion method with the QCP eigensolve (Newton on the quartic
+    characteristic polynomial from ||N||_F, then a column of the
+    Cayley-Hamilton adjugate, with the multiplicity-2 fallback)."""
+    dtype, dev = S.dtype, S.device
+    s = lambda i, j: S[..., i, j]
+    tr = s(0, 0) + s(1, 1) + s(2, 2)
+    N = torch.stack([
+        tr, s(1, 2) - s(2, 1), s(2, 0) - s(0, 2), s(0, 1) - s(1, 0),
+        s(1, 2) - s(2, 1), 2 * s(0, 0) - tr, s(0, 1) + s(1, 0), s(2, 0) + s(0, 2),
+        s(2, 0) - s(0, 2), s(0, 1) + s(1, 0), 2 * s(1, 1) - tr, s(1, 2) + s(2, 1),
+        s(0, 1) - s(1, 0), s(2, 0) + s(0, 2), s(1, 2) + s(2, 1), 2 * s(2, 2) - tr,
+    ], dim=-1).reshape(S.shape[:-2] + (4, 4))
+    fnorm = torch.sqrt(torch.sum(N * N, dim=(-2, -1)))
+    scale = torch.clamp(fnorm, min=1e-30)
+    N = N / scale[..., None, None]
+
+    N2 = N @ N
+    p2 = torch.diagonal(N2, dim1=-2, dim2=-1).sum(-1)
+    p3 = torch.sum(N2 * N, dim=(-2, -1))
+    p4 = torch.sum(N2 * N2, dim=(-2, -1))
+    e2 = -p2 / 2
+    e3 = p3 / 3
+    e4 = (p2 * p2 / 2 - p4) / 4
+    x = torch.ones_like(p2)
+    for _ in range(n_newton_iters):
+        px = ((x * x + e2) * x - e3) * x + e4
+        dpx = (4 * x * x + 2 * e2) * x - e3
+        x = x - px / torch.where(torch.abs(dpx) < 1e-30, torch.full_like(dpx, 1e-30), dpx)
+    eye = torch.eye(4, dtype=dtype, device=dev)
+    A = N - x[..., None, None] * eye
+    A2 = A @ A
+    A3 = A2 @ A
+    s1 = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+    s2 = torch.diagonal(A2, dim1=-2, dim2=-1).sum(-1)
+    s3 = torch.sum(A2 * A, dim=(-2, -1))
+    a3 = -s1
+    a2 = (s1 * s1 - s2) / 2
+    a1 = -(s1 * s1 * s1 - 3 * s1 * s2 + 2 * s3) / 6
+    e = lambda v: v[..., None, None]
+    B = A3 + e(a3) * A2 + e(a2) * A + e(a1) * eye
+    C = A2 - e(s1) * A + e(a2) * eye
+
+    def best_column(M):
+        norms2 = torch.sum(M * M, dim=-2)
+        j = torch.argmax(norms2, dim=-1, keepdim=True)
+        col = torch.gather(M, -1, j[..., None, :].expand(M.shape[:-1] + (1,)))[..., 0]
+        return col, torch.sqrt(torch.gather(norms2, -1, j))
+
+    qB, nB = best_column(B)
+    qC, nC = best_column(C)
+    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    q = torch.where(nB > 1e-6, qB / torch.clamp(nB, min=1e-30),
+                    torch.where(nC > 1e-6, qC / torch.clamp(nC, min=1e-30), unit))
+    return quat_to_rmat(q)
+
+
+def _cross_cov(w, a, b):
+    """sum_n w_n a_n b_n^T over dim -2: (..., N), (..., N, 3) -> (..., 3, 3)."""
+    return torch.einsum("...n,...ni,...nj->...ij", w, a, b)
+
+
+def _valid_first(valid):
+    """Slot order with valid slots first (stable)."""
+    return torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+
+
+def _lane_take(a, idx):
+    """a[b, idx[b, ...]] for a (B, T, ...) and idx (B, ...)."""
+    B = a.shape[0]
+    flat = idx.reshape(B, -1)
+    g = torch.gather(a, 1, flat.reshape(flat.shape + (1,) * (a.dim() - 2)).expand(
+        flat.shape + a.shape[2:]))
+    return g.reshape(idx.shape + a.shape[2:])
+
+
+class Ransac2Result(NamedTuple):
+    R: torch.Tensor  # (B, 3, 3)
+    inliers: torch.Tensor  # (B, T)
+    inlier_count: torch.Tensor  # (B,)
+    score: torch.Tensor  # (B,)
+
+
+def ransac2(cam1, cam2, pts1, pts2, valid, rng_key, threshold_px,
+            max_iters: int = ROT_RANSAC_MAX_ITERS, int_bits: int = 32) -> Ransac2Result:
+    """Rotation-only RANSAC over tracked pixel pairs (B, T, 2)."""
+    dtype = pts1.dtype
+    p1, _ = pixel_to_ray(cam1, pts1)
+    p2, _ = pixel_to_ray(cam2, pts2)
+    n_tracked = torch.sum(valid, dim=1)
+    k1 = jr.split(rng_key)[:, 0]
+    idx = jr.randint(k1, (max_iters, 2), 0, torch.clamp(n_tracked, min=1), int_bits)
+    slots = _lane_take(_valid_first(valid), idx)  # (B, K, 2)
+    distinct = slots[..., 0] != slots[..., 1]
+    thr2 = threshold_px * threshold_px
+
+    def count_inliers(R):  # R (B, ..., 3, 3) -> (B, ..., T)
+        lead = R.shape[1:-2]
+        pp = p1.reshape((p1.shape[0],) + (1,) * len(lead) + p1.shape[1:])
+        proj, ok = ray_to_pixel(cam2, pp @ R.transpose(-1, -2))
+        pts = pts2.reshape(pp.shape[:-1] + (2,))
+        d2 = torch.sum((proj - pts) ** 2, dim=-1)
+        vv = valid.reshape(pp.shape[:-1])
+        return vv & ok & (d2 <= thr2)
+
+    a = _lane_take(p1, slots)  # (B, K, 2, 3)
+    b = _lane_take(p2, slots)
+    Hm = a[..., 0, :, None] * b[..., 0, None, :] + a[..., 1, :, None] * b[..., 1, None, :]
+    Rs = rotation_from_cross_cov(Hm)
+    ok_pair = distinct & (n_tracked >= 2)[:, None]
+    counts = torch.where(ok_pair, torch.sum(count_inliers(Rs), dim=-1), -1)
+    best = torch.argmax(counts, dim=1)
+    R_best = Rs[torch.arange(Rs.shape[0], device=Rs.device), best]
+
+    inl0 = count_inliers(R_best)
+    enough = torch.sum(inl0, dim=1) >= 2
+    R_refit = rotation_from_cross_cov(_cross_cov(inl0.to(dtype), p1, p2))
+    R_final = torch.where(enough[:, None, None], R_refit, R_best)
+    inl = count_inliers(R_final)
+    cnt = torch.sum(inl, dim=1)
+    score = cnt / torch.clamp(n_tracked, min=1).to(dtype)
+    return Ransac2Result(R=R_final, inliers=inl, inlier_count=cnt.to(torch.int32), score=score)
+
+
+class Ransac3Result(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    inliers: torch.Tensor
+    inlier_count: torch.Tensor
+    ok: torch.Tensor
+
+
+def ransac3(prev_pts3d, cur_pts3d, cur_norm, valid, rng_key, error_thresh: float = 1e-4,
+            max_iters: int = 128, int_bits: int = 32) -> Ransac3Result:
+    """Stereo 3-point rigid-alignment RANSAC: previous and current
+    stereo-triangulated points (B, T, 3), inliers by squared normalized
+    reprojection error of the moved previous point against ``cur_norm``."""
+    dtype = prev_pts3d.dtype
+    Bn = prev_pts3d.shape[0]
+    n = torch.sum(valid, dim=1)
+    k1 = jr.split(rng_key)[:, 0]
+    idx = jr.randint(k1, (max_iters, 3), 0, torch.clamp(n, min=1), int_bits)
+    slots = _lane_take(_valid_first(valid), idx)  # (B, K, 3)
+
+    a = _lane_take(prev_pts3d, slots)  # (B, K, 3, 3)
+    b = _lane_take(cur_pts3d, slots)
+    ca = torch.mean(a, dim=-2)
+    cb = torch.mean(b, dim=-2)
+    ones = torch.ones(a.shape[:-1], dtype=dtype, device=a.device)
+    Rs = rotation_from_cross_cov(_cross_cov(ones, a - ca[..., None, :], b - cb[..., None, :]))
+    ts = cb - (Rs @ ca[..., None])[..., 0]
+
+    def count(R, t):  # (B, ..., 3, 3), (B, ..., 3) -> (B, ..., T)
+        lead = R.shape[1:-2]
+        pp = prev_pts3d.reshape((Bn,) + (1,) * len(lead) + prev_pts3d.shape[1:])
+        p = pp @ R.transpose(-1, -2) + t[..., None, :]
+        z = p[..., 2]
+        okz = z > 1e-6
+        proj = p[..., :2] / torch.where(okz, z, torch.ones_like(z))[..., None]
+        cn = cur_norm.reshape(pp.shape[:-1] + (2,))
+        e2 = torch.sum((proj - cn) ** 2, dim=-1)
+        return valid.reshape(pp.shape[:-1]) & okz & (e2 < error_thresh)
+
+    inl_all = count(Rs, ts)
+    counts = torch.sum(inl_all, dim=-1)
+    distinct = ((slots[..., 0] != slots[..., 1]) & (slots[..., 1] != slots[..., 2])
+                & (slots[..., 0] != slots[..., 2]))
+    counts = torch.where(distinct, counts, -1)
+    best = torch.argmax(counts, dim=1)
+    lanes = torch.arange(Bn, device=prev_pts3d.device)
+    R_best, t_best = Rs[lanes, best], ts[lanes, best]
+
+    inl0 = inl_all[lanes, best]
+    w = inl0.to(dtype)
+    sw = torch.clamp(torch.sum(w, dim=1), min=1.0)
+    ca = torch.sum(prev_pts3d * w[..., None], dim=1) / sw[:, None]
+    cb = torch.sum(cur_pts3d * w[..., None], dim=1) / sw[:, None]
+    R_fit = rotation_from_cross_cov(_cross_cov(w, prev_pts3d - ca[:, None], cur_pts3d - cb[:, None]))
+    t_fit = cb - (R_fit @ ca[..., None])[..., 0]
+    enough = torch.sum(inl0, dim=1) >= 3
+    R_f = torch.where(enough[:, None, None], R_fit, R_best)
+    t_f = torch.where(enough[:, None], t_fit, t_best)
+    ok = n >= 3
+    inl = count(R_f, t_f) & ok[:, None]
+    return Ransac3Result(R=R_f, t=t_f, inliers=inl,
+                         inlier_count=torch.sum(inl, dim=1).to(torch.int32), ok=ok)

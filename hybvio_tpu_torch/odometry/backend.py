@@ -1,0 +1,295 @@
+"""The odometry backend (port of the reference's ``odometry/backend.py``):
+IMU propagation and the per-frame estimator step, batch-first over B lanes.
+
+    imu_scan(state, imu) -> state
+    process_frame(state, tracker_input) -> (state, FrameOutput)
+
+The IMU samples of a frame run as a Python loop of batched EKF predicts;
+the visual update is the batched form (``batchVisualUpdate``). The
+sequential visual update, the hybrid map and the square-root filter are not
+ported and raise ``NotImplementedError`` when the module is built.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from .. import random as jr
+from ..ekf import (
+    BGA, CAM, ORI, POS, POSE_DIM, SFT, VEL, EKFState, augment_pose, init_state,
+    initialize_orientation, make_predict, undo_augmentation, update_pseudo_velocity,
+    update_zupt, update_zupt_initialization,
+)
+from ..ekf.update import normalize_current_quat
+from ..geometry.cameras import normalize_pixel
+from ..lanes import tuple_where
+from . import trail as tr
+from .batched_update import make_batched_visual_update
+from .visual_update import make_prepare_track_update
+
+STATUS_INIT = 0
+STATUS_TRACKING = 1
+STATUS_LOST_TRACKING = 2
+
+
+class TrackerInput(NamedTuple):
+    track_ids: torch.Tensor  # (B, T) int32, -1 = empty slot
+    pixels: torch.Tensor  # (B, T, C, 2)
+    keyframe: torch.Tensor  # (B,) bool
+    stereo_depth: torch.Tensor  # (B, T), -1 = none
+    track_status: Optional[torch.Tensor] = None  # (B, T) int32
+    prev_pixels: Optional[torch.Tensor] = None  # (B, T, C, 2)
+    viz_pixels: Optional[torch.Tensor] = None  # (B, T, C, 2)
+
+
+class ImuBatch(NamedTuple):
+    t: torch.Tensor  # (B, S)
+    gyro: torch.Tensor  # (B, S, 3)
+    acc: torch.Tensor  # (B, S, 3)
+    valid: torch.Tensor  # (B, S) bool
+
+
+class BackendState(NamedTuple):
+    ekf: EKFState
+    trail: tr.TrailState
+    blacklist_flags: torch.Tensor  # (B, T) bool
+    blacklist_ids: torch.Tensor  # (B, T) int32
+    frames_since_keyframe: torch.Tensor  # (B,) int32
+    orientation_initialized: torch.Tensor  # (B,) bool
+    vu_window: torch.Tensor  # (B, W)
+    vu_window_t: torch.Tensor  # (B, W)
+    vu_window_count: torch.Tensor  # (B,) int32
+    vu_window_pos: torch.Tensor  # (B,) int32
+    tracking_status: torch.Tensor  # (B,) int32
+    rng: torch.Tensor  # (B, 2) threefry keys
+    frame_number: torch.Tensor  # (B,) int32
+
+
+class FrameOutput(NamedTuple):
+    t: torch.Tensor
+    position: torch.Tensor
+    velocity: torch.Tensor
+    orientation: torch.Tensor
+    bias_gyro: torch.Tensor
+    bias_acc: torch.Tensor
+    position_cov: torch.Tensor
+    velocity_cov: torch.Tensor
+    bias_cov_diag: torch.Tensor
+    tracking_status: torch.Tensor
+    stationary_visual: torch.Tensor
+    point_cloud: torch.Tensor
+    point_cloud_status: torch.Tensor
+    point_cloud_ids: torch.Tensor
+    pose_trail: torch.Tensor
+    pose_trail_times: torch.Tensor
+    good_frame: torch.Tensor
+    keyframe: torch.Tensor
+    track_ids: torch.Tensor
+    track_norm: torch.Tensor
+    track_depth: torch.Tensor
+    track_status: torch.Tensor
+    track_prev_pixels: torch.Tensor
+    track_pixels: torch.Tensor
+    vu_tri_status: torch.Tensor
+    vu_prepare_status: torch.Tensor
+    sft: torch.Tensor
+
+
+def _set_lane_pos(a, pos, v):
+    """a[b, pos[b]] = v[b]."""
+    return a.scatter(1, pos[:, None].to(torch.int64), v[:, None].to(a.dtype))
+
+
+class Backend(nn.Module):
+    """The estimator for static parameters; buffers hold the extrinsics."""
+
+    def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
+        super().__init__()
+        po, pt = params.odometry, params.tracker
+        for name, bad in (("mono backend", not pt.useStereo),
+                          ("hybridMapSize > 0", po.hybridMapSize > 0),
+                          ("useSquareRootEkf", bool(getattr(po, "useSquareRootEkf", False))),
+                          ("batchVisualUpdate = false", not bool(getattr(po, "batchVisualUpdate", False))),
+                          ("visualUpdateForEveryNFrame > 1", po.visualUpdateForEveryNFrame > 1),
+                          ("visualUpdateEnabled = false", not po.visualUpdateEnabled),
+                          ("trackSampling != GAP", tr.SAMPLING[po.trackSampling] != tr.SAMPLING_GAP)):
+            if bad:
+                raise NotImplementedError(name)
+        self.po = po
+        self.n_cams = 2
+        self.cameras = tuple(cameras)
+        self.T = max_tracks if max_tracks is not None else pt.maxTracks
+        self.L = po.cameraTrailLength
+        self.d = CAM + POSE_DIM * self.L
+        self.dtype = dtype
+        self.noise_scale = po.noiseScale**2
+        self.NV = min(self.T, (po.maxVisualUpdates if po.maxVisualUpdates > 0 else self.T) + 12)
+        self.W_arm = max(int(pt.targetFps / max(po.visualUpdateForEveryNFrame, 1)
+                             * po.goodFramesTimeWindowSeconds), 1)
+        self.W = max(2 * self.W_arm, 4)
+        self.register_buffer("imu_to_camera", torch.as_tensor(derived.imu_to_camera, dtype=dtype))
+        self.register_buffer("second_imu_to_camera",
+                             torch.as_tensor(derived.second_imu_to_camera, dtype=dtype))
+        self._predict = make_predict(po)
+        f = cameras[0].focal_length
+        self.visual_r = po.visualR / f
+        self.rmse_thr0 = po.trackRmseThreshold / f if po.trackRmseThreshold >= 0 else -1.0
+        self.chi_r0 = po.trackChiTestOutlierR / f if po.trackChiTestOutlierR >= 0 else -1.0
+
+    def _visual_update(self):
+        # built per call so the closure sees the buffers on their current device
+        prepare = make_prepare_track_update(
+            self.po, self.imu_to_camera, self.second_imu_to_camera, True, self.d)
+        return make_batched_visual_update(
+            self.po, prepare, self.d, self.NV, self.n_cams,
+            self.visual_r, self.rmse_thr0, self.chi_r0)
+
+    def init_state(self, rng_keys) -> BackendState:
+        """rng_keys: (B, 2) threefry keys."""
+        B = rng_keys.shape[0]
+        dev = self.imu_to_camera.device
+        T, W, dt = self.T, self.W, self.dtype
+        i32 = dict(dtype=torch.int32, device=dev)
+        return BackendState(
+            ekf=init_state(self.po, B, dt, dev),
+            trail=tr.init_trail(self.po, B, T, self.n_cams, dt, dev),
+            blacklist_flags=torch.zeros((B, T), dtype=torch.bool, device=dev),
+            blacklist_ids=torch.full((B, T), -1, **i32),
+            frames_since_keyframe=torch.zeros((B,), **i32),
+            orientation_initialized=torch.zeros((B,), dtype=torch.bool, device=dev),
+            vu_window=torch.zeros((B, W), dtype=dt, device=dev),
+            vu_window_t=torch.full((B, W), float("-inf"), dtype=dt, device=dev),
+            vu_window_count=torch.zeros((B,), **i32),
+            vu_window_pos=torch.zeros((B,), **i32),
+            tracking_status=torch.full((B,), STATUS_INIT, **i32),
+            rng=rng_keys.to(dev),
+            frame_number=torch.zeros((B,), **i32),
+        )
+
+    def imu_scan(self, state: BackendState, batch: ImuBatch) -> BackendState:
+        po, ns = self.po, self.noise_scale
+        for s in range(batch.t.shape[1]):
+            t, g, a = batch.t[:, s], batch.gyro[:, s], batch.acc[:, s]
+            ekf = state.ekf
+            ekf = tuple_where(state.orientation_initialized, ekf,
+                              initialize_orientation(ekf, a, po.noiseInitialOri, ns))
+            ekf = self._predict(ekf, t, g, a)
+            ekf = ekf._replace(m=normalize_current_quat(ekf.m))
+            if po.useDecayingZeroVelocityUpdate:
+                ekf = update_zupt_initialization(ekf, po.initZuptR, ns)
+            if po.usePseudoVelocity:
+                h = torch.linalg.norm(ekf.m[:, VEL:VEL + 2], dim=-1)
+                ekf = tuple_where(h > po.pseudoVelocityLimit, update_pseudo_velocity(
+                    ekf, po.pseudoVelocityTarget, po.pseudoVelocityR, ns), ekf)
+            valid = batch.valid[:, s]
+            state = state._replace(
+                ekf=tuple_where(valid, ekf, state.ekf),
+                orientation_initialized=state.orientation_initialized | valid)
+        return state
+
+    def process_frame(self, state: BackendState, tin: TrackerInput):
+        po, L, T = self.po, self.L, self.T
+        ekf = state.ekf
+        B = ekf.m.shape[0]
+        t_frame = ekf.prev_sample_t
+        frame_number = state.frame_number + 1
+        keyframe = tin.keyframe
+        frames_since_kf = torch.where(keyframe, torch.zeros_like(state.frames_since_keyframe),
+                                      state.frames_since_keyframe + 1)
+        stationary_visual = frames_since_kf >= po.visualStationarityFrameCountThreshold
+        if po.useVisualStationarity:
+            ekf = tuple_where(stationary_visual,
+                              update_zupt(ekf, po.visualZuptR, self.noise_scale), ekf)
+        state = state._replace(ekf=ekf, frames_since_keyframe=frames_since_kf,
+                               frame_number=frame_number)
+        T_in = tin.track_ids.shape[1]
+        # non-keyframe: drop the head keyframe and undo its augmentation
+        state = state._replace(
+            trail=tuple_where(keyframe, state.trail, tr.pop_head_keyframe(state.trail)),
+            ekf=tuple_where(keyframe, state.ekf, undo_augmentation(state.ekf, L)))
+        norm0, ok0 = normalize_pixel(self.cameras[0], tin.pixels[:, :, 0, :])
+        norm1, ok1 = normalize_pixel(self.cameras[1], tin.pixels[:, :, 1, :])
+        norm = torch.stack([norm0, norm1], dim=2)
+        valid = (tin.track_ids >= 0) & ok0 & ok1
+        ids = torch.where(valid, tin.track_ids, torch.full_like(tin.track_ids, -1))
+        trail = tr.insert_head_features(
+            state.trail, tin.track_ids, norm, tin.pixels[:, :, 0, :], valid,
+            timestamp=t_frame, estimate_velocities=bool(po.estimateImuCameraTimeShift))
+        kf_frame_num = trail.kf_frame_num.clone()
+        kf_frame_num[:, 0] = frame_number
+        trail = tr.prune(trail._replace(kf_frame_num=kf_frame_num), ids)
+        keys = jr.split(state.rng)
+        state = state._replace(trail=trail, rng=keys[:, 0])
+        state, pc, need_more, too_many_failures = self._visual_update()(
+            state, ids, valid, keys[:, 1])
+        good_frame = (stationary_visual | ~need_more) & ~too_many_failures
+
+        removed, counter = tr.removed_keyframe_index(state.trail, po)
+        trail = tr.push_head_keyframe(state.trail._replace(frame_counter=counter),
+                                      removed, frame_number, t_frame)
+        state = state._replace(ekf=augment_pose(state.ekf, removed - 1, po), trail=trail)
+
+        W = self.W
+        vu_window = _set_lane_pos(state.vu_window, state.vu_window_pos,
+                                  good_frame.to(state.vu_window.dtype))
+        vu_window_t = _set_lane_pos(state.vu_window_t, state.vu_window_pos, t_frame)
+        pos_ = (state.vu_window_pos + 1) % W
+        count = torch.clamp(state.vu_window_count + 1, max=W)
+        window = po.goodFramesTimeWindowSeconds
+        in_window = vu_window_t >= (t_frame - window)[:, None]
+        n_in = torch.sum(in_window, dim=1)
+        mean_vu = (torch.sum(torch.where(in_window, vu_window, torch.zeros_like(vu_window)), dim=1)
+                   / torch.clamp(n_in, min=1))
+        t_oldest = torch.min(torch.where(vu_window_t > float("-inf"), vu_window_t,
+                                         torch.full_like(vu_window_t, float("inf"))), dim=1).values
+        span_ok = (count > 1) & (t_frame - t_oldest >= window)
+        enough = (count > self.W_arm // 2) | span_ok
+        status = state.tracking_status
+        status = torch.where(enough & (status != STATUS_TRACKING)
+                             & (mean_vu > po.goodFramesToTracking),
+                             torch.full_like(status, STATUS_TRACKING), status)
+        status = torch.where(enough & (status == STATUS_TRACKING)
+                             & (mean_vu < po.goodFramesToTrackingFailed),
+                             torch.full_like(status, STATUS_LOST_TRACKING), status)
+        state = state._replace(vu_window=vu_window, vu_window_t=vu_window_t,
+                               vu_window_pos=pos_.to(torch.int32),
+                               vu_window_count=count.to(torch.int32),
+                               tracking_status=status.to(torch.int32))
+
+        ekf = state.ekf
+        m, P = ekf.m, ekf.P
+        C_in = tin.pixels.shape[2]
+        dev = m.device
+        out = FrameOutput(
+            t=t_frame,
+            position=m[:, POS:POS + 3],
+            velocity=m[:, VEL:VEL + 3],
+            orientation=m[:, ORI:ORI + 4],
+            bias_gyro=m[:, BGA:BGA + 3],
+            bias_acc=m[:, 13:16],
+            position_cov=P[:, POS:POS + 3, POS:POS + 3],
+            velocity_cov=P[:, VEL:VEL + 3, VEL:VEL + 3],
+            bias_cov_diag=torch.diagonal(P, dim1=1, dim2=2)[:, BGA:BGA + 9],
+            tracking_status=state.tracking_status,
+            stationary_visual=stationary_visual,
+            point_cloud=pc[0], point_cloud_status=pc[1], point_cloud_ids=pc[2],
+            pose_trail=m[:, CAM:CAM + POSE_DIM * L].reshape(B, L, POSE_DIM),
+            pose_trail_times=ekf.pose_times,
+            good_frame=good_frame,
+            keyframe=keyframe,
+            track_ids=state.trail.kf_track_id[:, 1],
+            track_norm=state.trail.kf_norm[:, 1, :, 0, :],
+            track_depth=tin.stereo_depth,
+            track_status=(tin.track_status if tin.track_status is not None
+                          else torch.full((B, T_in), -1, dtype=torch.int32, device=dev)),
+            track_prev_pixels=(tin.prev_pixels if tin.prev_pixels is not None
+                               else torch.zeros((B, T_in, C_in, 2), dtype=tin.pixels.dtype,
+                                                device=dev)),
+            track_pixels=tin.viz_pixels if tin.viz_pixels is not None else tin.pixels,
+            vu_tri_status=pc[3],
+            vu_prepare_status=pc[4],
+            sft=m[:, SFT],
+        )
+        return state, out

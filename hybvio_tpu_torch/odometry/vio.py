@@ -1,0 +1,149 @@
+"""Full stereo VIO step: image front-end + odometry backend (port of the
+reference's ``odometry/vio.py``), batch-first over B lanes that share each
+stereo frame.
+
+    step = imu_only -> track_stage (predict_flow, Tracker.track_frame)
+           -> backend_stage (Backend.process_frame)
+
+``predict_flow`` gives each track an LK guess: its distance from the
+widest-baseline two-view triangulation over the pose trail (at least
+predictOpticalFlowMinTriangulationDistance), the previous corner unprojected
+at that distance and reprojected with the current EKF pose, in both cameras.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from .. import random as jr
+from ..ekf import ORI, POS
+from ..frontend.tracker import Tracker, TrackerState
+from ..geometry.cameras import pixel_to_ray, ray_to_pixel
+from ..geometry.poses import to_camera_to_world, to_world_to_camera, transform_vec3
+from ..runtime import IMAGE_DTYPE, random_int_bits
+from . import trail as tr
+from .backend import Backend, BackendState, ImuBatch, TrackerInput
+from .batched_update import gather_pose_states
+from .triangulation import camera_poses_from_states, triangulate_two_cameras
+
+
+class VioState(NamedTuple):
+    backend: BackendState
+    tracker: TrackerState
+    tracker_ready: torch.Tensor  # (B,) bool
+
+
+def normalize_input(img):
+    """Integer frames (e.g. uint8) -> [0, 1] float32 on the device."""
+    if img.is_floating_point():
+        return img
+    return img.to(IMAGE_DTYPE) * torch.tensor(1.0 / 255.0, dtype=IMAGE_DTYPE, device=img.device)
+
+
+def _lane_gather(a, idx):
+    """a[b, idx[b, t], t, :] for a (B, K, T, D) and idx (B, T)."""
+    view = idx[:, None, :, None].expand(a.shape[0], 1, a.shape[2], a.shape[3])
+    return torch.gather(a, 1, view)[:, 0]
+
+
+class Vio(nn.Module):
+    """The stereo VIO for static parameters; ``dtype`` is the filter's."""
+
+    def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
+        super().__init__()
+        pt = params.tracker
+        if not pt.useStereo:
+            raise NotImplementedError("mono VIO")
+        if not pt.predictOpticalFlow:
+            raise NotImplementedError("predictOpticalFlow = false")
+        if pt.useStereoUpright2p and not pt.useRansac3:
+            raise NotImplementedError("upright-2p RANSAC")
+        self.pt = pt
+        self.dtype = dtype
+        self.cameras = tuple(cameras)
+        self.T = max_tracks if max_tracks is not None else pt.maxTracks
+        self.L = params.odometry.cameraTrailLength
+        self.backend = Backend(params, derived, cameras, max_tracks=self.T, dtype=dtype)
+        self.tracker = Tracker(params, cameras, derived, max_tracks=self.T,
+                               int_bits=random_int_bits(dtype))
+
+    def init_state(self, first_image, t0, rng_keys, second_image) -> VioState:
+        first_image = normalize_input(first_image)
+        second_image = normalize_input(second_image)
+        return VioState(
+            backend=self.backend.init_state(rng_keys),
+            tracker=self.tracker.init_state(first_image, t0, second_image),
+            tracker_ready=torch.ones_like(t0, dtype=torch.bool))
+
+    def predict_flow(self, bstate: BackendState, tstate: TrackerState):
+        """Per-slot predicted pixels (B, T, 2) in the left and right camera."""
+        m = bstate.ekf.m
+        B = m.shape[0]
+        K = self.L + 1
+        i2c = self.backend.imu_to_camera
+        pose_states = gather_pose_states(m, self.L)
+        cp = camera_poses_from_states(pose_states, i2c)
+        exists = tr.feature_exists(bstate.trail, tstate.track_ids)  # (B, K, T)
+        ks = torch.arange(K, device=m.device)[None, :, None]
+        k0 = torch.amin(torch.where(exists, ks, K), dim=1)
+        k1 = torch.amax(torch.where(exists, ks, -1), dim=1)
+        has_baseline = (k1 - k0) >= 10
+        k0c = torch.clamp(k0, 0, K - 1)
+        k1c = torch.clamp(k1, 0, K - 1)
+        kn = bstate.trail.kf_norm[:, :, :, 0, :]
+        pick = lambda a, k: torch.gather(a, 1, k.reshape(k.shape + (1,) * (a.dim() - 2)).expand(
+            k.shape + a.shape[2:]))
+        pf = triangulate_two_cameras(pick(cp.p, k0c), pick(cp.R, k0c), pick(cp.p, k1c),
+                                     pick(cp.R, k1c), _lane_gather(kn, k0c), _lane_gather(kn, k1c))
+        dist = torch.where(has_baseline & (pf[..., 2] > 0.0), torch.linalg.norm(pf, dim=-1),
+                           torch.full_like(pf[..., 2], -1.0))
+        dist = torch.clamp(dist, min=self.pt.predictOpticalFlowMinTriangulationDistance)
+
+        c0 = self.cameras[0]
+        prev_px = tstate.px[:, :, 0, :].to(m.dtype)
+        ray0, ok0 = pixel_to_ray(c0, prev_px)
+        cam_to_world = to_camera_to_world(pose_states[:, 1, :3], pose_states[:, 1, 3:], i2c)
+        pos, ori = m[:, POS:POS + 3], m[:, ORI:ORI + 4]
+        world_to_cam = to_world_to_camera(pos, ori, i2c)
+        pw = transform_vec3(cam_to_world[:, None], ray0 * dist[..., None])
+        pix1, ok1 = ray_to_pixel(c0, transform_vec3(world_to_cam[:, None], pw))
+        guess = torch.where((ok0 & ok1)[..., None], pix1, prev_px)
+        world_to_cam2 = to_world_to_camera(pos, ori, self.backend.second_imu_to_camera)
+        pix2, ok2 = ray_to_pixel(self.cameras[1], transform_vec3(world_to_cam2[:, None], pw))
+        guess2 = torch.where((ok0 & ok2)[..., None], pix2, guess)
+        return guess.to(IMAGE_DTYPE), guess2.to(IMAGE_DTYPE)
+
+    def imu_only(self, state: VioState, imu: ImuBatch) -> VioState:
+        return state._replace(backend=self.backend.imu_scan(state.backend, imu))
+
+    def track_stage(self, state: VioState, t, image, second_image):
+        image = normalize_input(image)
+        second_image = normalize_input(second_image)
+        bstate = state.backend
+        guess, stereo_guess = self.predict_flow(bstate, state.tracker)
+        keys = jr.split(bstate.rng)
+        tkey = jr.fold_in(keys[:, 1], self.pt.ransacRngSeed)
+        bstate = bstate._replace(rng=keys[:, 0])
+        tstate, tout = self.tracker.track_frame(
+            state.tracker, image, tkey, t, flow_guess=guess,
+            blacklist_flags=bstate.blacklist_flags, blacklist_ids=bstate.blacklist_ids,
+            second_image=second_image, stereo_guess=stereo_guess)
+        dtype = self.dtype
+        tin = TrackerInput(
+            track_ids=tout.track_ids, pixels=tout.pixels.to(dtype), keyframe=tout.keyframe,
+            stereo_depth=torch.full(tout.track_ids.shape, -1.0, dtype=dtype, device=t.device),
+            track_status=tout.status, prev_pixels=tout.prev_pixels, viz_pixels=tout.viz_pixels)
+        return VioState(backend=bstate, tracker=tstate, tracker_ready=state.tracker_ready), tin
+
+    def backend_stage(self, state: VioState, tin: TrackerInput):
+        bstate, out = self.backend.process_frame(state.backend, tin)
+        return state._replace(backend=bstate), out
+
+    def step(self, state: VioState, imu: ImuBatch, image, second_image):
+        """IMU propagation first, so the flow prediction uses the pose at
+        the frame time."""
+        state = self.imu_only(state, imu)
+        state, tin = self.track_stage(state, imu.t[:, -1], image, second_image)
+        return self.backend_stage(state, tin)

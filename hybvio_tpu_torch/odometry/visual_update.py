@@ -1,0 +1,142 @@
+"""Visual-update measurement model (port of the reference's
+``odometry/visual_update.py``): (H, f, y) for a batch of feature tracks.
+
+The measurement function
+
+    h(poses, sft) = project_all(poses, triangulate(poses, feats + sft*vels))
+                    - sft * vels
+
+is written once per track and ``torch.func.vmap(torch.func.jacfwd(h))``
+gives the full Jacobian, including the chain through the GN triangulation
+and the IMU-camera time-shift column.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ekf.state import CAM, ORI, POS, POSE_DIM, SFT
+from .triangulation import (
+    TRI_BAD_DEPTH, TRI_OK, CameraPoses, camera_poses_from_states, triangulate_gn,
+)
+
+PREPARE_VU_OK = 0
+PREPARE_VU_BEHIND = 1
+PREPARE_VU_ZERO_DEPTH = 2
+
+
+class TrackUpdateData(NamedTuple):
+    H: torch.Tensor  # (..., rows, d) full-width Jacobian, masked rows zero
+    f: torch.Tensor  # (..., rows)
+    y: torch.Tensor  # (..., rows)
+    row_mask: torch.Tensor  # (..., rows) bool
+    tri_status: torch.Tensor  # (...,) int64
+    prepare_status: torch.Tensor  # (...,) int64
+    pf: torch.Tensor  # (..., 3) triangulated world point
+
+
+def _project(poses: CameraPoses, pf):
+    pfc = (poses.R @ (pf[None, :] - poses.p)[..., None])[..., 0]
+    z = pfc[:, 2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
+    return pfc[:, :2] / safe_z[:, None], z
+
+
+def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stereo, d):
+    """prepare(pose_states (..., N, 7), ips (..., C*N, 2), vels (..., C*N, 2),
+    mask (..., N)) -> TrackUpdateData, where row k of the poses is trail
+    index k (0 = current pose) and masked rows hold a finite stand-in pose.
+
+    ``imu_to_camera`` / ``second_imu_to_camera`` are 4x4 tensors in the
+    filter dtype. The hybrid-map, independent-stereo and linear
+    triangulation variants are not ported."""
+    if po.hybridMapSize > 0:
+        raise NotImplementedError("hybrid map (hybridMapSize > 0)")
+    if use_stereo and po.useIndependentStereoTriangulation:
+        raise NotImplementedError("useIndependentStereoTriangulation")
+    if po.useLinearTriangulation:
+        raise NotImplementedError("useLinearTriangulation")
+    est_sft = bool(po.estimateImuCameraTimeShift)
+    n_cams = 2 if use_stereo else 1
+    i2c = imu_to_camera
+    i2c2 = second_imu_to_camera
+
+    def trail_from_states(ps):
+        t0 = camera_poses_from_states(ps, i2c)
+        if not use_stereo:
+            return t0
+        t1 = camera_poses_from_states(ps, i2c2)
+        return CameraPoses(torch.cat([t0.p, t1.p], dim=-2), torch.cat([t0.R, t1.R], dim=-3))
+
+    def one_track(x, ips, vels, mask):
+        """h of one track and its triangulation outcome (as aux)."""
+        N = mask.shape[0]
+        ps = x[:N * 7].reshape(N, 7)
+        sft = x[N * 7]
+        feats = ips + sft * vels if est_sft else ips
+        trail = trail_from_states(ps)
+        rcond_thr = po.triangulationRcondThreshold
+        if ips.dtype == torch.float32:
+            rcond_thr = max(rcond_thr, 1e-5)
+        pf, status = triangulate_gn(
+            trail, feats, mask.repeat(n_cams),
+            gn_iterations=int(po.triangulationGaussNewtonIterations),
+            convergence_threshold=po.triangulationConvergenceThreshold,
+            convergence_r=po.triangulationConvergenceR,
+            rcond_threshold=rcond_thr, stereo=use_stereo)
+        proj, _ = _project(trail, pf)
+        out = proj.reshape(-1)
+        if est_sft:
+            out = out - sft * vels.reshape(-1)
+        return out, (out, pf, status)
+
+    jac = torch.func.vmap(torch.func.jacfwd(one_track, has_aux=True))
+
+    def prepare(pose_states, ips, vels, mask) -> TrackUpdateData:
+        lead = mask.shape[:-1]
+        N = mask.shape[-1]
+        rows = 2 * n_cams * N
+        dtype = pose_states.dtype
+        flat = lambda a: a.reshape((-1,) + a.shape[len(lead):])
+        ps_f, ips_f, vels_f, mask_f = flat(pose_states), flat(ips), flat(vels), flat(mask)
+        NB = mask_f.shape[0]
+        x0 = torch.cat([ps_f.reshape(NB, N * 7),
+                        torch.zeros((NB, 1), dtype=dtype, device=ps_f.device)], dim=1)
+        J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
+
+        trail = trail_from_states(ps_f)
+        depth = torch.linalg.norm(pf - trail.p[:, 0], dim=-1)
+        max_dist = po.triangulationMaxDist
+        if max_dist > torch.finfo(dtype).max:
+            max_dist = float("inf")
+        bad_depth = (depth < po.triangulationMinDist) | (depth > max_dist)
+        tri_status = torch.where((tri_status == TRI_OK) & bad_depth, TRI_BAD_DEPTH, tri_status)
+
+        full_mask = mask_f.repeat(1, n_cams)
+        z = (trail.R @ (pf[:, None, :] - trail.p)[..., None])[..., 2, 0]
+        zero_depth = torch.any(full_mask & (torch.abs(z) < 1e-12), dim=1)
+        behind = torch.any(full_mask & (z < 0), dim=1)
+        prepare_status = torch.where(zero_depth, PREPARE_VU_ZERO_DEPTH,
+                                     torch.where(behind, PREPARE_VU_BEHIND, PREPARE_VU_OK))
+
+        # place the per-pose Jacobian columns: pose 0 -> POS / ORI blocks,
+        # pose k >= 1 -> trail block k-1; masked poses contribute nothing
+        Jp = J[:, :, :N * 7].reshape(NB, rows, N, 7)
+        Jp = torch.where(mask_f[:, None, :, None], Jp, torch.zeros_like(Jp))
+        H = torch.zeros((NB, rows, d), dtype=dtype, device=J.device)
+        H[:, :, POS:POS + 3] = Jp[:, :, 0, :3]
+        H[:, :, ORI:ORI + 4] = Jp[:, :, 0, 3:]
+        H[:, :, CAM:CAM + POSE_DIM * (N - 1)] = Jp[:, :, 1:].reshape(NB, rows, -1)
+        if est_sft:
+            H[:, :, SFT] = J[:, :, N * 7]
+        row_mask = full_mask.repeat_interleave(2, dim=1)
+        rmf = row_mask.to(dtype)
+        H = H * rmf[:, :, None]
+        unflat = lambda a: a.reshape(lead + a.shape[1:])
+        return TrackUpdateData(
+            H=unflat(H), f=unflat(f * rmf), y=unflat(ips_f.reshape(NB, -1) * rmf),
+            row_mask=unflat(row_mask), tri_status=unflat(tri_status),
+            prepare_status=unflat(prepare_status), pf=unflat(pf))
+
+    return prepare

@@ -1,0 +1,45 @@
+"""Shi-Tomasi corner response (kernel ``csrc/corner_response.cu``; replaces
+the reference's ``ops/gftt_pallas.py`` corner_response_pallas) and its
+plain PyTorch version, the reference's XLA composition."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._lib import launch, require_cuda
+from .pyramid import sep_conv2d
+
+_SOBEL_D = np.array([-1.0, 0.0, 1.0])
+_SOBEL_S = np.array([1.0, 2.0, 1.0])
+
+
+def corner_response_plain(img, block_size: int = 3):
+    """Unnormalized Sobel -> box-mean structure matrix -> min eigenvalue."""
+    ix = sep_conv2d(img, _SOBEL_D, _SOBEL_S)
+    iy = sep_conv2d(img, _SOBEL_S, _SOBEL_D)
+    box = np.ones(block_size)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which is not the IEEE quotient the kernel computes
+    n = torch.tensor(float(block_size * block_size), dtype=img.dtype, device=img.device)
+    sxx = sep_conv2d(ix * ix, box, box) / n
+    syy = sep_conv2d(iy * iy, box, box) / n
+    sxy = sep_conv2d(ix * iy, box, box) / n
+    tr2 = 0.5 * (sxx + syy)
+    det = sxx * syy - sxy * sxy
+    return tr2 - torch.sqrt(torch.clamp(tr2 * tr2 - det, min=0.0))
+
+
+def corner_response(img, block_size: int = 3):
+    """(H, W) response of an (H, W) image; kernel on CUDA, plain on CPU."""
+    if img.device.type == "cpu":
+        return corner_response_plain(img, block_size)
+    require_cuda(img, dtype=torch.float32)
+    if img.dim() != 2 or not img.is_contiguous():
+        raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
+    if block_size < 1 or block_size % 2 == 0:
+        raise ValueError(f"block size {block_size} must be odd")
+    H, W = img.shape
+    out = torch.empty_like(img)
+    launch("corner_response", "hv_corner_response", img.data_ptr(), H, W, block_size,
+           out.data_ptr())
+    return out
