@@ -2,14 +2,19 @@
 PyTorch, with its image kernels hand-written in CUDA for the NVIDIA H100.
 
 The JAX package ``hybvio_tpu`` is the reference; this package imports
-``torch`` and never ``jax`` (only the numpy-only ``hybvio_tpu.config`` and
-``hybvio_tpu.io.synthetic`` / ``hybvio_tpu.eval.ate`` of it). Every module
-sits at its reference counterpart's path; every tensor is batch-first, with
-a leading lane axis where the reference used ``jax.vmap``.
+``torch`` and never ``jax`` nor anything of ``hybvio_tpu``: it keeps its own
+copies of the parameter surface (``config/``), the synthetic world
+(``io/synthetic.py``) and the ATE (``eval/ate.py``). Every module sits at its
+reference counterpart's path; every tensor is batch-first, with a leading
+lane axis where the reference used ``jax.vmap``. The entry points run on the
+card unless the caller passes ``device="cpu"``.
 
 Layout:
   runtime.py   device and precision policy (f64 filter on CPU, f32 on CUDA,
                no TF32)
+  config/      Parameters, parameter_names, DerivedParameters
+  io/          the synthetic world of the smoke run and the tests
+  eval/        ATE
   random.py    threefry2x32, bit-exact with jax.random
   geometry/    quaternions, poses, pinhole camera
   ekf/         filter state, predict, updates, augmentation

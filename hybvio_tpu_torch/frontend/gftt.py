@@ -86,8 +86,8 @@ def subpixel_refine(img, xy, window: int = 10, iters: int = 5, epsilon: float = 
     gy_img = torch.zeros_like(img)
     gy_img[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
     ps = 2 * w + 3
-    gxp, c = gather_window_patches(gx_img.expand(B, H, W), xy, ps)
-    gyp, _ = gather_window_patches(gy_img.expand(B, H, W), xy, ps)
+    (gxp, gyp), c = gather_window_patches((gx_img.expand(B, H, W), gy_img.expand(B, H, W)),
+                                          xy, ps)
     ax = torch.arange(-r, r + 1, dtype=dtype, device=img.device)
     oy, ox = torch.meshgrid(ax, ax, indexing="ij")
 

@@ -2,9 +2,10 @@
 ``frontend/lk.py``), batch-first: points (B, N, 2), images (B, H, W) whose
 batch stride may be 0 (one frame shared by every lane).
 
-Each level gathers one template and one search patch per feature with the
-patch-gather kernel, then samples the rigid window at a subpixel shift as
-two small products with bilinear selection matrices, as the reference does.
+Each level gathers the template, Ix and Iy patches per feature in one
+patch-gather launch and the search patch in another, then samples the rigid
+window at a subpixel shift as two small products with bilinear selection
+matrices, as the reference does.
 The iteration count is fixed at ``max_iter`` with converged points frozen,
 which gives the reference's while-loop result without a host sync.
 """
@@ -32,14 +33,15 @@ class LKParams(NamedTuple):
     min_eig_threshold: float = 1e-3
 
 
-def gather_window_patches(img, centers, ps: int):
-    """(B, N, ps, ps) integer-aligned patches around ``centers`` (B, N, 2)
-    and their int origins (B, N, 2) as (x, y)."""
-    H, W = img.shape[-2:]
+def gather_window_patches(images, centers, ps: int):
+    """The (B, N, ps, ps) integer-aligned patches around ``centers`` (B, N, 2)
+    of each of ``images`` (one launch for all of them), and their int
+    origins (B, N, 2) as (x, y)."""
+    H, W = images[0].shape[-2:]
     r = ps // 2
     cx = torch.clamp(torch.floor(centers[..., 0]).to(torch.int32) - r, 0, W - ps)
     cy = torch.clamp(torch.floor(centers[..., 1]).to(torch.int32) - r, 0, H - ps)
-    return gather_patches(img, cy, cx, ps), torch.stack([cx, cy], dim=-1)
+    return gather_patches(images, cy, cx, ps), torch.stack([cx, cy], dim=-1)
 
 
 def window_shift_sample(patches, corner, q, w: int, ps: int):
@@ -71,9 +73,7 @@ def lk_track_level(prev_img, prev_ix, prev_iy, cur_img, prev_pts, guesses,
     margin = max(min(margin, (min(H, W) - w - 3) // 2), 1)
 
     ps_t = w + 3
-    tp, tc = gather_window_patches(prev_img, prev_pts, ps_t)
-    xp, _ = gather_window_patches(prev_ix, prev_pts, ps_t)
-    yp, _ = gather_window_patches(prev_iy, prev_pts, ps_t)
+    (tp, xp, yp), tc = gather_window_patches((prev_img, prev_ix, prev_iy), prev_pts, ps_t)
     t = window_shift_sample(tp, tc, prev_pts, w, ps_t).reshape(B, N, -1)
     ix = window_shift_sample(xp, tc, prev_pts, w, ps_t).reshape(B, N, -1)
     iy = window_shift_sample(yp, tc, prev_pts, w, ps_t).reshape(B, N, -1)
@@ -90,7 +90,7 @@ def lk_track_level(prev_img, prev_ix, prev_iy, cur_img, prev_pts, guesses,
     safe_det = torch.where(ok_g, det_g, torch.ones_like(det_g))
 
     ps_c = w + 2 * margin + 3
-    cp, cc = gather_window_patches(cur_img, guesses, ps_c)
+    (cp,), cc = gather_window_patches((cur_img,), guesses, ps_c)
     t_zm = t - torch.mean(t, dim=-1, keepdim=True)
     templ_ok = ((prev_pts[..., 0] >= r) & (prev_pts[..., 0] < W - r)
                 & (prev_pts[..., 1] >= r) & (prev_pts[..., 1] < H - r))

@@ -1,27 +1,12 @@
 """Benchmark preset of the port (the reference's
-``models.synthetic_bench_params`` and ``_finalize``, without jax)."""
+``models.synthetic_bench_params`` and ``_finalize``)."""
 from __future__ import annotations
 
 import numpy as np
 
-from hybvio_tpu.config import DerivedParameters, Parameters
-
+from ..config import DerivedParameters, Parameters
 from ..geometry.cameras import build_camera_from_params
-from ..geometry.poses import vec2matrix
-
-
-def derived_parameters(p: Parameters) -> DerivedParameters:
-    """The 4x4 extrinsics of a parameter set (the reference's
-    ``DerivedParameters.from_parameters``)."""
-    imu_to_camera = vec2matrix(p.odometry.imuToCameraMatrix)
-    if len(p.odometry.secondImuToCameraMatrix) > 1:
-        second = vec2matrix(p.odometry.secondImuToCameraMatrix)
-    else:
-        second = imu_to_camera.copy()
-    if len(p.odometry.secondImuToCameraMatrix) < 16:
-        second[:3, 3] += np.asarray(p.odometry.stereoCameraTranslation, dtype=np.float64)
-    imu_to_output = imu_to_camera if p.odometry.outputCameraPose else np.eye(4)
-    return DerivedParameters(imu_to_camera, second, imu_to_output)
+from ..io.synthetic import SYNTH_IMU_TO_CAMERA
 
 
 def _finalize(p: Parameters, width: int, height: int):
@@ -29,7 +14,7 @@ def _finalize(p: Parameters, width: int, height: int):
     cams = [build_camera_from_params(p.tracker, width, height)]
     if p.tracker.useStereo:
         cams.append(build_camera_from_params(p.tracker, width, height, second=True))
-    return p, derived_parameters(p), tuple(cams)
+    return p, DerivedParameters.from_parameters(p), tuple(cams)
 
 
 def synthetic_bench_params(config: str = "stereo") -> Parameters:
@@ -37,8 +22,6 @@ def synthetic_bench_params(config: str = "stereo") -> Parameters:
     stereo configuration runs in the port so far."""
     if config != "stereo":
         raise NotImplementedError(f"preset {config!r}")
-    from hybvio_tpu.io.synthetic import SYNTH_IMU_TO_CAMERA
-
     p = Parameters()
     p.odometry.cameraTrailLength = 12
     p.tracker.maxTracks = 96

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source for ``sm_90a`` into one shared
-library with a plain C interface under ``build/`` at the repository root,
-and ``ctypes`` loads it. Each C entry point launches on the stream it is
+At first use, ``nvcc`` compiles every source for ``sm_90a`` (one process
+per source, all at once) and links them into one shared library with a
+plain C interface under ``build/`` at the repository root, and ``ctypes``
+loads it. Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``. Nothing here runs at import: the
 CPU tests import every module and never build.
 """
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIB_PATH = BUILD_DIR / "libhybvio_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset (counted by the wrappers)
 LAUNCHES = {"patch_gather": 0, "pyr_down": 0, "scharr": 0,
@@ -29,8 +30,9 @@ LAUNCHES = {"patch_gather": 0, "pyr_down": 0, "scharr": 0,
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "hv_patch_gather": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    "hv_patch_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_pyr_down": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_scharr": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     "hv_corner_response": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
@@ -59,12 +61,24 @@ def build(force: bool = False) -> float:
             and LIB_PATH.stat().st_mtime >= max(s.stat().st_mtime for s in sources)):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(".so.tmp")
     t0 = time.perf_counter()
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = nvcc_path()
+    objects = [BUILD_DIR / (s.stem + ".o") for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(sources, objects)]
+    failed = []
+    for s, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{s.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = LIB_PATH.with_suffix(".so.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 

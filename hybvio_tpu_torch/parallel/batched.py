@@ -13,20 +13,25 @@ import torch
 
 from .. import random as jr
 from ..odometry.vio import Vio
+from ..runtime import default_device, filter_dtype
 
 
 def make_batched_vio(params, derived, cameras, batch_size: int, max_tracks=None,
-                     dtype=torch.float64, shared_frames: bool = True, device=None):
-    """(batched_init, batched_step, vio).
+                     dtype=None, shared_frames: bool = True, device="cuda"):
+    """(batched_init, batched_step, vio), on the card unless ``device`` is
+    "cpu"; ``dtype`` (the filter's) defaults to ``runtime.filter_dtype``.
 
     batched_init((left, right), t0s (B,), seeds (B,)) -> VioState
     batched_step(states, imu, (left, right)) -> (VioState, FrameOutput)
     """
     if not shared_frames:
         raise NotImplementedError("per-lane frames (shared_frames=False)")
-    vio = Vio(params, derived, cameras, max_tracks=max_tracks, dtype=dtype)
-    if device is not None:
-        vio = vio.to(device)
+    device = torch.device(device)
+    if device.type == "cuda":
+        default_device()  # raises without a card
+    if dtype is None:
+        dtype = filter_dtype(device)
+    vio = Vio(params, derived, cameras, max_tracks=max_tracks, dtype=dtype).to(device)
 
     def batched_init(first_images, t0s, seeds):
         left, right = first_images

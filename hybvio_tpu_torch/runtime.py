@@ -24,7 +24,11 @@ def configure_precision() -> None:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. The port's entry points run on it unless the caller asks
+    for the CPU; there is no silent fallback."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def filter_dtype(device) -> torch.dtype:

@@ -16,7 +16,7 @@ from hybvio_tpu.odometry import backend as rb
 from hybvio_tpu.odometry.triangulation import triangulate_stereo_idp as r_tri_idp
 from hybvio_tpu.odometry.visual_update import make_prepare_track_update as r_make_prepare
 from hybvio_tpu_torch import convert
-from hybvio_tpu_torch.models import derived_parameters
+from hybvio_tpu_torch.config import DerivedParameters as PortDerived
 from hybvio_tpu_torch.odometry.backend import Backend, ImuBatch, TrackerInput
 from hybvio_tpu_torch.odometry.triangulation import triangulate_stereo_idp
 from hybvio_tpu_torch.odometry.visual_update import make_prepare_track_update
@@ -64,7 +64,7 @@ def test_imu_scan_and_process_frame(B):
     rstate = jax.vmap(rinit)(keys)
 
     cam = convert.camera_from_jax(rcam)
-    backend = Backend(p, derived_parameters(p), (cam, cam), max_tracks=T)
+    backend = Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
     state = convert.from_jax(jax.tree.map(np.asarray, rstate))
     assert not mismatches(convert.to_numpy(backend.init_state(state.rng)),
                           jax.tree.map(np.asarray, rstate), 0.0)

@@ -28,7 +28,7 @@ from hybvio_tpu_torch.frontend.pyramid import build_pyramid, scharr_gradients
 from hybvio_tpu_torch.frontend.ransac import ransac2, ransac3
 from hybvio_tpu_torch.frontend.stereo import epipolar_check
 from hybvio_tpu_torch.frontend.tracker import Tracker
-from hybvio_tpu_torch.models import derived_parameters
+from hybvio_tpu_torch.config import DerivedParameters as PortDerived
 
 from torch_parity import mismatches, stereo_frame, tiny_sequence, tiny_stereo_setup
 
@@ -161,7 +161,7 @@ def test_track_frame_tiny_stereo(scene):
     rinit, rtrack = make_tracker(p, (rcam, rcam), max_tracks=12, dtype=jnp.float32,
                                  derived=derived)
     cam = convert.camera_from_jax(rcam)
-    tracker = Tracker(p, (cam, cam), derived_parameters(p), max_tracks=12, int_bits=64)
+    tracker = Tracker(p, (cam, cam), PortDerived.from_parameters(p), max_tracks=12, int_bits=64)
     (l0, r0), (l1, r1) = scene[0], scene[1]
     rs = jax.jit(rinit)(jnp.asarray(l0), 10.0, second_image=jnp.asarray(r0))
     ts = tracker.init_state(_t(l0), torch.tensor([10.0], dtype=torch.float64), _t(r0))

@@ -17,7 +17,7 @@ import torch
 from hybvio_tpu.odometry.backend import ImuBatch as RImuBatch
 from hybvio_tpu.parallel.batched import make_batched_vio as r_make_batched_vio
 from hybvio_tpu_torch import convert
-from hybvio_tpu_torch.models import derived_parameters
+from hybvio_tpu_torch.config import DerivedParameters as PortDerived
 from hybvio_tpu_torch.odometry.backend import ImuBatch
 from hybvio_tpu_torch.parallel.batched import make_batched_vio
 
@@ -54,8 +54,8 @@ def test_batched_stereo_step_matches_reference():
     rstate = rinit(tuple(jnp.asarray(f) for f in frames[0]), np.full(B, seq.frame_times[0]),
                    np.arange(B))
     cam = convert.camera_from_jax(rcam)
-    tinit, tstep, _ = make_batched_vio(p, derived_parameters(p), (cam, cam), batch_size=B,
-                                       max_tracks=12, dtype=torch.float64)
+    tinit, tstep, _ = make_batched_vio(p, PortDerived.from_parameters(p), (cam, cam), batch_size=B,
+                                       max_tracks=12, dtype=torch.float64, device="cpu")
     # the port's own initialization equals the reference's
     own = tinit(tuple(torch.as_tensor(f) for f in frames[0]), np.full(B, seq.frame_times[0]),
                 np.arange(B))
@@ -90,8 +90,8 @@ def test_uint8_frames_initialize_like_reference():
                                   dtype=jnp.float64, shared_frames=True)
     rstate = rinit(tuple(jnp.asarray(f) for f in pair), np.full(B, 10.0), np.arange(B))
     cam = convert.camera_from_jax(rcam)
-    tinit, _, _ = make_batched_vio(p, derived_parameters(p), (cam, cam), batch_size=B,
-                                   max_tracks=12, dtype=torch.float64)
+    tinit, _, _ = make_batched_vio(p, PortDerived.from_parameters(p), (cam, cam), batch_size=B,
+                                   max_tracks=12, dtype=torch.float64, device="cpu")
     state = tinit(tuple(torch.as_tensor(f) for f in pair), np.full(B, 10.0), np.arange(B))
     assert state.tracker.prev_pyr[0].dtype == torch.float32
     diff = mismatches(convert.to_numpy(state), jax.tree.map(np.asarray, rstate), _tol, "init")
