@@ -6,21 +6,27 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
-  3. each kernel against its plain PyTorch version on the card at the
-     stereo main-path shapes (exact for gather / greedy, <= 1e-6 max abs for
-     the stencils), plus edge cases of the greedy walk and the corner
-     response; each kernel's device time (CUDA events around 100
-     back-to-back calls, median of 5 runs) beside its bound (bytes over
-     3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger),
-     its plain version's time and, where one PyTorch call computes the same
-     function, that call's time;
+  3. the card's launch floor (an empty kernel, timed like the rows below);
+     each kernel against its plain PyTorch version on the card at the
+     stereo main-path shapes (exact for gather / greedy / pyramid / corner
+     response, <= 1e-6 max abs for Scharr), plus edge cases of the gather,
+     the greedy walk, the corner response and the pyramid; each kernel's
+     device time (CUDA events around 100 back-to-back calls, median of 5
+     runs) beside its bound (bytes over 3.35 TB/s or float32 operations over
+     67 TFLOP/s, whichever is larger), its plain version's time and, where
+     one PyTorch call computes the same function, that call's time. The
+     pyramid in its main-path form (both frames of a stereo pair, two levels,
+     one launch) beside the single-image single-level launches it replaces
+     and one launch per level for both images; Scharr at each of the three
+     level sizes;
   4. the main path: the stereo preset at 752x480, B=16 lanes sharing each
      frame, float32, over a 60-frame synthetic sequence (io.synthetic, the
      benchmark's world); median step time, aggregate frames/s, finite lanes,
      ATE median against ground truth, and every kernel's launch count in
-     that run. Fails on a kernel never launched, a non-finite lane or an
-     ATE median over 0.05 m;
-  5. the kernels ranked by the time the main path loses in them.
+     that run, in total and by input shape. Fails on a kernel never
+     launched, a non-finite lane or an ATE median over 0.05 m;
+  5. the kernels ranked by the time the main path loses in them: the sum
+     over input shapes of launches x (device time - bound).
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -135,8 +141,9 @@ def check_edge_cases(dev, g):
     on widths whose rows are and are not 16-byte aligned, shared and
     per-lane images, B = 1 and 16, origins past the edges; greedy at K up
     to 1024, shared and per-lane d2, exact ties, B = 1 and 16; the corner
-    response at blocks 3 and 5 on the frame and on two odd level sizes.
-    Returns the number of cases."""
+    response at blocks 3 and 5 on the frame and on two odd level sizes; the
+    pyramid of one and two images at 1 to 4 levels on the frame and on odd
+    sizes. Returns the number of cases."""
     import torch
 
     from hybvio_tpu_torch import ops
@@ -171,20 +178,40 @@ def check_edge_cases(dev, g):
     for h, w in ((480, 752), (239, 377), (121, 189)):
         im = torch.rand((h, w), generator=g).to(dev)
         for bs in (3, 5):
-            err = float((ops.corner_response(im, bs) - ops.corner_response_plain(im, bs))
-                        .abs().max())
-            if not err <= STENCIL_TOL:
-                raise AssertionError(f"corner_response {h}x{w} block {bs}: "
-                                     f"max abs error {err} > {STENCIL_TOL}")
+            err = max_err(ops.corner_response(im, bs), ops.corner_response_plain(im, bs))
+            if err != 0:
+                raise AssertionError(f"corner_response {h}x{w} block {bs}: max abs error {err}")
             cases += 1
+    for h, w in ((480, 752), (239, 377), (121, 189), (60, 94)):
+        pair = tuple(torch.rand((h, w), generator=g).to(dev) for _ in range(2))
+        for n in (1, 2):
+            for levels in (1, 2, 3, 4):  # 4: two chained launches
+                got = ops.pyr_down_levels(pair[:n], levels)
+                want = ops.pyr_down_levels_plain(pair[:n], levels)
+                err = max(max_err(a, b) for pa, pb in zip(got, want) for a, b in zip(pa, pb))
+                if err != 0 or [len(p) for p in got] != [levels] * n:
+                    raise AssertionError(f"pyramid {h}x{w}, {n} images, {levels} levels: "
+                                         f"max abs error {err}")
+                cases += 1
     return cases
+
+
+def max_err(a, b) -> float:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return float((a - b).abs().max())
+
+
+def shape_key(shape) -> str:
+    return "x".join(map(str, shape))
 
 
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version at main-path shapes,
     timed on the card beside its bound, its plain version and, where one
     PyTorch call computes the same function, that call (never used by the
-    port)."""
+    port); the stencils at every input shape the main path gives them; the
+    card's launch floor."""
     import torch
     import torch.nn.functional as F
 
@@ -194,25 +221,35 @@ def check_kernels(dev):
     g = torch.Generator(device="cpu").manual_seed(0)
     H, W = 480, 752
     img = torch.rand((H, W), generator=g).to(dev)
-    half = torch.rand((H // 2, W // 2), generator=g).to(dev)
+    right = torch.rand((H, W), generator=g).to(dev)
     px = H * W
     results = {}
 
-    def record(name, err, tol, kernel, plain, library, nbytes, nops):
+    floor_ms, _ = device_ms(ops.launch_empty)
+    print(f"launch floor: {floor_ms:.5f} ms per launch of an empty kernel (one thread), "
+          f"the least any row below can read", flush=True)
+
+    def timed(label, err, tol, kernel, library, nbytes, nops, plain=None):
+        """Check err against tol, time kernel / library / plain, print a
+        line; the row's numbers."""
         if not err <= tol:
-            raise AssertionError(f"{name}: max abs error {err} > {tol}")
+            raise AssertionError(f"{label}: max abs error {err} > {tol}")
         ms, ahead = device_ms(kernel)
-        plain_ms, plain_ahead = device_ms(plain)
         library_ms = device_ms(library)[0] if library is not None else None
+        plain_ms, plain_ahead = device_ms(plain) if plain is not None else (None, True)
         bound_ms, bound_by = bound(nbytes, nops)
-        results[name] = {"max_abs_err": float(err), "ms": ms, "device_ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": library_ms}
         lib = f"{library_ms:.5f} ms" if library_ms is not None else "none"
-        print(f"kernel {name}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
+        plain_s = (f", plain {plain_ms:.5f} ms{'' if plain_ahead else ' (host-bound)'}"
+                   if plain is not None else "")
+        print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
               f"{'' if ahead else ' (card caught up with the host)'}, bound {bound_ms:.5f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}, plain "
-              f"{plain_ms:.5f} ms{'' if plain_ahead else ' (host-bound)'}", flush=True)
+              f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}{plain_s}",
+              flush=True)
+        return {"max_abs_err": float(err), "ms": ms, "device_ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+    def shape_row(r):
+        return {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
 
     # patch gather: LK search windows out of the shared frame (stride 0), one
     # image per launch; then the LK template's three images in one launch
@@ -223,7 +260,7 @@ def check_kernels(dev):
         y0 = torch.randint(-3, H - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
         x0 = torch.randint(-3, W - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
         (out,) = ops.gather_patches((shared,), y0, x0, ps)
-        errs.append(float((out - ops.gather_patches_plain(shared, y0, x0, ps)).abs().max()))
+        errs.append(max_err(out, ops.gather_patches_plain(shared, y0, x0, ps)))
     ps, n = 34, 96
     y0 = torch.randint(0, H - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
     x0 = torch.randint(0, W - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
@@ -234,11 +271,12 @@ def check_kernels(dev):
     if not torch.equal(torch.gather(flat, 1, idx).reshape(B, n, ps, ps),
                        ops.gather_patches((shared,), y0, x0, ps)[0]):
         raise AssertionError("patch_gather: the torch.gather yardstick disagrees")
-    record("patch_gather", max(errs), 0.0,
-           lambda: ops.gather_patches((shared,), y0, x0, ps),
-           lambda: ops.gather_patches_plain(shared, y0, x0, ps),
-           lambda: torch.gather(flat, 1, idx),
-           4 * (B * n * ps * ps + px + 2 * B * n), 0)
+    row = timed("patch_gather", max(errs), 0.0,
+                lambda: ops.gather_patches((shared,), y0, x0, ps),
+                lambda: torch.gather(flat, 1, idx), 4 * (B * n * ps * ps + px + 2 * B * n), 0,
+                plain=lambda: ops.gather_patches_plain(shared, y0, x0, ps))
+    row["shapes"] = {shape_key((1, B, n, ps)): shape_row(row)}
+    results["patch_gather"] = row
     three = (shared, gx.expand(B, H, W), gy.expand(B, H, W))
     pt = 18
     y0t = torch.randint(0, H - pt + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
@@ -246,72 +284,121 @@ def check_kernels(dev):
     fused, _ = device_ms(lambda: ops.gather_patches(three, y0t, x0t, pt))
     single, _ = device_ms(lambda: [ops.gather_patches((im,), y0t, x0t, pt) for im in three])
     fbytes = 4 * (3 * B * n * pt * pt + 3 * px + 2 * B * n)
-    results["patch_gather"].update(template_3img_ms=fused, template_3launches_ms=single,
-                                   template_3img_bound_ms=bound(fbytes, 0)[0])
+    row.update(template_3img_ms=fused, template_3launches_ms=single,
+               template_3img_bound_ms=bound(fbytes, 0)[0])
     print(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18): one "
           f"launch {fused:.5f} ms, three launches {single:.5f} ms, bound "
           f"{bound(fbytes, 0)[0]:.5f} ms", flush=True)
 
-    # pyr_down: the 5x5 outer-product kernel at stride 2 on the padded frame
+    # pyramid, main-path form: levels 1 and 2 of the left and right frames in
+    # one launch (no single PyTorch call computes it: library none)
+    levels_hw = [(H, W), ((H + 1) // 2, (W + 1) // 2), ((H + 3) // 4, (W + 3) // 4)]
+    pair = (img, right)
+    got, want = ops.pyr_down_levels(pair, 2), ops.pyr_down_levels_plain(pair, 2)
+    err = max(max_err(a, b) for pa, pb in zip(got, want) for a, b in zip(pa, pb))
+    pbytes = 2 * 4 * sum(h * w for h, w in levels_hw)
+    pops = 2 * sum(9 * levels_hw[l - 1][0] * w + 9 * h * w
+                   for l, (h, w) in enumerate(levels_hw) if l > 0)
+    row = timed("pyr_down (2 images, 2 levels, one launch)", err, 0.0,
+                lambda: ops.pyr_down_levels(pair, 2), None, pbytes, pops,
+                plain=lambda: ops.pyr_down_levels_plain(pair, 2))
+    row["shapes"] = {shape_key((2, H, W, 2)): shape_row(row)}
+    results["pyr_down"] = row
+    # the single-image single-level kernel at both level sizes it replaces,
+    # with the one-call yardstick (the 5x5 outer-product kernel at stride 2)
     k5 = torch.tensor(np.outer(PYR_K, PYR_K), dtype=torch.float32, device=dev)[None, None]
-    pad2 = F.pad(img[None, None], (2, 2, 2, 2), mode="replicate")
-    lib_err = float((F.conv2d(pad2, k5, stride=2)[0, 0] - ops.pyr_down(img)).abs().max())
-    errs = [float((ops.pyr_down(im) - ops.pyr_down_plain(im)).abs().max()) for im in (img, half)]
-    ho, wo = (H + 1) // 2, (W + 1) // 2
-    record("pyr_down", max(errs), STENCIL_TOL,
-           lambda: ops.pyr_down(img), lambda: ops.pyr_down_plain(img),
-           lambda: F.conv2d(pad2, k5, stride=2),
-           4 * (px + ho * wo), 9 * H * wo + 9 * ho * wo)
+    level_imgs = [img, *got[0]]  # the left frame's levels 0, 1, 2
+    lib_err = 0.0
+    for (h, w), im in zip(levels_hw[:2], level_imgs):
+        pad2 = F.pad(im[None, None], (2, 2, 2, 2), mode="replicate")
+        lib_err = max(lib_err, max_err(F.conv2d(pad2, k5, stride=2)[0, 0], ops.pyr_down(im)))
+        ho, wo = (h + 1) // 2, (w + 1) // 2
+        srow = timed(f"pyr_down (1 image, 1 level, {h}x{w})",
+                     max_err(ops.pyr_down(im), ops.pyr_down_plain(im)), 0.0,
+                     lambda: ops.pyr_down(im), lambda: F.conv2d(pad2, k5, stride=2),
+                     4 * (h * w + ho * wo), 9 * h * wo + 9 * ho * wo,
+                     plain=(lambda: ops.pyr_down_plain(im)) if h == H else None)
+        row["shapes"][shape_key((1, h, w, 1))] = shape_row(srow)
+        if h == H:
+            row.update({f"single_{k}": v for k, v in srow.items() if k != "device_ms"})
+    four, _ = device_ms(lambda: [ops.pyr_down(ops.pyr_down(im)) for im in pair])
+    per_level, _ = device_ms(lambda: ops.pyr_down_levels(
+        [lv[0] for lv in ops.pyr_down_levels(pair, 1)], 1))
+    singles = 2 * sum(row["shapes"][shape_key((1, h, w, 1))]["ms"] for h, w in levels_hw[:2])
+    row.update(four_launches_ms=four, per_level_2img_ms=per_level, single_sum_ms=singles)
+    print(f"kernel pyr_down, the pyramid of one stereo frame: one launch {row['ms']:.5f} ms; "
+          f"four single-image single-level launches {four:.5f} ms (their timed rows summed: "
+          f"{singles:.5f} ms); two launches of one level each for both images "
+          f"{per_level:.5f} ms", flush=True)
 
-    # Scharr: one 2-channel 3x3 convolution of the padded frame
+    # Scharr at every level size the main path gives it: one 2-channel 3x3
+    # convolution of the padded level as the yardstick
     k3 = torch.tensor(np.stack([np.outer(SCHARR_S, SCHARR_D), np.outer(SCHARR_D, SCHARR_S)]),
                       dtype=torch.float32, device=dev)[:, None]
-    pad1 = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")
-    lib_err = max(lib_err, float((F.conv2d(pad1, k3)[0] - torch.stack([gx, gy])).abs().max()))
-    rx, ry = ops.scharr_plain(img)
-    record("scharr", max(float((gx - rx).abs().max()), float((gy - ry).abs().max())),
-           STENCIL_TOL, lambda: ops.scharr(img), lambda: ops.scharr_plain(img),
-           lambda: F.conv2d(pad1, k3), 4 * 3 * px, 2 * 10 * px)
+    shapes = {}
+    for (h, w), im in zip(levels_hw, level_imgs):
+        ix, iy = ops.scharr(im)
+        pad1 = F.pad(im[None, None], (1, 1, 1, 1), mode="replicate")
+        lib_err = max(lib_err, max_err(F.conv2d(pad1, k3)[0], torch.stack([ix, iy])))
+        rx, ry = ops.scharr_plain(im)
+        srow = timed(f"scharr {h}x{w}", max(max_err(ix, rx), max_err(iy, ry)), STENCIL_TOL,
+                     lambda: ops.scharr(im), lambda: F.conv2d(pad1, k3), 4 * 3 * h * w,
+                     2 * 10 * h * w, plain=(lambda: ops.scharr_plain(im)) if h == H else None)
+        shapes[shape_key((h, w))] = shape_row(srow)
+        if h == H:
+            results["scharr"] = srow
+    results["scharr"]["shapes"] = shapes
     if not lib_err <= 1e-5:
         raise AssertionError(f"the conv2d yardsticks disagree with the stencils by {lib_err}")
 
-    errs = [float((ops.corner_response(img, bs) - ops.corner_response_plain(img, bs)).abs().max())
-            for bs in (3, 5)]
-    record("corner_response", max(errs), STENCIL_TOL,
-           lambda: ops.corner_response(img, 3), lambda: ops.corner_response_plain(img, 3),
-           None, 4 * 2 * px, 46 * px)
+    for bs in (3, 5):
+        srow = timed(f"corner_response block {bs}",
+                     max_err(ops.corner_response(img, bs), ops.corner_response_plain(img, bs)),
+                     0.0, lambda: ops.corner_response(img, bs), None, 4 * 2 * px,
+                     (46 + 6 * (bs - 3)) * px, plain=lambda: ops.corner_response_plain(img, bs))
+        if bs == 3:
+            srow["shapes"] = {shape_key((H, W, 3)): shape_row(srow)}
+            results["corner_response"] = srow
+        else:
+            results["corner_response"].update(block5_ms=srow["ms"], block5_bound_ms=srow["bound_ms"],
+                                               block5_max_abs_err=srow["max_abs_err"])
 
     # greedy: the main path's layout, one d2 shared by the lanes (stride 0)
     K = 192
     d2, ok, min_d2 = greedy_inputs(g, B, K, True, False, dev)
     taken = ops.greedy_min_distance(d2, ok, min_d2)
     ref = ops.greedy_min_distance_plain(d2, ok, min_d2)
-    record("greedy_nms", float((taken != ref).sum()), 0.0,
-           lambda: ops.greedy_min_distance(d2, ok, min_d2),
-           lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
-           None, 4 * K * K + 2 * B * K, B * K * (K - 1) // 2)
+    row = timed("greedy_nms", float((taken != ref).sum()), 0.0,
+                lambda: ops.greedy_min_distance(d2, ok, min_d2), None,
+                4 * K * K + 2 * B * K, B * K * (K - 1) // 2,
+                plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2))
+    row["shapes"] = {shape_key((B, K)): shape_row(row)}
+    results["greedy_nms"] = row
     # and with a distinct d2 per lane
     d2l, okl, _ = greedy_inputs(g, B, K, False, False, dev)
     ms, _ = device_ms(lambda: ops.greedy_min_distance(d2l, okl, min_d2))
     bms, _ = bound(4 * B * K * K + 2 * B * K, B * K * (K - 1) // 2)
-    results["greedy_nms"].update(per_lane_d2_ms=ms, per_lane_d2_bound_ms=bms)
+    row.update(per_lane_d2_ms=ms, per_lane_d2_bound_ms=bms)
     print(f"kernel greedy_nms, per-lane d2: device {ms:.5f} ms, bound {bms:.5f} ms", flush=True)
 
-    print(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response cases "
-          f"equal their plain versions", flush=True)
-    return results
+    print(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
+          f"cases equal their plain versions", flush=True)
+    return results, floor_ms
 
 
 def rank(rows):
     """The order in which the kernels lose the main path the most time:
-    first any kernel slower than its library call, then the rest by
-    launches x (device time - bound); a kernel at >= 50% of its bound and
-    no slower than its library call is left alone."""
+    first any kernel slower than its library call, then the rest by the sum
+    over the input shapes the main path gave it of launches x (device time -
+    bound) (a shape not timed in phase 3 takes the kernel's main row); a
+    kernel at >= 50% of its bound and no slower than its library call is
+    left alone."""
     def slower(r):
         return r["library_ms"] is not None and r["ms"] > r["library_ms"]
 
     for r in rows:
-        r["loss_ms"] = r["launches"] * (r["ms"] - r["bound_ms"])
+        r["loss_ms"] = sum(s["launches"] * (s.get("ms", r["ms"]) - s.get("bound_ms", r["bound_ms"]))
+                           for s in r["shapes"].values())
     order = sorted(rows, key=lambda r: (not slower(r), -r["loss_ms"]))
     return [(r["name"], r["loss_ms"], slower(r),
              r["bound_ms"] / r["ms"] >= 0.5 and not slower(r)) for r in order]
@@ -372,6 +459,7 @@ def run_slice(dev):
         step_ms.append(1000.0 * (time.perf_counter() - ts))
         positions.append(out.position)
     launches = dict(ops.LAUNCHES)
+    by_shape = dict(ops.SHAPE_LAUNCHES)
 
     est = torch.stack(positions).cpu().numpy()  # (F-1, B, 3)
     if est.shape != (F - 1, B, 3):
@@ -389,6 +477,8 @@ def run_slice(dev):
     print(f"slice: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m "
           f"(max {max(ates) if ates else float('nan'):.4f} m)", flush=True)
     print(f"slice: kernel launches {json.dumps(launches)}", flush=True)
+    print("slice: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}), flush=True)
     if len(finite) != B:
         raise AssertionError(f"only {len(finite)}/{B} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
@@ -396,7 +486,7 @@ def run_slice(dev):
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise AssertionError(f"kernels never launched on the main path: {never}")
-    return launches
+    return launches, by_shape
 
 
 def main() -> int:
@@ -427,8 +517,8 @@ def main() -> int:
         print(f"build: nvcc sm_90a, {len(list(ops._lib.CSRC.glob('*.cu')))} sources, "
               f"{secs:.1f} s", flush=True)
         ops._lib.library()
-        kern = check_kernels(dev)
-        launches = run_slice(dev)
+        kern, floor_ms = check_kernels(dev)
+        launches, by_shape = run_slice(dev)
         torch.cuda.synchronize()
     except (AssertionError, RuntimeError, ValueError, TypeError) as e:
         return fail(f"{type(e).__name__}: {e}")
@@ -437,10 +527,20 @@ def main() -> int:
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], **kern[name]}
             for name, (src, rep) in KERNELS.items()]
-    print("ranking (launches x (device - bound) per 60-frame run): " + "; ".join(
-        f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
-        f"{' (>= 50% of its bound: left alone)' if alone else ''}"
-        for name, loss, slower, alone in rank(rows)), flush=True)
+    for r in rows:  # each input shape timed in phase 3 or launched in phase 4
+        counts = {shape_key(sh): v for (k, sh), v in sorted(by_shape.items()) if k == r["name"]}
+        r["shapes"] = {key: {**r["shapes"].get(key, {}), "launches": counts.get(key, 0)}
+                       for key in {**r["shapes"], **counts}}
+    print("ranking (sum over input shapes of launches x (device - bound) per 60-frame run; "
+          f"launch floor {floor_ms:.5f} ms): " + "; ".join(
+              f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
+              f"{' (>= 50% of its bound: left alone)' if alone else ''}"
+              for name, loss, slower, alone in rank(rows)), flush=True)
+    for r in rows:
+        print(f"  {r['name']}: " + "; ".join(
+            f"{key} {s['launches']} launches x "
+            + (f"({s['ms']:.5f} - {s['bound_ms']:.5f}) ms" if "ms" in s else "(main row)")
+            for key, s in r["shapes"].items()), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

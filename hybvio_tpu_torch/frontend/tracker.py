@@ -21,7 +21,7 @@ from ..geometry.cameras import normalize_pixel
 from ..odometry.triangulation import triangulate_stereo_idp
 from .gftt import detect_corners, subpixel_refine
 from .lk import FLOW_OK, FLOW_OUT_OF_RANGE, LKParams, lk_track_pyramid
-from .pyramid import build_pyramid, scharr_gradients
+from .pyramid import build_pyramids, scharr_gradients
 from .ransac import ransac2, ransac3
 from .stereo import epipolar_check
 
@@ -151,12 +151,11 @@ class Tracker(nn.Module):
         B, T = t0.shape[0], self.T
         dev = first_image.device
         img = first_image.to(torch.float32)
-        pyr = build_pyramid(img, self.lk.max_level)
+        pyr, rpyr = build_pyramids((img, second_image.to(torch.float32)), self.lk.max_level)
         grads = [scharr_gradients(p) for p in pyr]
         xy, _, valid = self.detect(
             img, torch.zeros((B, 1, 2), device=dev), torch.zeros((B, 1), dtype=torch.bool, device=dev),
             torch.zeros((B,), device=dev), T)
-        rpyr = build_pyramid(second_image.to(torch.float32), self.lk.max_level)
         rxy, rok = self.stereo_match(pyr, grads, rpyr, xy, valid)
         valid = valid & rok
         px = torch.stack([xy, rxy], dim=2)
@@ -179,9 +178,8 @@ class Tracker(nn.Module):
         B = ts.track_ids.shape[0]
         dev = ts.px.device
         img = image.to(torch.float32)
-        cur_pyr = build_pyramid(img, lk.max_level)
+        cur_pyr, right_pyr = build_pyramids((img, second_image.to(torch.float32)), lk.max_level)
         cur_grads = [scharr_gradients(p) for p in cur_pyr]
-        right_pyr = build_pyramid(second_image.to(torch.float32), lk.max_level)
 
         alive = ts.track_ids >= 0
         black = blacklist_flags & (blacklist_ids == ts.track_ids) & alive

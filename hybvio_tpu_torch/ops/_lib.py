@@ -27,17 +27,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset (counted by the wrappers)
 LAUNCHES = {"patch_gather": 0, "pyr_down": 0, "scharr": 0,
             "corner_response": 0, "greedy_nms": 0}
+# (kernel name, input shape the wrapper names) -> launches since the last reset
+SHAPE_LAUNCHES = {}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "hv_patch_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P, _P],
-    "hv_pyr_down": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
+    "hv_pyramid": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_scharr": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     "hv_corner_response": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_greedy_nms": [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, _P, _P],
+    "hv_empty": [_P],
 }
 
 _loaded = {}
@@ -96,19 +99,30 @@ def library():
     return _loaded["lib"]
 
 
-def launch(kernel: str, fn_name: str, *args) -> None:
+def launch(kernel: str, fn_name: str, *args, shape: tuple) -> None:
     """Call a C entry point on the current stream; raise if the launch
-    failed; count it."""
+    failed; count it, in total and for its input ``shape``."""
+    _call(fn_name, *args)
+    LAUNCHES[kernel] += 1
+    SHAPE_LAUNCHES[(kernel, shape)] = SHAPE_LAUNCHES.get((kernel, shape), 0) + 1
+
+
+def launch_empty() -> None:
+    """Launch the empty kernel (the card's per-launch floor); not counted."""
+    _call("hv_empty")
+
+
+def _call(fn_name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
-    LAUNCHES[kernel] += 1
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def require_cuda(*tensors, dtype=None) -> None:

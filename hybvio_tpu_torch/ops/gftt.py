@@ -11,6 +11,7 @@ from .pyramid import sep_conv2d
 
 _SOBEL_D = np.array([-1.0, 0.0, 1.0])
 _SOBEL_S = np.array([1.0, 2.0, 1.0])
+MAX_BLOCK = 15  # the kernel's largest box
 
 
 def corner_response_plain(img, block_size: int = 3):
@@ -26,20 +27,24 @@ def corner_response_plain(img, block_size: int = 3):
     sxy = sep_conv2d(ix * iy, box, box) / n
     tr2 = 0.5 * (sxx + syy)
     det = sxx * syy - sxy * sxy
-    return tr2 - torch.sqrt(torch.clamp(tr2 * tr2 - det, min=0.0))
+    # the square root in float64, rounded once: the correctly rounded root in
+    # float32 (the CPU's float32 root is not), as the kernel's sqrtf and XLA
+    disc = torch.sqrt(torch.clamp(tr2 * tr2 - det, min=0.0).to(torch.float64)).to(img.dtype)
+    return tr2 - disc
 
 
 def corner_response(img, block_size: int = 3):
-    """(H, W) response of an (H, W) image; kernel on CUDA, plain on CPU."""
+    """(H, W) response of an (H, W) image; kernel on CUDA (odd block sizes
+    up to MAX_BLOCK), plain on CPU."""
     if img.device.type == "cpu":
         return corner_response_plain(img, block_size)
     require_cuda(img, dtype=torch.float32)
     if img.dim() != 2 or not img.is_contiguous():
         raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
-    if block_size < 1 or block_size % 2 == 0:
-        raise ValueError(f"block size {block_size} must be odd")
+    if not (1 <= block_size <= MAX_BLOCK and block_size % 2 == 1):
+        raise ValueError(f"block size {block_size}: the kernel takes odd sizes up to {MAX_BLOCK}")
     H, W = img.shape
     out = torch.empty_like(img)
     launch("corner_response", "hv_corner_response", img.data_ptr(), H, W, block_size,
-           out.data_ptr())
+           out.data_ptr(), shape=(H, W, block_size))
     return out

@@ -30,7 +30,7 @@ def gather_patches(images, y0, x0, ps: int):
     tensors. Image rows must be contiguous; a batch stride may be 0 (one
     image shared by all lanes, e.g. ``img.expand(B, H, W)``)."""
     images = tuple(images)
-    if images[0].device.type == "cpu":
+    if all(t.device.type == "cpu" for t in (*images, y0, x0)):
         return tuple(gather_patches_plain(img, y0, x0, ps) for img in images)
     require_cuda(*images, dtype=torch.float32)
     require_cuda(y0, x0, dtype=torch.int32)
@@ -53,5 +53,6 @@ def gather_patches(images, y0, x0, ps: int):
     padded = images + images[-1:] * (MAX_IMAGES - len(images))
     launch("patch_gather", "hv_patch_gather", *(img.data_ptr() for img in padded),
            *(img.stride(0) if B > 1 else 0 for img in padded), len(images), H, W,
-           y0.data_ptr(), x0.data_ptr(), B, N, ps, out.data_ptr())
+           y0.data_ptr(), x0.data_ptr(), B, N, ps, out.data_ptr(),
+           shape=(len(images), B, N, ps))
     return tuple(out)

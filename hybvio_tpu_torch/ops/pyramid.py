@@ -1,6 +1,9 @@
 """Pyramid stencils (kernels in ``csrc/pyramid.cu``; replace the reference's
 ``ops/pyramid_pallas.py`` pyr_down_pallas and scharr_pallas) and their
-plain PyTorch versions, composed exactly like the reference's XLA path."""
+plain PyTorch versions, composed exactly like the reference's XLA path.
+
+``pyr_down_levels`` builds several levels of one or two images in one
+launch; ``pyr_down`` is the same kernel at one image and one level."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,6 +14,8 @@ from ._lib import launch, require_cuda
 PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
 SCHARR_D = np.array([-1.0, 0.0, 1.0])
 SCHARR_S = np.array([3.0, 10.0, 3.0]) / 32.0
+LEVELS_PER_LAUNCH = 3  # deeper pyramids chain launches (a deep tile would be tiny)
+MAX_IMAGES = 2  # the left and right frames of a stereo pair
 
 
 def sep_conv2d(img, kx, ky):
@@ -42,21 +47,62 @@ def scharr_plain(img):
     return sep_conv2d(img, SCHARR_D, SCHARR_S), sep_conv2d(img, SCHARR_S, SCHARR_D)
 
 
+def pyr_down_levels_plain(images, levels: int):
+    """Levels 1..levels of each image: pyr_down_plain repeated."""
+    out = []
+    for img in images:
+        pyr = [img]
+        for _ in range(levels):
+            pyr.append(pyr_down_plain(pyr[-1]))
+        out.append(pyr[1:])
+    return out
+
+
 def _check_image(img):
     require_cuda(img, dtype=torch.float32)
     if img.dim() != 2 or not img.is_contiguous():
         raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
 
 
+def pyr_down_levels(images, levels: int):
+    """Levels 1..levels (each ((H+1)//2, (W+1)//2) of the one before) of one
+    or two (H, W) images of one shape, a list of ``levels`` tensors per
+    image: on CUDA tensors one kernel launch for up to LEVELS_PER_LAUNCH
+    levels, on CPU tensors the plain version."""
+    images = tuple(images)
+    if all(img.device.type == "cpu" for img in images):
+        return pyr_down_levels_plain(images, levels)
+    require_cuda(*images, dtype=torch.float32)
+    for img in images:
+        _check_image(img)
+    if not 1 <= len(images) <= MAX_IMAGES or any(i.shape != images[0].shape for i in images):
+        raise ValueError(f"the kernel takes 1 to {MAX_IMAGES} images of one shape, got "
+                         f"{[tuple(i.shape) for i in images]}")
+    out = [[] for _ in images]
+    while len(out[0]) < levels:
+        srcs = tuple(row[-1] for row in out) if out[0] else images
+        new = _pyramid(srcs, min(levels - len(out[0]), LEVELS_PER_LAUNCH))
+        for row, more in zip(out, new):
+            row.extend(more)
+    return out
+
+
+def _pyramid(images, levels):
+    H, W = images[0].shape
+    shapes = [(H, W)]
+    for _ in range(levels):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    sizes = [h * w for h, w in shapes[1:]]
+    out = torch.empty((len(images), sum(sizes)), dtype=torch.float32, device=images[0].device)
+    launch("pyr_down", "hv_pyramid", images[0].data_ptr(), images[-1].data_ptr(), len(images),
+           H, W, levels, out.data_ptr(), shape=(len(images), H, W, levels))
+    return [[level.view(shape) for level, shape in zip(row.split(sizes), shapes[1:])]
+            for row in out]
+
+
 def pyr_down(img):
     """Blur + 2x decimation: (H, W) -> ((H+1)//2, (W+1)//2)."""
-    if img.device.type == "cpu":
-        return pyr_down_plain(img)
-    _check_image(img)
-    H, W = img.shape
-    out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=img.dtype, device=img.device)
-    launch("pyr_down", "hv_pyr_down", img.data_ptr(), H, W, out.data_ptr())
-    return out
+    return pyr_down_levels((img,), 1)[0][0]
 
 
 def scharr(img):
@@ -67,5 +113,6 @@ def scharr(img):
     H, W = img.shape
     ix = torch.empty_like(img)
     iy = torch.empty_like(img)
-    launch("scharr", "hv_scharr", img.data_ptr(), H, W, ix.data_ptr(), iy.data_ptr())
+    launch("scharr", "hv_scharr", img.data_ptr(), H, W, ix.data_ptr(), iy.data_ptr(),
+           shape=(H, W))
     return ix, iy

@@ -1,10 +1,13 @@
 """The plain PyTorch versions of the five CUDA kernels equal the reference's
 XLA paths on the same inputs: the patch gather and the greedy selection
 exactly, the stencils over the whole image to 1e-12 in float64 and 1e-6 in
-float32 (f32 sums of up to 81 terms differ in rounding, not in value).
+float32, and the pyramid and the corner response bit for bit in float32.
 
 The kernels themselves run only on a card: ``test_cuda_kernels_match_plain``
-holds each one against its plain version there and skips elsewhere."""
+holds each one against its plain version there and skips elsewhere. What
+the CPU can check of them is their algorithm: numpy models with the
+kernels' own index arithmetic (the greedy bitmask walk, the corner-response
+and pyramid tilings) equal the reference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,14 +15,20 @@ import pytest
 import torch
 
 from hybvio_tpu.frontend.gftt import _greedy_select, corner_response
-from hybvio_tpu.frontend.pyramid import pyr_down, scharr_gradients
+from hybvio_tpu.frontend.pyramid import build_pyramid, pyr_down, scharr_gradients
 from hybvio_tpu.ops.patch_gather_pallas import _gather_fallback
 from hybvio_tpu_torch import ops
+from hybvio_tpu_torch.frontend.pyramid import build_pyramids
+from hybvio_tpu_torch.frontend.pyramid import build_pyramid as t_build_pyramid
+from hybvio_tpu_torch.ops.pyramid import PYR_K
 
 torch.set_num_threads(1)
 
 TOL = {np.float64: 1e-12, np.float32: 1e-6}
 SHAPES = [(120, 160), (97, 128), (64, 128)]
+# the frame and level sizes of the main path and odd ones (ragged tiles,
+# rows that are not 16-byte aligned)
+TILED_SHAPES = [(480, 752), (239, 377), (121, 189), (60, 94)]
 
 
 def _img(hw, dtype, seed):
@@ -177,14 +186,186 @@ def test_greedy_bitmask_model_matches_reference(k, ties):
     assert not model[0].any() and model[1, 0]
 
 
+def corner_tile_model(img, block, th, tw):
+    """numpy model of csrc/corner_response.cu in float32: per th x tw tile,
+    the input tile at clamped indices, the gradient of each region position
+    at its clamped index from the input around it, the products, the box x
+    then y pass formed afresh in order, an IEEE division and the root."""
+    H, W = img.shape
+    R = block // 2
+    gh, gw = th + 2 * R, tw + 2 * R
+    f = np.float32
+    out = np.full((H, W), np.nan, np.float32)
+    for r0 in range(0, H, th):
+        for c0 in range(0, W, tw):
+            ir0, ic0 = r0 - R - 1, c0 - R - 1
+            tile = img[np.clip(ir0 + np.arange(gh + 2), 0, H - 1)][
+                :, np.clip(ic0 + np.arange(gw + 2), 0, W - 1)]
+            rr = np.clip(r0 - R + np.arange(gh), 0, H - 1)
+            cc = np.clip(c0 - R + np.arange(gw), 0, W - 1)
+            rows = [np.clip(rr + t - 1, 0, H - 1) - ir0 for t in range(3)]
+            cols = [np.clip(cc - 1, 0, W - 1) - ic0, cc - ic0, np.clip(cc + 1, 0, W - 1) - ic0]
+            for ix, n in [(x, gh + 2) for x in rows] + [(x, gw + 2) for x in cols]:
+                assert 0 <= ix.min() and ix.max() < n
+            xd, xs = [], []
+            for t in range(3):
+                a, b, e = (tile[rows[t]][:, c] for c in cols)
+                xd.append((-a + f(0) * b) + e)
+                xs.append((a + f(2) * b) + e)
+            gx = (xd[0] + f(2) * xd[1]) + xd[2]
+            gy = (-xs[0] + f(0) * xs[1]) + xs[2]
+            means = []
+            for p in (gx * gx, gy * gy, gx * gy):
+                bx = p[:, 0:tw]
+                for d in range(1, 2 * R + 1):
+                    bx = bx + p[:, d:d + tw]
+                by = bx[0:th]
+                for d in range(1, 2 * R + 1):
+                    by = by + bx[d:d + th]
+                means.append(by / f(block * block))
+            sxx, syy, sxy = means
+            tr2 = f(0.5) * (sxx + syy)
+            det = sxx * syy - sxy * sxy
+            resp = tr2 - np.sqrt(np.maximum(tr2 * tr2 - det, f(0)))
+            h, w = min(th, H - r0), min(tw, W - c0)
+            out[r0:r0 + h, c0:c0 + w] = resp[:h, :w]
+    return out
+
+
+# the kernels' own tiles at every size; a small odd tile at the small sizes
+TILE_CASES = [(hw, "kernel") for hw in TILED_SHAPES] + [(hw, (5, 7)) for hw in TILED_SHAPES[2:]]
+
+
+@pytest.mark.parametrize("block", [3, 5])
+@pytest.mark.parametrize("hw, tile", TILE_CASES)
+def test_corner_tile_model_matches_reference(hw, tile, block):
+    """The kernel's tiling on the CPU, and the plain version, equal the
+    reference's XLA path bit for bit in float32: ragged last tiles, the
+    per-stage edge rule at every border."""
+    img = _img(hw, np.float32, 4)
+    # the kernel's tile: 32 rows, 32 - 2R columns (its gradient region a warp wide)
+    th, tw = (32, 32 - 2 * (block // 2)) if tile == "kernel" else tile
+    ref = np.asarray(corner_response(jnp.asarray(img), block_size=block))
+    np.testing.assert_array_equal(corner_tile_model(img, block, th, tw), ref)
+    np.testing.assert_array_equal(ops.corner_response(torch.tensor(img), block).numpy(), ref)
+
+
+def pyramid_tile_model(img, levels, th, tw):
+    """numpy model of csrc/pyramid.cu in float32: per th x tw tile of the
+    last level, the region of each earlier level the tile needs (2 n + 3 for
+    n of the next level, its index i at the clamped row a + i), the x pass
+    at the kept columns then the y pass at the kept rows, each tap at the
+    clamped index of the level below; each tile writes its share of every
+    level, and every pixel is written exactly once."""
+    H, W = img.shape
+    shapes = [(H, W)]
+    for _ in range(levels):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    k = PYR_K.astype(np.float32)
+    outs = [np.full(s, np.nan, np.float32) for s in shapes[1:]]
+    rn, cn = [th], [tw]
+    for _ in range(levels):
+        rn.insert(0, 2 * rn[0] + 3)
+        cn.insert(0, 2 * cn[0] + 3)
+    HL, WL = shapes[levels]
+    for ty in range(-(-HL // th)):
+        for tx in range(-(-WL // tw)):
+            ra, ca = [ty * th], [tx * tw]
+            for _ in range(levels):
+                ra.insert(0, 2 * ra[0] - 2)
+                ca.insert(0, 2 * ca[0] - 2)
+            V = None  # the region of level l - 1 (level 0: the image)
+            for l in range(1, levels + 1):
+                (Hp, Wp), (Hl, Wl) = shapes[l - 1], shapes[l]
+                cols = np.clip(ca[l] + np.arange(cn[l]), 0, Wl - 1)
+                taps = [np.clip(2 * cols + s - 2, 0, Wp - 1) for s in range(5)]
+                if l == 1:
+                    src = img[np.clip(ra[0] + np.arange(rn[0]), 0, H - 1)]
+                else:
+                    src, taps = V, [t - ca[l - 1] for t in taps]
+                    assert all(0 <= t.min() and t.max() < cn[l - 1] for t in taps)
+                X = k[0] * src[:, taps[0]]
+                for s in range(1, 5):
+                    X = X + k[s] * src[:, taps[s]]
+                rows = np.clip(ra[l] + np.arange(rn[l]), 0, Hl - 1)
+                ytaps = [np.clip(2 * rows + t - 2, 0, Hp - 1) - ra[l - 1] for t in range(5)]
+                assert all(0 <= t.min() and t.max() < rn[l - 1] for t in ytaps)
+                V = k[0] * X[ytaps[0]]
+                for t in range(1, 5):
+                    V = V + k[t] * X[ytaps[t]]
+                sh = levels - l
+                r, c = ra[l] + np.arange(rn[l]), ca[l] + np.arange(cn[l])
+                rk = (r >= (ty * th) << sh) & (r < min(((ty + 1) * th) << sh, Hl))
+                ck = (c >= (tx * tw) << sh) & (c < min(((tx + 1) * tw) << sh, Wl))
+                share = np.ix_(r[rk], c[ck])
+                assert np.isnan(outs[l - 1][share]).all()
+                outs[l - 1][share] = V[np.ix_(rk, ck)]
+    assert not any(np.isnan(o).any() for o in outs)
+    return outs
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("hw, tile", TILE_CASES)
+def test_pyramid_tile_model_matches_reference(hw, tile, levels):
+    """The one-launch pyramid's tiling on the CPU equals the reference's
+    build_pyramid bit for bit in float32 at every level: odd sizes, ragged
+    tiles, the level-1 halo recomputed per tile."""
+    img = _img(hw, np.float32, 5 + levels)
+    # the kernel's tiles of the last level: 16 x 32 at one level, 8 x 16 at more
+    th, tw = ((16, 32) if levels == 1 else (8, 16)) if tile == "kernel" else tile
+    ref = build_pyramid(jnp.asarray(img), levels)
+    for got, want in zip(pyramid_tile_model(img, levels, th, tw), ref[1:]):
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2, 3])
+@pytest.mark.parametrize("hw", TILED_SHAPES)
+def test_build_pyramids_two_images_match_reference(hw, levels):
+    """build_pyramids of a stereo pair equals the reference's build_pyramid
+    of each image, bit for bit in float32 (the CPU runs pyr_down_levels'
+    plain version)."""
+    left, right = _img(hw, np.float32, 6), _img(hw, np.float32, 7)
+    pyrs = build_pyramids((torch.tensor(left), torch.tensor(right)), levels)
+    assert len(pyrs) == 2
+    for img, pyr in zip((left, right), pyrs):
+        ref = build_pyramid(jnp.asarray(img), levels)
+        assert len(pyr) == len(ref) == levels + 1
+        for got, want in zip(pyr, ref):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2, 4])
+@pytest.mark.parametrize("hw", TILED_SHAPES[1:])
+def test_build_pyramid_single_image_matches_reference(hw, levels):
+    """build_pyramid of one image (one pyr_down_levels call) equals the
+    reference's build_pyramid bit for bit in float32."""
+    img = _img(hw, np.float32, 8)
+    pyr = t_build_pyramid(torch.tensor(img), levels)
+    ref = build_pyramid(jnp.asarray(img), levels)
+    assert len(pyr) == len(ref) == levels + 1
+    for got, want in zip(pyr, ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_wrappers_use_plain_only_for_cpu_tensors():
     """A tensor that is neither on the CPU nor on CUDA is refused, never
-    sent to the plain version."""
+    sent to the plain version, and so is a CPU tensor beside such a one."""
     meta = torch.empty((32, 48), device="meta")
+    cpu = torch.zeros((32, 48))
     with pytest.raises(ValueError):
         ops.pyr_down(meta)
     with pytest.raises(ValueError):
         ops.corner_response(meta)
+    with pytest.raises(ValueError):
+        ops.pyr_down_levels((meta, meta), 2)
+    with pytest.raises(ValueError):
+        ops.pyr_down_levels((cpu, meta), 2)
+    origins = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.gather_patches((cpu[None], meta[None]), origins, origins, 8)
+    with pytest.raises(ValueError):
+        ops.greedy_min_distance(torch.zeros((1, 4, 4)), torch.ones((1, 4), dtype=torch.bool,
+                                                                   device="meta"), 1.0)
 
 
 @pytest.mark.cuda
@@ -194,12 +375,16 @@ def test_cuda_kernels_match_plain():
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     img = torch.rand((480, 752), generator=g).to(dev)
-    assert torch.equal(ops.pyr_down(img), ops.pyr_down(img))
-    assert (ops.pyr_down(img) - ops.pyr_down_plain(img)).abs().max() <= 1e-6
+    right = torch.rand((480, 752), generator=g).to(dev)
+    assert torch.equal(ops.pyr_down(img), ops.pyr_down_plain(img))
+    for levels in (1, 2, 3, 4):  # 4: two chained launches
+        got = ops.pyr_down_levels((img, right), levels)
+        for pyr, want in zip(got, ops.pyr_down_levels_plain((img, right), levels)):
+            assert all(torch.equal(a, b) for a, b in zip(pyr, want))
     for a, b in zip(ops.scharr(img), ops.scharr_plain(img)):
         assert (a - b).abs().max() <= 1e-6
     for bs in (3, 5):
-        assert (ops.corner_response(img, bs) - ops.corner_response_plain(img, bs)).abs().max() <= 1e-6
+        assert torch.equal(ops.corner_response(img, bs), ops.corner_response_plain(img, bs))
     y0 = torch.randint(-3, 480 - 34 + 4, (16, 96), generator=g, dtype=torch.int32).to(dev)
     x0 = torch.randint(-3, 752 - 34 + 4, (16, 96), generator=g, dtype=torch.int32).to(dev)
     shared = img.expand(16, 480, 752)
