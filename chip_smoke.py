@@ -8,25 +8,31 @@ Phases (any failure exits non-zero and prints no result line):
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
   3. the card's launch floor (an empty kernel, timed like the rows below);
      each kernel against its plain PyTorch version on the card at the
-     stereo main-path shapes (exact for gather / greedy / pyramid / corner
-     response, <= 1e-6 max abs for Scharr), plus edge cases of the gather,
-     the greedy walk, the corner response and the pyramid; each kernel's
-     device time (CUDA events around 100 back-to-back calls, median of 5
-     runs) beside its bound (bytes over 3.35 TB/s or float32 operations over
-     67 TFLOP/s, whichever is larger), its plain version's time and, where
-     one PyTorch call computes the same function, that call's time. The
-     pyramid in its main-path form (both frames of a stereo pair, two levels,
-     one launch) beside the single-image single-level launches it replaces
-     and one launch per level for both images; Scharr at each of the three
-     level sizes;
+     stereo main-path shapes (exact for gather / greedy / pyramid / fused
+     pyramid and gradients / corner response, <= 1e-6 max abs for the
+     standalone Scharr), plus edge cases of the gather, the greedy walk, the
+     corner response and the pyramid with and without the gradients; each
+     kernel's device time (CUDA events around 100 back-to-back calls,
+     median of 5 runs) beside its bound (bytes over 3.35 TB/s or float32
+     operations over 67 TFLOP/s, whichever is larger), its plain version's
+     time and, where one PyTorch call computes the same function, that
+     call's time. The gather at every window shape the main path launches;
+     the main path's fused launch (levels 1-2 of both frames of a stereo
+     pair and the Scharr gradients of levels 0-2 of the left one) beside
+     the pyramid launch and the three Scharr launches it replaced; the
+     pyramid alone beside its single-image single-level launches and one
+     launch per level; the standalone Scharr at each of the three level
+     sizes;
   4. the main path: the stereo preset at 752x480, B=16 lanes sharing each
      frame, float32, over a 60-frame synthetic sequence (io.synthetic, the
      benchmark's world); median step time, aggregate frames/s, finite lanes,
      ATE median against ground truth, and every kernel's launch count in
-     that run, in total and by input shape. Fails on a kernel never
-     launched, a non-finite lane or an ATE median over 0.05 m;
+     that run, in total and by input shape. Fails on a Pallas kernel none
+     of whose port kernels was launched, a non-finite lane or an ATE median
+     over 0.05 m;
   5. the kernels ranked by the time the main path loses in them: the sum
-     over input shapes of launches x (device time - bound).
+     over input shapes of launches x (device time - bound); fails on a
+     shape launched in phase 4 and not timed in phase 3.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -50,13 +56,15 @@ MAX_SLEEP_S = 0.25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 
-KERNELS = {  # name -> (source, Pallas kernel it replaces)
+KERNELS = {  # name -> (source, Pallas kernels it replaces, ", "-separated)
     "patch_gather": ("hybvio_tpu_torch/csrc/patch_gather.cu",
                      "hybvio_tpu/ops/patch_gather_pallas.py:105"),
     "pyr_down": ("hybvio_tpu_torch/csrc/pyramid.cu",
                  "hybvio_tpu/ops/pyramid_pallas.py:83"),
     "scharr": ("hybvio_tpu_torch/csrc/pyramid.cu",
                "hybvio_tpu/ops/pyramid_pallas.py:118"),
+    "pyramid_scharr": ("hybvio_tpu_torch/csrc/pyramid.cu",
+                       "hybvio_tpu/ops/pyramid_pallas.py:83, hybvio_tpu/ops/pyramid_pallas.py:118"),
     "corner_response": ("hybvio_tpu_torch/csrc/corner_response.cu",
                         "hybvio_tpu/ops/gftt_pallas.py:79"),
     "greedy_nms": ("hybvio_tpu_torch/csrc/greedy_nms.cu",
@@ -142,8 +150,9 @@ def check_edge_cases(dev, g):
     per-lane images, B = 1 and 16, origins past the edges; greedy at K up
     to 1024, shared and per-lane d2, exact ties, B = 1 and 16; the corner
     response at blocks 3 and 5 on the frame and on two odd level sizes; the
-    pyramid of one and two images at 1 to 4 levels on the frame and on odd
-    sizes. Returns the number of cases."""
+    pyramid, with and without the gradients of the first image's levels, of
+    one and two images at 1 to 4 levels on the frame and on odd sizes.
+    Returns the number of cases."""
     import torch
 
     from hybvio_tpu_torch import ops
@@ -192,8 +201,27 @@ def check_edge_cases(dev, g):
                 if err != 0 or [len(p) for p in got] != [levels] * n:
                     raise AssertionError(f"pyramid {h}x{w}, {n} images, {levels} levels: "
                                          f"max abs error {err}")
-                cases += 1
+                err = fused_err(pair[:n], levels)
+                if err != 0:
+                    raise AssertionError(f"pyramid_scharr {h}x{w}, {n} images, {levels} levels: "
+                                         f"max abs error {err}")
+                cases += 2
     return cases
+
+
+def fused_err(images, levels) -> float:
+    """Max abs error of the fused pyramid + gradients launch(es) against
+    the plain version, over every level and gradient."""
+    from hybvio_tpu_torch import ops
+
+    got_p, got_g = ops.pyramid_with_gradients(images, levels)
+    want_p, want_g = ops.pyramid_with_gradients_plain(images, levels)
+    if [len(p) for p in got_p] != [levels] * len(images) or len(got_g) != levels + 1:
+        raise AssertionError(f"pyramid_scharr: {[len(p) for p in got_p]} levels, "
+                             f"{len(got_g)} gradients for {levels} levels")
+    pairs = [(a, b) for pa, pb in zip(got_p, want_p) for a, b in zip(pa, pb)]
+    pairs += [(a, b) for ga, gb in zip(got_g, want_g) for a, b in zip(ga, gb)]
+    return max(max_err(a, b) for a, b in pairs)
 
 
 def max_err(a, b) -> float:
@@ -251,44 +279,59 @@ def check_kernels(dev):
     def shape_row(r):
         return {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
 
-    # patch gather: LK search windows out of the shared frame (stride 0), one
-    # image per launch; then the LK template's three images in one launch
-    shared = img.expand(B, H, W)
+    # patch gather at every shape key (images, B, N, ps) the main path
+    # launches, on the frame and its gradients shared by the lanes (stride
+    # 0): the LK template (frame, Ix, Iy) at 18x18, the LK search windows at
+    # 50x50 and 34x34, the subpixel refinement's two gradients at 33x33;
+    # origins inside the frame. The bound reads each pixel that some window
+    # covers once per image (the union of the footprints), writes each
+    # window and reads each origin once. Yardstick: one torch.gather of the
+    # stacked images' windows. Phase 5 charges each shape at its own row.
     gx, gy = ops.scharr(img)
     errs = []
     for ps in (18, 50, 34, 33):
         y0 = torch.randint(-3, H - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
         x0 = torch.randint(-3, W - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
-        (out,) = ops.gather_patches((shared,), y0, x0, ps)
-        errs.append(max_err(out, ops.gather_patches_plain(shared, y0, x0, ps)))
-    ps, n = 34, 96
-    y0 = torch.randint(0, H - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-    x0 = torch.randint(0, W - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-    r = torch.arange(ps, device=dev)
-    idx = (((y0.long()[..., None] + r) * W)[..., :, None]
-           + (x0.long()[..., None] + r)[..., None, :]).reshape(B, -1)
-    flat = img.reshape(1, -1).expand(B, -1)
-    if not torch.equal(torch.gather(flat, 1, idx).reshape(B, n, ps, ps),
-                       ops.gather_patches((shared,), y0, x0, ps)[0]):
-        raise AssertionError("patch_gather: the torch.gather yardstick disagrees")
-    row = timed("patch_gather", max(errs), 0.0,
-                lambda: ops.gather_patches((shared,), y0, x0, ps),
-                lambda: torch.gather(flat, 1, idx), 4 * (B * n * ps * ps + px + 2 * B * n), 0,
-                plain=lambda: ops.gather_patches_plain(shared, y0, x0, ps))
-    row["shapes"] = {shape_key((1, B, n, ps)): shape_row(row)}
+        (out,) = ops.gather_patches((img.expand(B, H, W),), y0, x0, ps)
+        errs.append(max_err(out, ops.gather_patches_plain(img.expand(B, H, W), y0, x0, ps)))
+    n = 96
+    shapes = {}
+    for planes, ps in (((img, gx, gy), 18), ((img,), 50), ((img,), 34), ((gx, gy), 33)):
+        k = len(planes)
+        images = tuple(p.expand(B, H, W) for p in planes)
+        y0 = torch.randint(0, H - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+        x0 = torch.randint(0, W - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+        r = torch.arange(ps, device=dev)
+        idx = (((y0.long()[..., None] + r) * W)[..., :, None]
+               + (x0.long()[..., None] + r)[..., None, :]).reshape(B, -1).expand(k, B, -1)
+        flat = torch.stack([p.reshape(-1) for p in planes])[:, None].expand(k, B, H * W)
+        covered = torch.zeros(H * W, dtype=torch.bool, device=dev)
+        covered[idx[0].reshape(-1)] = True
+        read_px = int(covered.sum())
+        got = ops.gather_patches(images, y0, x0, ps)
+        want = [ops.gather_patches_plain(im, y0, x0, ps) for im in images]
+        err = max([max_err(a, b) for a, b in zip(got, want)] + errs)
+        if not torch.equal(torch.gather(flat, 2, idx).reshape(k, B, n, ps, ps), torch.stack(got)):
+            raise AssertionError(f"patch_gather {ps}x{ps}: the torch.gather yardstick disagrees")
+        srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, {B}x{n} windows of "
+                     f"{ps}x{ps})", err, 0.0,
+                     lambda: ops.gather_patches(images, y0, x0, ps),
+                     lambda: torch.gather(flat, 2, idx),
+                     4 * (k * B * n * ps * ps + k * read_px + 2 * B * n), 0,
+                     plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in images])
+        print(f"  the windows cover {read_px} of the frame's {px} pixels "
+              f"({100 * read_px / px:.1f}%)", flush=True)
+        shapes[shape_key((k, B, n, ps))] = shape_row(srow)
+        if ps == 34:
+            row = srow
+        if ps == 18:  # the template's three images in one launch, or three
+            three_ms, three_launches_ms = srow["ms"], device_ms(
+                lambda: [ops.gather_patches((im,), y0, x0, ps) for im in images])[0]
+    row.update(shapes=shapes, template_3img_ms=three_ms,
+               template_3launches_ms=three_launches_ms)
     results["patch_gather"] = row
-    three = (shared, gx.expand(B, H, W), gy.expand(B, H, W))
-    pt = 18
-    y0t = torch.randint(0, H - pt + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-    x0t = torch.randint(0, W - pt + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-    fused, _ = device_ms(lambda: ops.gather_patches(three, y0t, x0t, pt))
-    single, _ = device_ms(lambda: [ops.gather_patches((im,), y0t, x0t, pt) for im in three])
-    fbytes = 4 * (3 * B * n * pt * pt + 3 * px + 2 * B * n)
-    row.update(template_3img_ms=fused, template_3launches_ms=single,
-               template_3img_bound_ms=bound(fbytes, 0)[0])
     print(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18): one "
-          f"launch {fused:.5f} ms, three launches {single:.5f} ms, bound "
-          f"{bound(fbytes, 0)[0]:.5f} ms", flush=True)
+          f"launch {three_ms:.5f} ms, three launches {three_launches_ms:.5f} ms", flush=True)
 
     # pyramid, main-path form: levels 1 and 2 of the left and right frames in
     # one launch (no single PyTorch call computes it: library none)
@@ -325,11 +368,13 @@ def check_kernels(dev):
     per_level, _ = device_ms(lambda: ops.pyr_down_levels(
         [lv[0] for lv in ops.pyr_down_levels(pair, 1)], 1))
     singles = 2 * sum(row["shapes"][shape_key((1, h, w, 1))]["ms"] for h, w in levels_hw[:2])
+    # one launch per level computes the same function: the same bound
     row.update(four_launches_ms=four, per_level_2img_ms=per_level, single_sum_ms=singles)
     print(f"kernel pyr_down, the pyramid of one stereo frame: one launch {row['ms']:.5f} ms; "
           f"four single-image single-level launches {four:.5f} ms (their timed rows summed: "
           f"{singles:.5f} ms); two launches of one level each for both images "
-          f"{per_level:.5f} ms", flush=True)
+          f"{per_level:.5f} ms (bound {row['bound_ms']:.5f} ms, "
+          f"{100 * row['bound_ms'] / per_level:.1f}% of it)", flush=True)
 
     # Scharr at every level size the main path gives it: one 2-channel 3x3
     # convolution of the padded level as the yardstick
@@ -350,6 +395,29 @@ def check_kernels(dev):
     results["scharr"]["shapes"] = shapes
     if not lib_err <= 1e-5:
         raise AssertionError(f"the conv2d yardsticks disagree with the stencils by {lib_err}")
+
+    # the main path's form: levels 1 and 2 of both frames and the gradients
+    # of levels 0-2 of the left one in one launch (no single PyTorch call
+    # computes it: library none), also chained at 4 levels and on one image,
+    # beside the pyramid launch and the three Scharr launches it replaced
+    for images, levels in ((pair, 4), (pair[:1], 2)):
+        err = fused_err(images, levels)
+        if err != 0:
+            raise AssertionError(f"pyramid_scharr {len(images)} images, {levels} levels: "
+                                 f"max abs error {err}")
+    row = timed("pyramid_scharr (2 images, 2 levels, gradients of the left levels 0-2, one "
+                "launch)", fused_err(pair, 2), 0.0, lambda: ops.pyramid_with_gradients(pair, 2),
+                None, 2 * pbytes, pops + sum(2 * 10 * h * w for h, w in levels_hw),
+                plain=lambda: ops.pyramid_with_gradients_plain(pair, 2))
+    row["shapes"] = {shape_key((2, H, W, 2)): shape_row(row)}
+    replaced, _ = device_ms(lambda: [ops.pyr_down_levels(pair, 2)]
+                            + [ops.scharr(im) for im in level_imgs])
+    rows_sum = results["pyr_down"]["ms"] + sum(v["ms"] for v in shapes.values())
+    row.update(replaced_4launches_ms=replaced, replaced_rows_sum_ms=rows_sum)
+    results["pyramid_scharr"] = row
+    print(f"kernel pyramid_scharr, one stereo frame's pyramid and left gradients: one launch "
+          f"{row['ms']:.5f} ms; the pyramid launch and three Scharr launches it replaced "
+          f"{replaced:.5f} ms (their timed rows summed: {rows_sum:.5f} ms)", flush=True)
 
     for bs in (3, 5):
         srow = timed(f"corner_response block {bs}",
@@ -382,23 +450,27 @@ def check_kernels(dev):
     print(f"kernel greedy_nms, per-lane d2: device {ms:.5f} ms, bound {bms:.5f} ms", flush=True)
 
     print(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
-          f"cases equal their plain versions", flush=True)
+          f"/ pyramid-and-gradients cases equal their plain versions", flush=True)
     return results, floor_ms
 
 
 def rank(rows):
     """The order in which the kernels lose the main path the most time:
-    first any kernel slower than its library call, then the rest by the sum
-    over the input shapes the main path gave it of launches x (device time -
-    bound) (a shape not timed in phase 3 takes the kernel's main row); a
-    kernel at >= 50% of its bound and no slower than its library call is
-    left alone."""
+    first any kernel slower than its library call at some shape, then the
+    rest by the sum over the input shapes the main path gave it of launches
+    x (device time - bound); a kernel at >= 50% of its bound and no slower
+    than its library call is left alone. Raises if the main path launched a
+    kernel at a shape phase 3 did not time."""
     def slower(r):
-        return r["library_ms"] is not None and r["ms"] > r["library_ms"]
+        return any(s.get("library_ms") is not None and s["ms"] > s["library_ms"]
+                   for s in (r, *r["shapes"].values()) if "ms" in s)
 
     for r in rows:
-        r["loss_ms"] = sum(s["launches"] * (s.get("ms", r["ms"]) - s.get("bound_ms", r["bound_ms"]))
-                           for s in r["shapes"].values())
+        untimed = [k for k, s in r["shapes"].items() if s["launches"] and "ms" not in s]
+        if untimed:
+            raise AssertionError(f"{r['name']} launched at shapes phase 3 did not time: {untimed}")
+        r["loss_ms"] = sum(s["launches"] * (s["ms"] - s["bound_ms"])
+                           for s in r["shapes"].values() if s["launches"])
     order = sorted(rows, key=lambda r: (not slower(r), -r["loss_ms"]))
     return [(r["name"], r["loss_ms"], slower(r),
              r["bound_ms"] / r["ms"] >= 0.5 and not slower(r)) for r in order]
@@ -483,9 +555,14 @@ def run_slice(dev):
         raise AssertionError(f"only {len(finite)}/{B} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
         raise AssertionError(f"ATE median {ate_med} m > {ATE_LIMIT_M} m")
-    never = [k for k, v in launches.items() if v == 0]
+    ports = {}  # Pallas kernel -> the port kernels that replace it
+    for name, (_, replaces) in KERNELS.items():
+        for ref in replaces.split(", "):
+            ports.setdefault(ref, []).append(name)
+    never = [ref for ref, names in ports.items() if not any(launches[n] for n in names)]
     if never:
-        raise AssertionError(f"kernels never launched on the main path: {never}")
+        raise AssertionError(f"Pallas kernels with no port kernel launched on the main path: "
+                             f"{never}")
     return launches, by_shape
 
 
@@ -520,27 +597,29 @@ def main() -> int:
         kern, floor_ms = check_kernels(dev)
         launches, by_shape = run_slice(dev)
         torch.cuda.synchronize()
+        rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": launches[name], **kern[name]}
+                for name, (src, rep) in KERNELS.items()]
+        for r in rows:  # each input shape timed in phase 3 or launched in phase 4
+            counts = {shape_key(sh): v for (k, sh), v in sorted(by_shape.items())
+                      if k == r["name"]}
+            r["shapes"] = {key: {**r["shapes"].get(key, {}), "launches": counts.get(key, 0)}
+                           for key in {**r["shapes"], **counts}}
+        ranking = rank(rows)
     except (AssertionError, RuntimeError, ValueError, TypeError) as e:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], **kern[name]}
-            for name, (src, rep) in KERNELS.items()]
-    for r in rows:  # each input shape timed in phase 3 or launched in phase 4
-        counts = {shape_key(sh): v for (k, sh), v in sorted(by_shape.items()) if k == r["name"]}
-        r["shapes"] = {key: {**r["shapes"].get(key, {}), "launches": counts.get(key, 0)}
-                       for key in {**r["shapes"], **counts}}
     print("ranking (sum over input shapes of launches x (device - bound) per 60-frame run; "
           f"launch floor {floor_ms:.5f} ms): " + "; ".join(
               f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
               f"{' (>= 50% of its bound: left alone)' if alone else ''}"
-              for name, loss, slower, alone in rank(rows)), flush=True)
+              for name, loss, slower, alone in ranking), flush=True)
     for r in rows:
-        print(f"  {r['name']}: " + "; ".join(
-            f"{key} {s['launches']} launches x "
-            + (f"({s['ms']:.5f} - {s['bound_ms']:.5f}) ms" if "ms" in s else "(main row)")
-            for key, s in r["shapes"].items()), flush=True)
+        print(f"  {r['name']}: " + ("; ".join(
+            f"{key} {s['launches']} launches x ({s['ms']:.5f} - {s['bound_ms']:.5f}) ms"
+            for key, s in sorted(r["shapes"].items()) if s["launches"])
+            or "not launched on the main path"), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,7 @@ from .geometry.cameras import Camera, build_pinhole
 from .odometry.backend import BackendState, FrameOutput, ImuBatch, TrackerInput
 from .odometry.trail import TrailState
 from .odometry.vio import VioState
+from .runtime import default_device
 
 _TYPES = {cls.__name__: cls for cls in (
     VioState, BackendState, EKFState, TrailState, TrackerState, TrackerInput,
@@ -32,11 +33,14 @@ def camera_from_jax(cam) -> Camera:
                          width=cam.width, height=cam.height)
 
 
-def from_jax(tree, device="cpu"):
-    """Reference NamedTuples / tuples of numpy arrays -> port tensors.
-    Threefry keys (uint32) become int64; other dtypes are kept."""
+def from_jax(tree, device=None):
+    """Reference NamedTuples / tuples of numpy arrays -> port tensors, on the
+    card unless ``device`` says otherwise. Threefry keys (uint32) become
+    int64; other dtypes are kept."""
     if tree is None:
         return None
+    if device is None:
+        device = default_device()
     if hasattr(tree, "kind") and hasattr(tree, "fx"):
         return camera_from_jax(tree)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..runtime import default_device
+
 POS = 0
 VEL = 3
 ORI = 6
@@ -49,8 +51,11 @@ def state_dim(camera_trail_length: int, hybrid_map_size: int) -> int:
     return INER_DIM + POSE_DIM * camera_trail_length + MAP_POINT_DIM * hybrid_map_size
 
 
-def init_state(po, batch: int, dtype=torch.float64, device="cpu") -> EKFState:
-    """The initial filter state of ``batch`` lanes."""
+def init_state(po, batch: int, dtype=torch.float64, device=None) -> EKFState:
+    """The initial filter state of ``batch`` lanes, on the card unless
+    ``device`` says otherwise."""
+    if device is None:
+        device = default_device()
     L = po.cameraTrailLength
     d = state_dim(L, po.hybridMapSize)
     noise_scale = po.noiseScale * po.noiseScale
@@ -84,8 +89,11 @@ def init_state(po, batch: int, dtype=torch.float64, device="cpu") -> EKFState:
     )
 
 
-def process_noise_q(po, dtype=torch.float64, device="cpu") -> torch.Tensor:
-    """Constant acc & gyro part of the process-noise diagonal (Q_DIM,)."""
+def process_noise_q(po, dtype=torch.float64, device=None) -> torch.Tensor:
+    """Constant acc & gyro part of the process-noise diagonal (Q_DIM,), on
+    the card unless ``device`` says otherwise."""
+    if device is None:
+        device = default_device()
     noise_scale = po.noiseScale * po.noiseScale
     q = np.zeros(Q_DIM)
     q[Q_ACC:Q_ACC + 3] = po.noiseProcessAcc**2

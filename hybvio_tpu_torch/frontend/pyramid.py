@@ -2,25 +2,15 @@
 ``frontend/pyramid.py``); the stencils are the kernels of ``ops.pyramid``."""
 from __future__ import annotations
 
-from typing import List
-
-from ..ops.pyramid import pyr_down_levels, scharr
+from ..ops.pyramid import pyramid_with_gradients
 
 
-def build_pyramid(img, max_level: int) -> List:
-    """Levels 0..max_level of an (H, W) image (level 0 = the image): one
-    kernel launch for all its levels."""
-    return build_pyramids((img,), max_level)[0]
-
-
-def build_pyramids(images, max_level: int) -> List[List]:
-    """The pyramids (levels 0..max_level) of one or two (H, W) images of one
-    shape, e.g. the left and right frames of a stereo pair: one kernel
-    launch for all their levels."""
+def build_pyramids_with_gradients(images, max_level: int):
+    """(pyramids, gradients): the pyramids (levels 0..max_level) of one or
+    two (H, W) images of one shape, e.g. the left and right frames of a
+    stereo pair, and the (Ix, Iy) of levels 0..max_level of ``images[0]``
+    (the tracker's left frame; the right frame's gradients are never
+    needed): one kernel launch for all of it."""
     images = tuple(images)
-    return [[img, *levels] for img, levels in zip(images, pyr_down_levels(images, max_level))]
-
-
-def scharr_gradients(img):
-    """(Ix, Iy) of an (H, W) image."""
-    return scharr(img)
+    levels, grads = pyramid_with_gradients(images, max_level)
+    return [[img, *lv] for img, lv in zip(images, levels)], grads

@@ -21,7 +21,7 @@ from ..geometry.cameras import normalize_pixel
 from ..odometry.triangulation import triangulate_stereo_idp
 from .gftt import detect_corners, subpixel_refine
 from .lk import FLOW_OK, FLOW_OUT_OF_RANGE, LKParams, lk_track_pyramid
-from .pyramid import build_pyramids, scharr_gradients
+from .pyramid import build_pyramids_with_gradients
 from .ransac import ransac2, ransac3
 from .stereo import epipolar_check
 
@@ -151,8 +151,8 @@ class Tracker(nn.Module):
         B, T = t0.shape[0], self.T
         dev = first_image.device
         img = first_image.to(torch.float32)
-        pyr, rpyr = build_pyramids((img, second_image.to(torch.float32)), self.lk.max_level)
-        grads = [scharr_gradients(p) for p in pyr]
+        (pyr, rpyr), grads = build_pyramids_with_gradients(
+            (img, second_image.to(torch.float32)), self.lk.max_level)
         xy, _, valid = self.detect(
             img, torch.zeros((B, 1, 2), device=dev), torch.zeros((B, 1), dtype=torch.bool, device=dev),
             torch.zeros((B,), device=dev), T)
@@ -178,8 +178,8 @@ class Tracker(nn.Module):
         B = ts.track_ids.shape[0]
         dev = ts.px.device
         img = image.to(torch.float32)
-        cur_pyr, right_pyr = build_pyramids((img, second_image.to(torch.float32)), lk.max_level)
-        cur_grads = [scharr_gradients(p) for p in cur_pyr]
+        (cur_pyr, right_pyr), cur_grads = build_pyramids_with_gradients(
+            (img, second_image.to(torch.float32)), lk.max_level)
 
         alive = ts.track_ids >= 0
         black = blacklist_flags & (blacklist_ids == ts.track_ids) & alive

@@ -8,4 +8,5 @@ from .gftt import corner_response, corner_response_plain  # noqa: F401
 from .nms import greedy_min_distance, greedy_min_distance_plain  # noqa: F401
 from .patch_gather import gather_patches, gather_patches_plain  # noqa: F401
 from .pyramid import (pyr_down, pyr_down_levels, pyr_down_levels_plain,  # noqa: F401
-                      pyr_down_plain, scharr, scharr_plain)
+                      pyr_down_plain, pyramid_with_gradients, pyramid_with_gradients_plain,
+                      scharr, scharr_plain)

@@ -25,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset (counted by the wrappers)
-LAUNCHES = {"patch_gather": 0, "pyr_down": 0, "scharr": 0,
+LAUNCHES = {"patch_gather": 0, "pyr_down": 0, "scharr": 0, "pyramid_scharr": 0,
             "corner_response": 0, "greedy_nms": 0}
 # (kernel name, input shape the wrapper names) -> launches since the last reset
 SHAPE_LAUNCHES = {}
@@ -36,6 +36,8 @@ _SIGNATURES = {
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_pyramid": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    "hv_pyramid_scharr": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                          _P, ctypes.c_int, _P],
     "hv_scharr": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
     "hv_corner_response": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
     "hv_greedy_nms": [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,

@@ -2,8 +2,11 @@
 ``ops/pyramid_pallas.py`` pyr_down_pallas and scharr_pallas) and their
 plain PyTorch versions, composed exactly like the reference's XLA path.
 
-``pyr_down_levels`` builds several levels of one or two images in one
-launch; ``pyr_down`` is the same kernel at one image and one level."""
+``pyramid_with_gradients`` builds several levels of one or two images and
+the Scharr gradients of every level of the first image in one launch (the
+tracker's path); ``pyr_down_levels`` is the same kernel without the
+gradients, ``pyr_down`` that at one image and one level, and ``scharr`` the
+gradients of one image alone."""
 from __future__ import annotations
 
 import numpy as np
@@ -58,10 +61,26 @@ def pyr_down_levels_plain(images, levels: int):
     return out
 
 
+def pyramid_with_gradients_plain(images, levels: int):
+    """pyr_down_levels_plain, and scharr_plain of each level of the first
+    image."""
+    pyrs = pyr_down_levels_plain(images, levels)
+    return pyrs, [scharr_plain(img) for img in (images[0], *pyrs[0])]
+
+
 def _check_image(img):
     require_cuda(img, dtype=torch.float32)
     if img.dim() != 2 or not img.is_contiguous():
         raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
+
+
+def _check_images(images):
+    require_cuda(*images, dtype=torch.float32)
+    for img in images:
+        _check_image(img)
+    if not 1 <= len(images) <= MAX_IMAGES or any(i.shape != images[0].shape for i in images):
+        raise ValueError(f"the kernel takes 1 to {MAX_IMAGES} images of one shape, got "
+                         f"{[tuple(i.shape) for i in images]}")
 
 
 def pyr_down_levels(images, levels: int):
@@ -72,32 +91,65 @@ def pyr_down_levels(images, levels: int):
     images = tuple(images)
     if all(img.device.type == "cpu" for img in images):
         return pyr_down_levels_plain(images, levels)
-    require_cuda(*images, dtype=torch.float32)
-    for img in images:
-        _check_image(img)
-    if not 1 <= len(images) <= MAX_IMAGES or any(i.shape != images[0].shape for i in images):
-        raise ValueError(f"the kernel takes 1 to {MAX_IMAGES} images of one shape, got "
-                         f"{[tuple(i.shape) for i in images]}")
-    out = [[] for _ in images]
+    _check_images(images)
+    return _chained(images, levels, gradients=False)[0]
+
+
+def pyramid_with_gradients(images, levels: int):
+    """(pyramids, gradients): levels 1..levels of one or two (H, W) images
+    of one shape, as pyr_down_levels gives them, and the Scharr (Ix, Iy) of
+    levels 0..levels of ``images[0]``. On CUDA tensors one kernel launch for
+    up to LEVELS_PER_LAUNCH levels (deeper pyramids chain launches; none
+    computes a level's gradients twice), on CPU tensors the plain version."""
+    images = tuple(images)
+    if all(img.device.type == "cpu" for img in images):
+        return pyramid_with_gradients_plain(images, levels)
+    _check_images(images)
+    if levels == 0:
+        return [[] for _ in images], [scharr(images[0])]
+    return _chained(images, levels, gradients=True)
+
+
+def _chained(images, levels, gradients):
+    out, grads = [[] for _ in images], []
     while len(out[0]) < levels:
         srcs = tuple(row[-1] for row in out) if out[0] else images
-        new = _pyramid(srcs, min(levels - len(out[0]), LEVELS_PER_LAUNCH))
-        for row, more in zip(out, new):
-            row.extend(more)
-    return out
+        new, more = _pyramid(srcs, min(levels - len(out[0]), LEVELS_PER_LAUNCH), gradients,
+                             base=not out[0])
+        for row, lv in zip(out, new):
+            row.extend(lv)
+        grads.extend(more)
+    return out, grads
 
 
-def _pyramid(images, levels):
+def _pyramid(images, levels, gradients, base):
+    """One launch: levels 1..levels of each image and, with ``gradients``,
+    the (Ix, Iy) of levels 1..levels of images[0] (and of level 0 with
+    ``base``)."""
     H, W = images[0].shape
     shapes = [(H, W)]
     for _ in range(levels):
         shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
     sizes = [h * w for h, w in shapes[1:]]
-    out = torch.empty((len(images), sum(sizes)), dtype=torch.float32, device=images[0].device)
-    launch("pyr_down", "hv_pyramid", images[0].data_ptr(), images[-1].data_ptr(), len(images),
-           H, W, levels, out.data_ptr(), shape=(len(images), H, W, levels))
-    return [[level.view(shape) for level, shape in zip(row.split(sizes), shapes[1:])]
+    dev = images[0].device
+    out = torch.empty((len(images), sum(sizes)), dtype=torch.float32, device=dev)
+    args = (images[0].data_ptr(), images[-1].data_ptr(), len(images), H, W, levels,
+            out.data_ptr())
+    key = (len(images), H, W, levels)
+    grads = []
+    if gradients:
+        gshapes = shapes if base else shapes[1:]
+        gsizes = [n for h, w in gshapes for n in (h * w, h * w)]
+        gbuf = torch.empty(sum(gsizes), dtype=torch.float32, device=dev)
+        launch("pyramid_scharr", "hv_pyramid_scharr", *args, gbuf.data_ptr(), int(base),
+               shape=key)
+        flat = gbuf.split(gsizes)
+        grads = [(flat[2 * i].view(s), flat[2 * i + 1].view(s)) for i, s in enumerate(gshapes)]
+    else:
+        launch("pyr_down", "hv_pyramid", *args, shape=key)
+    pyrs = [[level.view(shape) for level, shape in zip(row.split(sizes), shapes[1:])]
             for row in out]
+    return pyrs, grads
 
 
 def pyr_down(img):

@@ -65,7 +65,7 @@ def test_imu_scan_and_process_frame(B):
 
     cam = convert.camera_from_jax(rcam)
     backend = Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
-    state = convert.from_jax(jax.tree.map(np.asarray, rstate))
+    state = convert.from_jax(jax.tree.map(np.asarray, rstate), device="cpu")
     assert not mismatches(convert.to_numpy(backend.init_state(state.rng)),
                           jax.tree.map(np.asarray, rstate), 0.0)
 
@@ -165,7 +165,7 @@ def _ekf_pair(B=3, seed=0):
                          **{f: jnp.asarray(lanes(getattr(rs, f))) for f in rs._fields[2:]})
     rstate = rstate._replace(time=jnp.asarray([0.1, 0.5, 2.0][:B]),
                              zupt_time=jnp.asarray([-1.0, 0.4, 1.9][:B]))
-    return po, rstate, convert.from_jax(jax.tree.map(np.asarray, rstate))
+    return po, rstate, convert.from_jax(jax.tree.map(np.asarray, rstate), device="cpu")
 
 
 @pytest.mark.parametrize("update", ["zupt", "zupt_initialization", "pseudo_velocity", "predict"])
@@ -190,7 +190,7 @@ def test_ekf_updates_and_predict(update):
         rs = rstate._replace(got_first_sample=jnp.asarray([False, True, True]),
                              prev_sample_t=jnp.asarray([-1.0, 0.495, 2.0]))
         ref = jax.vmap(rekf.make_predict(po, jnp.float64))(rs, t, g, a)
-        out = ekf.make_predict(po)(convert.from_jax(jax.tree.map(np.asarray, rs)),
+        out = ekf.make_predict(po)(convert.from_jax(jax.tree.map(np.asarray, rs), device="cpu"),
                                    *(torch.as_tensor(np.asarray(x)) for x in (t, g, a)))
     diff = mismatches(convert.to_numpy(out), jax.tree.map(np.asarray, ref), TOL)
     assert not diff, diff

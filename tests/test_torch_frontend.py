@@ -24,7 +24,7 @@ from hybvio_tpu.frontend.tracker import make_tracker
 from hybvio_tpu_torch import convert
 from hybvio_tpu_torch.frontend.gftt import detect_corners, subpixel_refine
 from hybvio_tpu_torch.frontend.lk import LKParams, lk_track_pyramid
-from hybvio_tpu_torch.frontend.pyramid import build_pyramid, scharr_gradients
+from hybvio_tpu_torch.frontend.pyramid import build_pyramids_with_gradients
 from hybvio_tpu_torch.frontend.ransac import ransac2, ransac3
 from hybvio_tpu_torch.frontend.stereo import epipolar_check
 from hybvio_tpu_torch.frontend.tracker import Tracker
@@ -59,10 +59,11 @@ def test_lk_track_pyramid(scene):
         lambda a, b, c, x, g: r_lk_track_pyramid(a, b, c, x, initial_pts=g, params=rp))(
         pyr, grads, cur_pyr, jnp.asarray(pts), jnp.asarray(guess))
 
-    tp = build_pyramid(_t(prev), 1)
-    tg = [tuple(g[None] for g in scharr_gradients(p)) for p in tp]
+    (tp,), tg = build_pyramids_with_gradients((_t(prev),), 1)
+    tg = [tuple(g[None] for g in pair) for pair in tg]
+    (tc,), _ = build_pyramids_with_gradients((_t(cur),), 1)
     out_pts, status, _ = lk_track_pyramid(
-        [p[None] for p in tp], tg, [p[None] for p in build_pyramid(_t(cur), 1)],
+        [p[None] for p in tp], tg, [p[None] for p in tc],
         _t(pts)[None], initial_pts=_t(guess)[None], params=LKParams(*rp))
     np.testing.assert_array_equal(status[0].numpy(), np.asarray(ref_status))
     assert (np.asarray(ref_status) == 0).sum() >= 6
@@ -126,8 +127,8 @@ def test_ransac2_same_keys():
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B, dtype=jnp.uint32) + 11)
     ref = jax.jit(jax.vmap(lambda a, b, v, k: r_ransac2(rcam, rcam, a, b, v, k, 2.0)))(
         jnp.asarray(pts1), jnp.asarray(pts2), jnp.asarray(valid), keys)
-    out = ransac2(cam, cam, _t(pts1), _t(pts2), _t(valid), convert.from_jax(np.asarray(keys)),
-                  2.0, int_bits=64)
+    out = ransac2(cam, cam, _t(pts1), _t(pts2), _t(valid),
+                  convert.from_jax(np.asarray(keys), device="cpu"), 2.0, int_bits=64)
     np.testing.assert_array_equal(out.inliers.numpy(), np.asarray(ref.inliers))
     np.testing.assert_array_equal(out.inlier_count.numpy(), np.asarray(ref.inlier_count))
     np.testing.assert_allclose(out.score.numpy(), np.asarray(ref.score), rtol=1e-6)
@@ -148,8 +149,8 @@ def test_ransac3_same_keys():
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B, dtype=jnp.uint32) + 5)
     ref = jax.jit(jax.vmap(lambda a, b, c, v, k: r_ransac3(a, b, c, v, k, max_iters=64)))(
         jnp.asarray(prev), jnp.asarray(cur), jnp.asarray(cur_norm), jnp.asarray(valid), keys)
-    out = ransac3(_t(prev), _t(cur), _t(cur_norm), _t(valid), convert.from_jax(np.asarray(keys)),
-                  max_iters=64, int_bits=64)
+    out = ransac3(_t(prev), _t(cur), _t(cur_norm), _t(valid),
+                  convert.from_jax(np.asarray(keys), device="cpu"), max_iters=64, int_bits=64)
     np.testing.assert_array_equal(out.inliers.numpy(), np.asarray(ref.inliers))
     np.testing.assert_array_equal(out.ok.numpy(), np.asarray(ref.ok))
     np.testing.assert_allclose(out.R.numpy(), np.asarray(ref.R), rtol=0, atol=1e-5)
@@ -180,7 +181,7 @@ def test_track_frame_tiny_stereo(scene):
                        blacklist_flags=jnp.asarray(bl), blacklist_ids=jnp.asarray(bl_ids),
                        second_image=jnp.asarray(r1), stereo_guess=jnp.asarray(sguess))
     ts2, tout = tracker.track_frame(
-        ts, _t(l1), convert.from_jax(np.asarray(key))[None], torch.tensor([10.05]),
+        ts, _t(l1), convert.from_jax(np.asarray(key), device="cpu")[None], torch.tensor([10.05]),
         flow_guess=_t(guess)[None], blacklist_flags=_t(bl)[None], blacklist_ids=_t(bl_ids)[None],
         second_image=_t(r1), stereo_guess=_t(sguess)[None])
     lift = lambda tree: jax.tree.map(lambda a: np.asarray(a)[None], tree)

@@ -108,7 +108,7 @@ def test_convert_round_trips_vio_state():
     rng = np.random.RandomState(0)
     imgs = tuple(jnp.asarray(rng.rand(64, 96), jnp.float32) for _ in range(2))
     st = jax.tree.map(np.asarray, binit(imgs, np.full(2, 10.0), np.arange(2)))
-    back = convert.to_numpy(convert.from_jax(st))
+    back = convert.to_numpy(convert.from_jax(st, device="cpu"))
     flat_a, flat_b = jax.tree.leaves(st), jax.tree.leaves(tuple(back))
     assert len(flat_a) == len(flat_b)
     for a, b in zip(flat_a, flat_b):

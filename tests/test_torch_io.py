@@ -9,7 +9,8 @@ import torch
 
 from hybvio_tpu.eval.ate import ate_rmse as ref_ate_rmse
 from hybvio_tpu.io import synthetic as ref_synthetic
-from hybvio_tpu_torch import runtime
+from hybvio_tpu_torch import convert, runtime
+from hybvio_tpu_torch.ekf import state
 from hybvio_tpu_torch.eval.ate import ate_rmse
 from hybvio_tpu_torch.io import synthetic
 from hybvio_tpu_torch.models import _finalize, synthetic_bench_params
@@ -61,6 +62,22 @@ def test_default_device_has_no_cpu_fallback():
         pytest.skip("a card is present: the default device is the card")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         runtime.default_device()
+
+
+@pytest.mark.parametrize("make", ["from_jax", "init_state", "process_noise_q"])
+def test_state_builders_need_a_card_unless_asked_for_the_cpu(make):
+    """convert.from_jax and the filter's initial state and process noise
+    take the card by default, and the CPU only when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is the card")
+    po = synthetic_bench_params("stereo").odometry
+    call = {"from_jax": lambda **kw: convert.from_jax((np.zeros(3), np.ones(2, np.uint32)), **kw),
+            "init_state": lambda **kw: state.init_state(po, 2, **kw),
+            "process_noise_q": lambda **kw: state.process_noise_q(po, **kw)}[make]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    assert all(t.device.type == "cpu" for t in (out if isinstance(out, tuple) else (out,)))
 
 
 def test_make_batched_vio_needs_a_card_unless_asked_for_the_cpu():

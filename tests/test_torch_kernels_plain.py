@@ -7,7 +7,8 @@ The kernels themselves run only on a card: ``test_cuda_kernels_match_plain``
 holds each one against its plain version there and skips elsewhere. What
 the CPU can check of them is their algorithm: numpy models with the
 kernels' own index arithmetic (the greedy bitmask walk, the corner-response
-and pyramid tilings) equal the reference."""
+tiling, the pyramid tiling with and without the fused Scharr gradients)
+equal the reference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +19,7 @@ from hybvio_tpu.frontend.gftt import _greedy_select, corner_response
 from hybvio_tpu.frontend.pyramid import build_pyramid, pyr_down, scharr_gradients
 from hybvio_tpu.ops.patch_gather_pallas import _gather_fallback
 from hybvio_tpu_torch import ops
-from hybvio_tpu_torch.frontend.pyramid import build_pyramids
-from hybvio_tpu_torch.frontend.pyramid import build_pyramid as t_build_pyramid
+from hybvio_tpu_torch.frontend.pyramid import build_pyramids_with_gradients
 from hybvio_tpu_torch.ops.pyramid import PYR_K
 
 torch.set_num_threads(1)
@@ -233,6 +233,7 @@ def corner_tile_model(img, block, th, tw):
 
 
 # the kernels' own tiles at every size; a small odd tile at the small sizes
+PYRAMID_TILE = lambda levels: (16, 32) if levels == 1 else (8, 16)  # rows x cols of the last level
 TILE_CASES = [(hw, "kernel") for hw in TILED_SHAPES] + [(hw, (5, 7)) for hw in TILED_SHAPES[2:]]
 
 
@@ -250,30 +251,74 @@ def test_corner_tile_model_matches_reference(hw, tile, block):
     np.testing.assert_array_equal(ops.corner_response(torch.tensor(img), block).numpy(), ref)
 
 
-def pyramid_tile_model(img, levels, th, tw):
+def scharr_share_model(src, ra, ca, shape, r, c):
+    """Scharr (Ix, Iy) at rows r x columns c of an H x W level whose rows
+    [ra, ...) and columns [ca, ...) are ``src``: each tap at the clamped
+    index, in the kernel's order of sums (the 0 taps included), float32."""
+    H, W = shape
+    f = np.float32
+    s0, s1 = f(0.09375), f(0.3125)
+    rows = [np.clip(r + t - 1, 0, H - 1) - ra for t in range(3)]
+    cols = [np.clip(c - 1, 0, W - 1) - ca, c - ca, np.clip(c + 1, 0, W - 1) - ca]
+    for ix, n in [(x, src.shape[0]) for x in rows] + [(x, src.shape[1]) for x in cols]:
+        assert 0 <= ix.min() and ix.max() < n
+    xd, xs = [], []
+    for t in range(3):
+        a, b, e = (src[rows[t], cc] for cc in cols)
+        xd.append((-a + f(0) * b) + e)
+        xs.append((s0 * a + s1 * b) + s0 * e)
+    return (s0 * xd[0] + s1 * xd[1]) + s0 * xd[2], (-xs[0] + f(0) * xs[1]) + xs[2]
+
+
+def pyramid_tile_model(img, levels, th, tw, gradients=False):
     """numpy model of csrc/pyramid.cu in float32: per th x tw tile of the
     last level, the region of each earlier level the tile needs (2 n + 3 for
     n of the next level, its index i at the clamped row a + i), the x pass
     at the kept columns then the y pass at the kept rows, each tap at the
     clamped index of the level below; each tile writes its share of every
-    level, and every pixel is written exactly once."""
+    level, and every pixel is written exactly once. With ``gradients`` the
+    fused form: the last level's region grows by one on each side (every
+    earlier one by two), and each tile also writes the Scharr of its share
+    of every level, from its region of that level (level 0: the image);
+    returns (levels, gradients of levels 0..levels)."""
     H, W = img.shape
     shapes = [(H, W)]
     for _ in range(levels):
         shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
     k = PYR_K.astype(np.float32)
     outs = [np.full(s, np.nan, np.float32) for s in shapes[1:]]
-    rn, cn = [th], [tw]
+    grads = [[np.full(s, np.nan, np.float32) for _ in range(2)] for s in shapes]
+    h = 1 if gradients else 0
+    rn, cn = [th + 2 * h], [tw + 2 * h]
     for _ in range(levels):
         rn.insert(0, 2 * rn[0] + 3)
         cn.insert(0, 2 * cn[0] + 3)
     HL, WL = shapes[levels]
+
+    def share(l, ty, tx):
+        """Rows and columns of level l that the tile writes: its own, scaled
+        up by 2^(levels - l)."""
+        sh = levels - l
+        return (np.arange((ty * th) << sh, min(((ty + 1) * th) << sh, shapes[l][0])),
+                np.arange((tx * tw) << sh, min(((tx + 1) * tw) << sh, shapes[l][1])))
+
+    def write(dst, r, c, vals):
+        assert np.isnan(dst[np.ix_(r, c)]).all()
+        dst[np.ix_(r, c)] = vals
+
+    def write_scharr(l, src, ra_l, ca_l, r, c):
+        gx, gy = scharr_share_model(src, ra_l, ca_l, shapes[l], r[:, None], c[None, :])
+        write(grads[l][0], r, c, gx)
+        write(grads[l][1], r, c, gy)
+
     for ty in range(-(-HL // th)):
         for tx in range(-(-WL // tw)):
-            ra, ca = [ty * th], [tx * tw]
+            ra, ca = [ty * th - h], [tx * tw - h]
             for _ in range(levels):
                 ra.insert(0, 2 * ra[0] - 2)
                 ca.insert(0, 2 * ca[0] - 2)
+            if gradients:  # level 0 straight from the image
+                write_scharr(0, img, 0, 0, *share(0, ty, tx))
             V = None  # the region of level l - 1 (level 0: the image)
             for l in range(1, levels + 1):
                 (Hp, Wp), (Hl, Wl) = shapes[l - 1], shapes[l]
@@ -293,15 +338,17 @@ def pyramid_tile_model(img, levels, th, tw):
                 V = k[0] * X[ytaps[0]]
                 for t in range(1, 5):
                     V = V + k[t] * X[ytaps[t]]
-                sh = levels - l
-                r, c = ra[l] + np.arange(rn[l]), ca[l] + np.arange(cn[l])
-                rk = (r >= (ty * th) << sh) & (r < min(((ty + 1) * th) << sh, Hl))
-                ck = (c >= (tx * tw) << sh) & (c < min(((tx + 1) * tw) << sh, Wl))
-                share = np.ix_(r[rk], c[ck])
-                assert np.isnan(outs[l - 1][share]).all()
-                outs[l - 1][share] = V[np.ix_(rk, ck)]
+                r, c = share(l, ty, tx)
+                assert ra[l] <= r[0] and r[-1] < ra[l] + rn[l]
+                assert ca[l] <= c[0] and c[-1] < ca[l] + cn[l]
+                write(outs[l - 1], r, c, V[np.ix_(r - ra[l], c - ca[l])])
+                if gradients:  # index i of the region holds row clamp(ra + i)
+                    write_scharr(l, V, ra[l], ca[l], r, c)
     assert not any(np.isnan(o).any() for o in outs)
-    return outs
+    if not gradients:
+        return outs
+    assert not any(np.isnan(g).any() for pair in grads for g in pair)
+    return outs, grads
 
 
 @pytest.mark.parametrize("levels", [1, 2, 3])
@@ -311,39 +358,81 @@ def test_pyramid_tile_model_matches_reference(hw, tile, levels):
     build_pyramid bit for bit in float32 at every level: odd sizes, ragged
     tiles, the level-1 halo recomputed per tile."""
     img = _img(hw, np.float32, 5 + levels)
-    # the kernel's tiles of the last level: 16 x 32 at one level, 8 x 16 at more
-    th, tw = ((16, 32) if levels == 1 else (8, 16)) if tile == "kernel" else tile
+    th, tw = PYRAMID_TILE(levels) if tile == "kernel" else tile
     ref = build_pyramid(jnp.asarray(img), levels)
     for got, want in zip(pyramid_tile_model(img, levels, th, tw), ref[1:]):
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("hw, tile", TILE_CASES)
+def test_fused_tile_model_matches_reference(hw, tile, levels):
+    """The fused launch's tiling on the CPU (the last level's region grown
+    by one, Scharr of each level from the block's region at the clamped
+    index) equals the reference's build_pyramid and scharr_gradients of
+    every level bit for bit in float32, and so does the plain version."""
+    img = _img(hw, np.float32, 9 + levels)
+    th, tw = PYRAMID_TILE(levels) if tile == "kernel" else tile
+    ref = build_pyramid(jnp.asarray(img), levels)
+    pyr, grads = pyramid_tile_model(img, levels, th, tw, gradients=True)
+    for got, want in zip(pyr, ref[1:]):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert len(grads) == len(ref) == levels + 1
+    plain = ops.pyramid_with_gradients_plain((torch.tensor(img),), levels)[1]
+    for (gx, gy), level, (px, py) in zip(grads, ref, plain):
+        rx, ry = scharr_gradients(level)
+        np.testing.assert_array_equal(gx, np.asarray(rx))
+        np.testing.assert_array_equal(gy, np.asarray(ry))
+        np.testing.assert_array_equal(px.numpy(), gx)
+        np.testing.assert_array_equal(py.numpy(), gy)
+
+
 @pytest.mark.parametrize("levels", [0, 1, 2, 3])
 @pytest.mark.parametrize("hw", TILED_SHAPES)
 def test_build_pyramids_two_images_match_reference(hw, levels):
-    """build_pyramids of a stereo pair equals the reference's build_pyramid
-    of each image, bit for bit in float32 (the CPU runs pyr_down_levels'
-    plain version)."""
+    """The levels of a stereo pair from one pyr_down_levels call equal the
+    reference's build_pyramid of each image, bit for bit in float32 (the
+    CPU runs pyr_down_levels' plain version)."""
     left, right = _img(hw, np.float32, 6), _img(hw, np.float32, 7)
-    pyrs = build_pyramids((torch.tensor(left), torch.tensor(right)), levels)
+    pyrs = ops.pyr_down_levels((torch.tensor(left), torch.tensor(right)), levels)
     assert len(pyrs) == 2
+    for img, pyr in zip((left, right), pyrs):
+        ref = build_pyramid(jnp.asarray(img), levels)
+        assert len(pyr) + 1 == len(ref) == levels + 1
+        for got, want in zip(pyr, ref[1:]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2, 3])
+@pytest.mark.parametrize("hw", TILED_SHAPES)
+def test_build_pyramids_with_gradients_match_reference(hw, levels):
+    """build_pyramids_with_gradients of a stereo pair equals the reference's
+    build_pyramid of each image and scharr_gradients of each level of the
+    left one, bit for bit in float32 (the CPU runs the plain version)."""
+    left, right = _img(hw, np.float32, 10), _img(hw, np.float32, 11)
+    pyrs, grads = build_pyramids_with_gradients((torch.tensor(left), torch.tensor(right)), levels)
+    assert len(pyrs) == 2 and len(grads) == levels + 1
     for img, pyr in zip((left, right), pyrs):
         ref = build_pyramid(jnp.asarray(img), levels)
         assert len(pyr) == len(ref) == levels + 1
         for got, want in zip(pyr, ref):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for (gx, gy), level in zip(grads, build_pyramid(jnp.asarray(left), levels)):
+        rx, ry = scharr_gradients(level)
+        np.testing.assert_array_equal(gx.numpy(), np.asarray(rx))
+        np.testing.assert_array_equal(gy.numpy(), np.asarray(ry))
 
 
 @pytest.mark.parametrize("levels", [0, 1, 2, 4])
 @pytest.mark.parametrize("hw", TILED_SHAPES[1:])
 def test_build_pyramid_single_image_matches_reference(hw, levels):
-    """build_pyramid of one image (one pyr_down_levels call) equals the
+    """The levels of one image from one pyr_down_levels call equal the
     reference's build_pyramid bit for bit in float32."""
     img = _img(hw, np.float32, 8)
-    pyr = t_build_pyramid(torch.tensor(img), levels)
+    (pyr,) = ops.pyr_down_levels((torch.tensor(img),), levels)
     ref = build_pyramid(jnp.asarray(img), levels)
-    assert len(pyr) == len(ref) == levels + 1
-    for got, want in zip(pyr, ref):
+    assert len(pyr) + 1 == len(ref) == levels + 1
+    for got, want in zip(pyr, ref[1:]):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -360,6 +449,10 @@ def test_wrappers_use_plain_only_for_cpu_tensors():
         ops.pyr_down_levels((meta, meta), 2)
     with pytest.raises(ValueError):
         ops.pyr_down_levels((cpu, meta), 2)
+    for images in ((meta,), (meta, meta), (cpu, meta)):
+        for levels in (0, 2):
+            with pytest.raises(ValueError):
+                ops.pyramid_with_gradients(images, levels)
     origins = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         ops.gather_patches((cpu[None], meta[None]), origins, origins, 8)
@@ -383,6 +476,15 @@ def test_cuda_kernels_match_plain():
             assert all(torch.equal(a, b) for a, b in zip(pyr, want))
     for a, b in zip(ops.scharr(img), ops.scharr_plain(img)):
         assert (a - b).abs().max() <= 1e-6
+    for n in (1, 2):
+        for levels in (1, 2, 3, 4):  # 4: two chained launches
+            pyrs, grads = ops.pyramid_with_gradients((img, right)[:n], levels)
+            want_pyrs, want_grads = ops.pyramid_with_gradients_plain((img, right)[:n], levels)
+            assert len(grads) == levels + 1
+            for pyr, want in zip(pyrs, want_pyrs):
+                assert all(torch.equal(a, b) for a, b in zip(pyr, want))
+            for got, want in zip(grads, want_grads):
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
     for bs in (3, 5):
         assert torch.equal(ops.corner_response(img, bs), ops.corner_response_plain(img, bs))
     y0 = torch.randint(-3, 480 - 34 + 4, (16, 96), generator=g, dtype=torch.int32).to(dev)

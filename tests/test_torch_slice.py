@@ -62,7 +62,7 @@ def test_batched_stereo_step_matches_reference():
     diff = mismatches(convert.to_numpy(own), jax.tree.map(np.asarray, rstate), _tol, "init")
     assert not diff, diff
 
-    state = convert.from_jax(jax.tree.map(np.asarray, rstate))
+    state = convert.from_jax(jax.tree.map(np.asarray, rstate), device="cpu")
     tracked = 0
     for fi, imu in enumerate(imu_batches(seq, FRAMES, B), start=1):
         pair = frames[fi]
