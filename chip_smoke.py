@@ -7,32 +7,37 @@ Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
   3. the card's launch floor (an empty kernel, timed like the rows below);
-     each kernel against its plain PyTorch version on the card at the
-     stereo main-path shapes (exact for gather / greedy / pyramid / fused
-     pyramid and gradients / corner response, <= 1e-6 max abs for the
-     standalone Scharr), plus edge cases of the gather, the greedy walk, the
-     corner response and the pyramid with and without the gradients; each
-     kernel's device time (CUDA events around 100 back-to-back calls,
-     median of 5 runs) beside its bound (bytes over 3.35 TB/s or float32
-     operations over 67 TFLOP/s, whichever is larger), its plain version's
-     time and, where one PyTorch call computes the same function, that
-     call's time. The gather at every window shape the main path launches;
-     the main path's fused launch (levels 1-2 of both frames of a stereo
-     pair and the Scharr gradients of levels 0-2 of the left one) beside
-     the pyramid launch and the three Scharr launches it replaced; the
-     pyramid alone beside its single-image single-level launches and one
-     launch per level; the standalone Scharr at each of the three level
-     sizes;
-  4. the main path: the stereo preset at 752x480, B=16 lanes sharing each
+     each kernel against its plain PyTorch version on the card at every
+     input shape the three paths of phase 4 give it (exact for gather /
+     greedy / pyramid / fused pyramid and gradients / corner response,
+     <= 1e-6 max abs for the standalone Scharr), plus edge cases of the
+     gather, the greedy walk, the corner response and the pyramid with and
+     without the gradients; each kernel's device time (CUDA events around
+     100 back-to-back calls, median of 5 runs) beside its bound (bytes over
+     3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger),
+     its plain version's time and, where one PyTorch call computes the same
+     function, that call's time. The gather at every window shape and
+     pyramid level (image size) the paths launch; the fused pyramid +
+     gradients of a stereo pair (levels 1-2 of both frames and the Scharr
+     gradients of levels 0-2 of the left one) beside the pyramid launch and
+     the three Scharr launches it replaced, and of one 480x752 or 512x512
+     frame; the pyramid alone beside its single-image single-level launches
+     and one launch per level; the standalone Scharr at each of the three
+     level sizes; the corner response at 480x752 and 512x512;
+  4. three paths through make_batched_vio, each B=16 lanes sharing each
      frame, float32, over a 60-frame synthetic sequence (io.synthetic, the
-     benchmark's world); median step time, aggregate frames/s, finite lanes,
-     ATE median against ground truth, and every kernel's launch count in
-     that run, in total and by input shape. Fails on a Pallas kernel none
-     of whose port kernels was launched, a non-finite lane or an ATE median
-     over 0.05 m;
-  5. the kernels ranked by the time the main path loses in them: the sum
-     over input shapes of launches x (device time - bound); fails on a
-     shape launched in phase 4 and not timed in phase 3.
+     benchmark's worlds): the stereo preset at 752x480, the mono preset at
+     752x480 and the fisheye (KB4) preset at 512x512. For each: median step
+     time, aggregate frames/s, warm-up step, finite lanes, ATE median
+     against ground truth, every kernel's launch count in that run, in total
+     and by input shape, and the host syncs of one step
+     (torch.cuda.set_sync_debug_mode). Fails on a Pallas kernel none of
+     whose port kernels was launched, a path that did not launch one of the
+     four kernels every path runs, a non-finite lane or an ATE median over
+     0.05 m;
+  5. the kernels ranked, per path and over the three, by the time the paths
+     lose in them: the sum over input shapes of launches x (device time -
+     bound); fails on a shape launched in phase 4 and not timed in phase 3.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -47,6 +52,21 @@ import numpy as np
 
 B = 16
 FRAMES = 60
+PATHS = ("stereo", "mono", "fisheye")
+FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512)}
+# kernels every path launches (pyr_down and scharr alone are off the paths)
+PATH_KERNELS = ("pyramid_scharr", "patch_gather", "corner_response", "greedy_nms")
+# the gathers the paths launch, per frame size: (images, window, pyramid
+# level). The LK template (level, Ix, Iy) at 18x18 on levels 0-2; the LK
+# search at 50x50 on the top level of the 3-level temporal LK (level 2) and
+# of the 2-level stereo LK (level 1, stereo only), 34x34 below; the subpixel
+# refinement's Ix and Iy at 33x33 on level 0.
+GATHER_ROWS = {
+    (480, 752): ((3, 18, 0), (3, 18, 1), (3, 18, 2), (1, 50, 2), (1, 50, 1), (1, 34, 1),
+                 (1, 34, 0), (2, 33, 0)),
+    (512, 512): ((3, 18, 0), (3, 18, 1), (3, 18, 2), (1, 50, 2), (1, 34, 1), (1, 34, 0),
+                 (2, 33, 0)),
+}
 ATE_LIMIT_M = 0.05
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
@@ -191,7 +211,7 @@ def check_edge_cases(dev, g):
             if err != 0:
                 raise AssertionError(f"corner_response {h}x{w} block {bs}: max abs error {err}")
             cases += 1
-    for h, w in ((480, 752), (239, 377), (121, 189), (60, 94)):
+    for h, w in ((480, 752), (512, 512), (239, 377), (121, 189), (60, 94)):
         pair = tuple(torch.rand((h, w), generator=g).to(dev) for _ in range(2))
         for n in (1, 2):
             for levels in (1, 2, 3, 4):  # 4: two chained launches
@@ -247,9 +267,11 @@ def check_kernels(dev):
     from hybvio_tpu_torch.ops.pyramid import PYR_K, SCHARR_D, SCHARR_S
 
     g = torch.Generator(device="cpu").manual_seed(0)
-    H, W = 480, 752
+    H, W = FRAME_HW["stereo"]
     img = torch.rand((H, W), generator=g).to(dev)
     right = torch.rand((H, W), generator=g).to(dev)
+    fish = torch.rand(FRAME_HW["fisheye"], generator=g).to(dev)
+    frames = {(H, W): img, FRAME_HW["fisheye"]: fish}
     px = H * W
     results = {}
 
@@ -279,59 +301,64 @@ def check_kernels(dev):
     def shape_row(r):
         return {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
 
-    # patch gather at every shape key (images, B, N, ps) the main path
-    # launches, on the frame and its gradients shared by the lanes (stride
-    # 0): the LK template (frame, Ix, Iy) at 18x18, the LK search windows at
-    # 50x50 and 34x34, the subpixel refinement's two gradients at 33x33;
-    # origins inside the frame. The bound reads each pixel that some window
-    # covers once per image (the union of the footprints), writes each
-    # window and reads each origin once. Yardstick: one torch.gather of the
-    # stacked images' windows. Phase 5 charges each shape at its own row.
-    gx, gy = ops.scharr(img)
+    # patch gather at every shape key (images, B, N, ps, H, W) the paths
+    # launch, on the levels of a frame and their gradients shared by the
+    # lanes (stride 0): GATHER_ROWS; origins inside the level. The bound
+    # reads each pixel that some window covers once per image (the union of
+    # the footprints), writes each window and reads each origin once.
+    # Yardstick: one torch.gather of the stacked images' windows. Phase 5
+    # charges each shape at its own row.
     errs = []
-    for ps in (18, 50, 34, 33):
+    for ps in (18, 50, 34, 33):  # origins past the frame's edges
         y0 = torch.randint(-3, H - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
         x0 = torch.randint(-3, W - ps + 4, (B, 96), generator=g, dtype=torch.int32).to(dev)
         (out,) = ops.gather_patches((img.expand(B, H, W),), y0, x0, ps)
         errs.append(max_err(out, ops.gather_patches_plain(img.expand(B, H, W), y0, x0, ps)))
     n = 96
     shapes = {}
-    for planes, ps in (((img, gx, gy), 18), ((img,), 50), ((img,), 34), ((gx, gy), 33)):
-        k = len(planes)
-        images = tuple(p.expand(B, H, W) for p in planes)
-        y0 = torch.randint(0, H - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-        x0 = torch.randint(0, W - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
-        r = torch.arange(ps, device=dev)
-        idx = (((y0.long()[..., None] + r) * W)[..., :, None]
-               + (x0.long()[..., None] + r)[..., None, :]).reshape(B, -1).expand(k, B, -1)
-        flat = torch.stack([p.reshape(-1) for p in planes])[:, None].expand(k, B, H * W)
-        covered = torch.zeros(H * W, dtype=torch.bool, device=dev)
-        covered[idx[0].reshape(-1)] = True
-        read_px = int(covered.sum())
-        got = ops.gather_patches(images, y0, x0, ps)
-        want = [ops.gather_patches_plain(im, y0, x0, ps) for im in images]
-        err = max([max_err(a, b) for a, b in zip(got, want)] + errs)
-        if not torch.equal(torch.gather(flat, 2, idx).reshape(k, B, n, ps, ps), torch.stack(got)):
-            raise AssertionError(f"patch_gather {ps}x{ps}: the torch.gather yardstick disagrees")
-        srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, {B}x{n} windows of "
-                     f"{ps}x{ps})", err, 0.0,
-                     lambda: ops.gather_patches(images, y0, x0, ps),
-                     lambda: torch.gather(flat, 2, idx),
-                     4 * (k * B * n * ps * ps + k * read_px + 2 * B * n), 0,
-                     plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in images])
-        print(f"  the windows cover {read_px} of the frame's {px} pixels "
-              f"({100 * read_px / px:.1f}%)", flush=True)
-        shapes[shape_key((k, B, n, ps))] = shape_row(srow)
-        if ps == 34:
-            row = srow
-        if ps == 18:  # the template's three images in one launch, or three
-            three_ms, three_launches_ms = srow["ms"], device_ms(
-                lambda: [ops.gather_patches((im,), y0, x0, ps) for im in images])[0]
+    for (fh, fw), rows in GATHER_ROWS.items():
+        frame = frames[(fh, fw)]
+        (lv,), grads = ops.pyramid_with_gradients((frame,), 2)
+        for k, ps, level in rows:
+            base = (frame, *lv)[level]
+            planes = {3: (base, *grads[level]), 1: (base,), 2: grads[level]}[k]
+            h, w = base.shape
+            images = tuple(p.expand(B, h, w) for p in planes)
+            y0 = torch.randint(0, h - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+            x0 = torch.randint(0, w - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+            r = torch.arange(ps, device=dev)
+            idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+                   + (x0.long()[..., None] + r)[..., None, :]).reshape(B, -1).expand(k, B, -1)
+            flat = torch.stack([p.reshape(-1) for p in planes])[:, None].expand(k, B, h * w)
+            covered = torch.zeros(h * w, dtype=torch.bool, device=dev)
+            covered[idx[0].reshape(-1)] = True
+            read_px = int(covered.sum())
+            got = ops.gather_patches(images, y0, x0, ps)
+            want = [ops.gather_patches_plain(im, y0, x0, ps) for im in images]
+            err = max([max_err(a, b) for a, b in zip(got, want)] + errs)
+            if not torch.equal(torch.gather(flat, 2, idx).reshape(k, B, n, ps, ps),
+                               torch.stack(got)):
+                raise AssertionError(f"patch_gather {ps}x{ps} on {h}x{w}: the torch.gather "
+                                     f"yardstick disagrees")
+            srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, {B}x{n} windows of "
+                         f"{ps}x{ps} on {h}x{w})", err, 0.0,
+                         lambda: ops.gather_patches(images, y0, x0, ps),
+                         lambda: torch.gather(flat, 2, idx),
+                         4 * (k * B * n * ps * ps + k * read_px + 2 * B * n), 0,
+                         plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in images])
+            print(f"  the windows cover {read_px} of the level's {h * w} pixels "
+                  f"({100 * read_px / (h * w):.1f}%)", flush=True)
+            shapes[shape_key((k, B, n, ps, h, w))] = shape_row(srow)
+            if (ps, h, w) == (34, H, W):
+                row = srow
+            if (k, ps, h, w) == (3, 18, H, W):  # the template's three images in one launch, or three
+                three_ms, three_launches_ms = srow["ms"], device_ms(
+                    lambda: [ops.gather_patches((im,), y0, x0, ps) for im in images])[0]
     row.update(shapes=shapes, template_3img_ms=three_ms,
                template_3launches_ms=three_launches_ms)
     results["patch_gather"] = row
-    print(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18): one "
-          f"launch {three_ms:.5f} ms, three launches {three_launches_ms:.5f} ms", flush=True)
+    print(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18 on {H}x{W}): "
+          f"one launch {three_ms:.5f} ms, three launches {three_launches_ms:.5f} ms", flush=True)
 
     # pyramid, main-path form: levels 1 and 2 of the left and right frames in
     # one launch (no single PyTorch call computes it: library none)
@@ -410,6 +437,20 @@ def check_kernels(dev):
                 None, 2 * pbytes, pops + sum(2 * 10 * h * w for h, w in levels_hw),
                 plain=lambda: ops.pyramid_with_gradients_plain(pair, 2))
     row["shapes"] = {shape_key((2, H, W, 2)): shape_row(row)}
+    # the mono and fisheye paths' form: one frame's levels 1-2 and the
+    # gradients of its levels 0-2 (bytes: read level 0, write levels 1-2,
+    # write both gradients of levels 0-2)
+    for frame in frames.values():
+        fh, fw = frame.shape
+        lhw = [(fh, fw), ((fh + 1) // 2, (fw + 1) // 2), ((fh + 3) // 4, (fw + 3) // 4)]
+        ops1 = (sum(9 * lhw[l - 1][0] * w + 9 * h * w for l, (h, w) in enumerate(lhw) if l > 0)
+                + sum(2 * 10 * h * w for h, w in lhw))
+        srow = timed(f"pyramid_scharr (1 image, {fh}x{fw}, 2 levels, gradients of levels 0-2, "
+                     f"one launch)", fused_err((frame,), 2), 0.0,
+                     lambda: ops.pyramid_with_gradients((frame,), 2), None,
+                     3 * 4 * sum(h * w for h, w in lhw), ops1,
+                     plain=lambda: ops.pyramid_with_gradients_plain((frame,), 2))
+        row["shapes"][shape_key((1, fh, fw, 2))] = shape_row(srow)
     replaced, _ = device_ms(lambda: [ops.pyr_down_levels(pair, 2)]
                             + [ops.scharr(im) for im in level_imgs])
     rows_sum = results["pyr_down"]["ms"] + sum(v["ms"] for v in shapes.values())
@@ -430,6 +471,12 @@ def check_kernels(dev):
         else:
             results["corner_response"].update(block5_ms=srow["ms"], block5_bound_ms=srow["bound_ms"],
                                                block5_max_abs_err=srow["max_abs_err"])
+    fh, fw = fish.shape
+    srow = timed(f"corner_response block 3, {fh}x{fw}",
+                 max_err(ops.corner_response(fish, 3), ops.corner_response_plain(fish, 3)), 0.0,
+                 lambda: ops.corner_response(fish, 3), None, 4 * 2 * fh * fw, 46 * fh * fw,
+                 plain=lambda: ops.corner_response_plain(fish, 3))
+    results["corner_response"]["shapes"][shape_key((fh, fw, 3))] = shape_row(srow)
 
     # greedy: the main path's layout, one d2 shared by the lanes (stride 0)
     K = 192
@@ -454,58 +501,80 @@ def check_kernels(dev):
     return results, floor_ms
 
 
-def rank(rows):
-    """The order in which the kernels lose the main path the most time:
-    first any kernel slower than its library call at some shape, then the
-    rest by the sum over the input shapes the main path gave it of launches
-    x (device time - bound); a kernel at >= 50% of its bound and no slower
-    than its library call is left alone. Raises if the main path launched a
-    kernel at a shape phase 3 did not time."""
+def rank(rows, path=None):
+    """The order in which the kernels lose ``path`` (or, with None, the three
+    paths together) the most time: first any kernel slower than its library
+    call at some shape, then the rest by the sum over the input shapes the
+    path gave it of launches x (device time - bound); a kernel at >= 50% of
+    its bound and no slower than its library call is left alone. Raises if
+    a path launched a kernel at a shape phase 3 did not time."""
     def slower(r):
         return any(s.get("library_ms") is not None and s["ms"] > s["library_ms"]
                    for s in (r, *r["shapes"].values()) if "ms" in s)
 
+    def launches(s):
+        return s["launches"][path] if path else sum(s["launches"].values())
+
     for r in rows:
-        untimed = [k for k, s in r["shapes"].items() if s["launches"] and "ms" not in s]
+        untimed = [k for k, s in r["shapes"].items()
+                   if any(s["launches"].values()) and "ms" not in s]
         if untimed:
             raise AssertionError(f"{r['name']} launched at shapes phase 3 did not time: {untimed}")
-        r["loss_ms"] = sum(s["launches"] * (s["ms"] - s["bound_ms"])
-                           for s in r["shapes"].values() if s["launches"])
-    order = sorted(rows, key=lambda r: (not slower(r), -r["loss_ms"]))
-    return [(r["name"], r["loss_ms"], slower(r),
+    loss = {r["name"]: sum(launches(s) * (s["ms"] - s["bound_ms"])
+                           for s in r["shapes"].values() if launches(s)) for r in rows}
+    order = sorted(rows, key=lambda r: (not slower(r), -loss[r["name"]]))
+    return [(r["name"], loss[r["name"]], slower(r),
              r["bound_ms"] / r["ms"] >= 0.5 and not slower(r)) for r in order]
 
 
-def run_slice(dev):
-    """Phase 4: the batched stereo step at full width on the card."""
+def path_inputs(config, dev):
+    """(params, derived, cameras, sequence, frames on the card, IMU batches)
+    of a preset over FRAMES frames of its synthetic world: the stereo and
+    mono presets on render_view at 752x480 (landmarks 6 m out), the fisheye
+    preset on render_view_fisheye at 512x512 with its KB4 lens and field of
+    view (landmarks 5 m out, as bench.py's fisheye world)."""
     import torch
 
-    from hybvio_tpu_torch import ops, runtime
-    from hybvio_tpu_torch.eval.ate import ate_rmse
-    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence, render_view
+    from hybvio_tpu_torch import runtime
+    from hybvio_tpu_torch.io.synthetic import (
+        SYNTH_IMU_TO_CAMERA, generate_sequence, render_view, render_view_fisheye,
+    )
     from hybvio_tpu_torch.models import _finalize, synthetic_bench_params
     from hybvio_tpu_torch.odometry.backend import ImuBatch
-    from hybvio_tpu_torch.parallel.batched import make_batched_vio
 
-    params, derived, cams = _finalize(synthetic_bench_params("stereo"), 752, 480)
+    H, W = FRAME_HW[config]
+    params, derived, cams = _finalize(synthetic_bench_params(config), W, H)
+    pt = params.tracker
     seq = generate_sequence(duration=FRAMES / 20.0, imu_rate=200.0, frame_rate=20.0,
-                            n_landmarks=500, gyro_noise=5e-4, acc_noise=5e-3, seed=0)
+                            n_landmarks=500, landmark_radius=5.0 if config == "fisheye" else 6.0,
+                            gyro_noise=5e-4, acc_noise=5e-3, seed=0)
     F = len(seq.frame_times)
     second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
     second[0, 3] = -0.11
+    f, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
     t0 = time.perf_counter()
     frames = []
     for fi in range(F):
         k = seq.frame_sample_idx[fi]
-        pair = [render_view(seq.landmarks, seq.pos[k], seq.quat[k], ext, 458.0, 458.0,
-                            376.0, 240.0, 752, 480, blob_sigma=1.4)
-                for ext in (SYNTH_IMU_TO_CAMERA, second)]
-        frames.append(tuple(torch.as_tensor(f).to(dev) for f in pair))
-    print(f"slice: rendered {F} stereo frames in {time.perf_counter() - t0:.1f} s", flush=True)
+        if config == "fisheye":
+            views = [render_view_fisheye(seq.landmarks, seq.pos[k], seq.quat[k],
+                                         SYNTH_IMU_TO_CAMERA, f, f, cx, cy, W, H,
+                                         pt.distortionCoeffs, max_fov_deg=pt.validCameraFov,
+                                         blob_sigma=1.4)]
+        else:
+            views = [render_view(seq.landmarks, seq.pos[k], seq.quat[k], ext, f, f, cx, cy, W, H,
+                                 blob_sigma=1.4)
+                     for ext in ((SYNTH_IMU_TO_CAMERA, second) if pt.useStereo
+                                 else (SYNTH_IMU_TO_CAMERA,))]
+        views = tuple(torch.as_tensor(v).to(dev) for v in views)
+        frames.append(views if pt.useStereo else views[0])
+    print(f"{config}: rendered {F} frames of {W}x{H} ({len(cams)} camera"
+          f"{'s' if len(cams) > 1 else ''}) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.RandomState(1)
     S = int(np.max(np.diff(np.concatenate([[0], seq.frame_sample_idx + 1]))))
     batches, prev = [], seq.frame_sample_idx[0] + 1
+    fl = lambda x: torch.as_tensor(x, dtype=runtime.filter_dtype(dev), device=dev)
     for fi in range(1, F):
         k = seq.frame_sample_idx[fi] + 1
         n, pad = k - prev, S - (k - prev)
@@ -514,11 +583,45 @@ def run_slice(dev):
         a = np.pad(seq.acc[prev:k], ((0, pad), (0, 0)))
         gB = np.stack([g + 1e-4 * rng.randn(*g.shape) for _ in range(B)])
         aB = np.stack([a + 1e-3 * rng.randn(*a.shape) for _ in range(B)])
-        fl = lambda x: torch.as_tensor(x, dtype=runtime.filter_dtype(dev), device=dev)
         batches.append(ImuBatch(fl(np.tile(t, (B, 1))), fl(gB), fl(aB),
                                 torch.as_tensor(np.tile(np.arange(S) < n, (B, 1)), device=dev)))
         prev = k
+    return params, derived, cams, seq, frames, batches
 
+
+def host_syncs(step):
+    """Run ``step()`` under torch.cuda.set_sync_debug_mode("warn"): (its
+    result, the host syncs it made, counted by the Python line that made
+    each)."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines = collections.Counter(
+        f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, lines
+
+
+def run_path(dev, config):
+    """Phase 4, one path: the batched step of a preset at full width on the
+    card; (launches, launches by input shape, host syncs of one step)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.parallel.batched import make_batched_vio
+
+    params, derived, cams, seq, frames, batches = path_inputs(config, dev)
+    F = len(frames)
     binit, bstep, _ = make_batched_vio(params, derived, cams, batch_size=B, device=dev)
     ops.reset_launch_counts()
     states = binit(frames[0], np.full(B, float(seq.frame_times[0])), np.arange(B))
@@ -526,7 +629,10 @@ def run_slice(dev):
     for fi in range(1, F):
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        states, out = bstep(states, batches[fi - 1], frames[fi])
+        if fi == 2:  # the host syncs of one step (not timed: the warnings cost time)
+            (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], frames[fi]))
+        else:
+            states, out = bstep(states, batches[fi - 1], frames[fi])
         torch.cuda.synchronize()
         step_ms.append(1000.0 * (time.perf_counter() - ts))
         positions.append(out.position)
@@ -535,35 +641,40 @@ def run_slice(dev):
 
     est = torch.stack(positions).cpu().numpy()  # (F-1, B, 3)
     if est.shape != (F - 1, B, 3):
-        raise AssertionError(f"positions of shape {est.shape}")
+        raise AssertionError(f"{config}: positions of shape {est.shape}")
     gt = seq.pos[seq.frame_sample_idx[1:F]] - seq.pos[0]
     finite = [b for b in range(B) if np.isfinite(est[:, b]).all()]
     ates = [float(ate_rmse(est[:, b], gt)) for b in finite]
-    timed = step_ms[1:]  # the first step is the warm-up
+    timed = step_ms[2:]  # the first step is the warm-up, the second counted the syncs
     med = statistics.median(timed)
     fps = B * len(timed) / (sum(timed) / 1000.0)
     ate_med = float(np.median(ates)) if ates else float("nan")
-    print(f"slice: B={B} 752x480 stereo f32, {F - 1} steps (1 warm-up): "
-          f"median step {med:.2f} ms, aggregate {fps:.1f} frames/s, "
+    H, W = FRAME_HW[config]
+    print(f"{config}: B={B} {W}x{H} f32, {F - 1} steps (median and frames/s over the last "
+          f"{len(timed)}): median step {med:.2f} ms, aggregate {fps:.1f} frames/s, "
           f"warm-up step {step_ms[0]:.1f} ms", flush=True)
-    print(f"slice: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m "
+    print(f"{config}: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m "
           f"(max {max(ates) if ates else float('nan'):.4f} m)", flush=True)
-    print(f"slice: kernel launches {json.dumps(launches)}", flush=True)
-    print("slice: kernel launches by input shape " + json.dumps(
+    print(f"{config}: host syncs in one step (step 2): {sum(syncs.values())} "
+          f"{json.dumps(dict(sorted(syncs.items())))}", flush=True)
+    print(f"{config}: kernel launches {json.dumps(launches)}", flush=True)
+    print(f"{config}: kernel launches by input shape " + json.dumps(
         {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}), flush=True)
     if len(finite) != B:
-        raise AssertionError(f"only {len(finite)}/{B} lanes finite")
+        raise AssertionError(f"{config}: only {len(finite)}/{B} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
-        raise AssertionError(f"ATE median {ate_med} m > {ATE_LIMIT_M} m")
+        raise AssertionError(f"{config}: ATE median {ate_med} m > {ATE_LIMIT_M} m")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"{config}: kernels not launched: {missing}")
     ports = {}  # Pallas kernel -> the port kernels that replace it
     for name, (_, replaces) in KERNELS.items():
         for ref in replaces.split(", "):
             ports.setdefault(ref, []).append(name)
     never = [ref for ref, names in ports.items() if not any(launches[n] for n in names)]
     if never:
-        raise AssertionError(f"Pallas kernels with no port kernel launched on the main path: "
-                             f"{never}")
-    return launches, by_shape
+        raise AssertionError(f"{config}: Pallas kernels with no port kernel launched: {never}")
+    return launches, by_shape, sum(syncs.values())
 
 
 def main() -> int:
@@ -595,31 +706,38 @@ def main() -> int:
               f"{secs:.1f} s", flush=True)
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
-        launches, by_shape = run_slice(dev)
+        runs = {config: run_path(dev, config) for config in PATHS}
         torch.cuda.synchronize()
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": launches[name], **kern[name]}
+                 "launches": sum(runs[c][0][name] for c in PATHS),
+                 "launches_by_path": {c: runs[c][0][name] for c in PATHS}, **kern[name]}
                 for name, (src, rep) in KERNELS.items()]
-        for r in rows:  # each input shape timed in phase 3 or launched in phase 4
-            counts = {shape_key(sh): v for (k, sh), v in sorted(by_shape.items())
-                      if k == r["name"]}
-            r["shapes"] = {key: {**r["shapes"].get(key, {}), "launches": counts.get(key, 0)}
-                           for key in {**r["shapes"], **counts}}
-        ranking = rank(rows)
+        for r in rows:  # each input shape timed in phase 3 or launched in phase 4, by path
+            counts = {c: {shape_key(sh): v for (k, sh), v in runs[c][1].items() if k == r["name"]}
+                      for c in PATHS}
+            keys = set(r["shapes"]).union(*counts.values())
+            r["shapes"] = {key: {**r["shapes"].get(key, {}),
+                                 "launches": {c: counts[c].get(key, 0) for c in PATHS}}
+                           for key in sorted(keys)}
+        rankings = {c: rank(rows, c) for c in PATHS}
+        rankings["the three paths"] = rank(rows)
     except (AssertionError, RuntimeError, ValueError, TypeError) as e:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    print("ranking (sum over input shapes of launches x (device - bound) per 60-frame run; "
-          f"launch floor {floor_ms:.5f} ms): " + "; ".join(
-              f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
-              f"{' (>= 50% of its bound: left alone)' if alone else ''}"
-              for name, loss, slower, alone in ranking), flush=True)
+    print("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS), flush=True)
+    for which, ranking in rankings.items():
+        print(f"ranking, {which} (sum over input shapes of launches x (device - bound) per "
+              f"60-frame run; launch floor {floor_ms:.5f} ms): " + "; ".join(
+                  f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
+                  f"{' (>= 50% of its bound: left alone)' if alone else ''}"
+                  for name, loss, slower, alone in ranking), flush=True)
     for r in rows:
         print(f"  {r['name']}: " + ("; ".join(
-            f"{key} {s['launches']} launches x ({s['ms']:.5f} - {s['bound_ms']:.5f}) ms"
-            for key, s in sorted(r["shapes"].items()) if s["launches"])
-            or "not launched on the main path"), flush=True)
+            f"{key} {json.dumps(s['launches'])} launches x ({s['ms']:.5f} - "
+            f"{s['bound_ms']:.5f}) ms"
+            for key, s in r["shapes"].items() if any(s["launches"].values()))
+            or "not launched on the paths"), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ import torch
 
 from .ekf.state import EKFState
 from .frontend.tracker import TrackerOutput, TrackerState
-from .geometry.cameras import Camera, build_pinhole
+from .geometry.cameras import FISHEYE, PINHOLE, Camera, build_pinhole
 from .odometry.backend import BackendState, FrameOutput, ImuBatch, TrackerInput
 from .odometry.trail import TrailState
 from .odometry.vio import VioState
@@ -25,11 +25,18 @@ _TYPES = {cls.__name__: cls for cls in (
 
 
 def camera_from_jax(cam) -> Camera:
-    """Port camera from a reference ``Camera`` (arrays or numpy)."""
-    if cam.kind != "pinhole" or cam.has_distortion or cam.has_rotation:
+    """Port camera from a reference ``Camera`` (arrays or numpy): the
+    pinhole without distortion or rotation, or the KB4 fisheye. The values
+    are the reference's own, float32-rounded where its arrays are."""
+    f = lambda a: float(np.asarray(a))
+    if cam.kind == FISHEYE:
+        return Camera(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), cam.width, cam.height,
+                      kind=FISHEYE, coeffs=tuple(float(c) for c in np.asarray(cam.coeffs)),
+                      max_valid_theta=f(cam.max_valid_theta), max_valid_r=f(cam.max_valid_r),
+                      has_distortion=bool(cam.has_distortion))
+    if cam.kind != PINHOLE or cam.has_distortion or cam.has_rotation:
         raise NotImplementedError(f"{cam.kind} camera with distortion/rotation")
-    return build_pinhole(float(np.asarray(cam.fx)), float(np.asarray(cam.fy)),
-                         float(np.asarray(cam.cx)), float(np.asarray(cam.cy)),
+    return build_pinhole(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy),
                          width=cam.width, height=cam.height)
 
 

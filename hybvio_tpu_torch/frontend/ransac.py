@@ -1,5 +1,6 @@
 """RANSAC outlier rejection (port of the reference's ``frontend/ransac.py``:
-``ransac2``, ``ransac3`` and the Horn/QCP rotation solve), batch-first.
+``ransac2``, ``ransac5``, ``hybrid_ransac``, ``ransac3`` and the Horn/QCP
+rotation solve), batch-first.
 
 Every lane draws its hypotheses from its own threefry key, so the hypotheses
 are the reference's, and all of them are solved and scored at once.
@@ -13,6 +14,7 @@ import torch
 from .. import random as jr
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.quaternion import quat_to_rmat
+from .five_point import five_point_essential
 
 ROT_RANSAC_MAX_ITERS = 100
 
@@ -140,6 +142,93 @@ def ransac2(cam1, cam2, pts1, pts2, valid, rng_key, threshold_px,
     cnt = torch.sum(inl, dim=1)
     score = cnt / torch.clamp(n_tracked, min=1).to(dtype)
     return Ransac2Result(R=R_final, inliers=inl, inlier_count=cnt.to(torch.int32), score=score)
+
+
+class Ransac5Result(NamedTuple):
+    E: torch.Tensor  # (B, 3, 3)
+    inliers: torch.Tensor  # (B, T)
+    inlier_count: torch.Tensor  # (B,)
+    ok: torch.Tensor  # (B,)
+
+
+def ransac5(norm1, norm2, valid, rng_key, threshold, max_iters: int = 256,
+            int_bits: int = 32) -> Ransac5Result:
+    """Essential-matrix RANSAC over normalized coordinates (B, T, 2): every
+    hypothesis's up to 10 five-point solutions are Sampson-scored at once;
+    the winner is projected onto the essential manifold and re-scored.
+    ``threshold`` is in normalized units."""
+    dtype, dev = norm1.dtype, norm1.device
+    Bn, T = valid.shape
+    n_tracked = torch.sum(valid, dim=1)
+    one = torch.ones((Bn, T, 1), dtype=dtype, device=dev)
+    h1 = torch.cat([norm1, one], dim=-1)
+    h2 = torch.cat([norm2, one], dim=-1)
+    key1 = jr.split(rng_key)[:, 0]
+    idx = jr.randint(key1, (max_iters, 5), 0, torch.clamp(n_tracked, min=1), int_bits)
+    slots = _lane_take(_valid_first(valid), idx)  # (B, K, 5)
+    Es, val = five_point_essential(_lane_take(norm1, slots), _lane_take(norm2, slots))
+    distinct = torch.sum(slots[..., :, None] == slots[..., None, :], dim=(-2, -1)) == 5
+    Es = Es.reshape(Bn, -1, 3, 3)  # (B, K*10, 3, 3)
+    val = (val & distinct[..., None]).reshape(Bn, -1)
+    thr2 = threshold * threshold
+
+    def sampson_inliers(E):  # (B, ..., 3, 3) -> (B, ..., T)
+        lead = E.shape[1:-2]
+        a = h1.reshape((Bn,) + (1,) * len(lead) + (T, 3))
+        b = h2.reshape(a.shape)
+        Ex1 = a @ E.transpose(-1, -2)  # rows: E x1
+        Etx2 = b @ E  # rows: E^T x2
+        num = torch.sum(b * Ex1, dim=-1)
+        den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+        d2 = num * num / torch.clamp(den, min=1e-18)
+        return valid.reshape(a.shape[:-1]) & (d2 < thr2)
+
+    counts = torch.where(val, torch.sum(sampson_inliers(Es), dim=-1), -1)
+    best = torch.argmax(counts, dim=1)
+    # project the winner onto the essential manifold and re-score
+    U, _, Vt = torch.linalg.svd(Es[torch.arange(Bn, device=dev), best])
+    E_best = U[..., :2] @ Vt[..., :2, :]  # U diag(1, 1, 0) V^T
+    ok = n_tracked >= 5
+    inl = sampson_inliers(E_best) & ok[:, None]
+    return Ransac5Result(E=E_best, inliers=inl,
+                         inlier_count=torch.sum(inl, dim=1).to(torch.int32), ok=ok)
+
+
+class HybridRansacResult(NamedTuple):
+    inliers: torch.Tensor  # (B, T), False everywhere if skipped
+    score: torch.Tensor  # (B,) R2 inlier fraction (stationarity score)
+    used_r5: torch.Tensor  # (B,)
+    skipped: torch.Tensor  # (B,)
+
+
+def hybrid_ransac(cam1, cam2, pts1, pts2, norm1, norm2, valid, rng_key, pt,
+                  r2_threshold_px, r5_threshold, int_bits: int = 32) -> HybridRansacResult:
+    """The reference's RANSAC2-vs-RANSAC5 selection: R2 always runs (its
+    score is the stationarity score) and R5 always runs; R5 is not used when
+    R2's inliers exceed ransac2InliersToSkipRansac5 of the tracks; either
+    is invalid below ransacMinInlierFraction; with both valid, R2 wins when
+    its count exceeds ransac2InliersOverRansac5Needed times R5's."""
+    keys = jr.split(rng_key)
+    r2 = ransac2(cam1, cam2, pts1, pts2, valid, keys[:, 0], r2_threshold_px,
+                 max_iters=ROT_RANSAC_MAX_ITERS, int_bits=int_bits)
+    n_valid = torch.sum(valid, dim=1)
+    n = torch.clamp(n_valid, min=1)
+    r2_done = n_valid >= 2
+    use_r2_inliers = r2.inlier_count > pt.ransac2InliersToSkipRansac5 * n
+    r5 = ransac5(norm1, norm2, valid, keys[:, 1], r5_threshold,
+                 max_iters=max(int(pt.ransacMaxIters), 8), int_bits=int_bits)
+    r5_done = r5.ok & ~use_r2_inliers
+    dtype = pts1.dtype
+    r5_frac = r5.inlier_count / n.to(dtype)
+    r2_frac = r2.inlier_count / n.to(dtype)
+    r5_done = r5_done & (r5_frac >= pt.ransacMinInlierFraction)
+    r2_done = r2_done & (r2_frac >= pt.ransacMinInlierFraction)
+    pick_r2 = r2_done & (~r5_done | use_r2_inliers
+                         | (r2.inlier_count > pt.ransac2InliersOverRansac5Needed * r5.inlier_count))
+    pick_r5 = r5_done & ~pick_r2
+    inliers = torch.where(pick_r2[:, None], r2.inliers, r5.inliers & pick_r5[:, None])
+    return HybridRansacResult(inliers=inliers, score=r2.score, used_r5=pick_r5,
+                              skipped=~pick_r2 & ~pick_r5)
 
 
 class Ransac3Result(NamedTuple):

@@ -1,12 +1,15 @@
 """Tracker core: the track-lifecycle engine (port of the reference's
-``frontend/tracker.py``, stereo path with RANSAC3), batch-first.
+``frontend/tracker.py``: the stereo path with RANSAC3 and the mono path with
+the hybrid RANSAC2/RANSAC5), batch-first.
 
-Per frame: pyramids of the shared left/right frames (once per step), LK of
-every lane's tracks prev -> cur with odometry-predicted guesses, left ->
-right LK with the epipolar check, RANSAC2 (stationarity score) and RANSAC3,
-keyframe / stationarity decision, capacity culling, and GFTT top-up of the
-free slots. Detection runs in every lane and is masked per lane, as the
-reference's ``lax.cond`` does under ``vmap``.
+Per frame: the pyramid of the shared frame (of the left and right frames in
+stereo; once per step), LK of every lane's tracks prev -> cur with
+odometry-predicted guesses, in stereo left -> right LK with the epipolar
+check, RANSAC2 (stationarity score) and RANSAC3 in stereo or the hybrid
+RANSAC2/RANSAC5 selection in mono, keyframe / stationarity decision,
+capacity culling, and GFTT top-up of the free slots. Detection runs in every
+lane and is masked per lane, as the reference's ``lax.cond`` does under
+``vmap``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from ..odometry.triangulation import triangulate_stereo_idp
 from .gftt import detect_corners, subpixel_refine
 from .lk import FLOW_OK, FLOW_OUT_OF_RANGE, LKParams, lk_track_pyramid
 from .pyramid import build_pyramids_with_gradients
-from .ransac import ransac2, ransac3
+from .ransac import hybrid_ransac, ransac2, ransac3
 from .stereo import epipolar_check
 
 ST_TRACKED = 0
@@ -73,24 +76,24 @@ def _scatter(a, idx, v):
 
 
 class Tracker(nn.Module):
-    """Stereo tracker for static parameters; images are f32 (H, W) in [0, 1]
-    shared by the B lanes."""
+    """Stereo or mono tracker for static parameters; images are f32 (H, W)
+    in [0, 1] shared by the B lanes."""
 
     def __init__(self, params, cameras, derived, max_tracks=None, int_bits: int = 32):
         super().__init__()
         pt = params.tracker
-        if not pt.useStereo:
-            raise NotImplementedError("mono tracker")
-        if not pt.useRansac3:
+        self.stereo = bool(pt.useStereo)
+        if self.stereo and not pt.useRansac3:
             raise NotImplementedError("stereo tracker without RANSAC3")
         if pt.featureDetector.upper() == "FAST":
             raise NotImplementedError("FAST detector")
-        if pt.useRectification or pt.computeDenseStereoDepth:
+        if self.stereo and (pt.useRectification or pt.computeDenseStereoDepth):
             raise NotImplementedError("stereo rectification / dense depth")
         self.pt = pt
         self.T = max_tracks if max_tracks is not None else pt.maxTracks
         self.int_bits = int_bits
-        self.cam0, self.cam1 = cameras[0], cameras[1]
+        self.cam0 = cameras[0]
+        self.cam1 = cameras[1] if self.stereo else None
         H, W = self.cam0.height, self.cam0.width
         if H <= 0 or W <= 0:
             raise ValueError("tracker camera needs width/height")
@@ -104,12 +107,16 @@ class Tracker(nn.Module):
                            max_iter=pt.pyrLKMaxIter, epsilon=pt.pyrLKEpsilon,
                            min_eig_threshold=pt.pyrLKMinEigThreshold)
         self.ransac2_threshold = pt.ransac2Threshold * su
-        c0c1 = (np.asarray(derived.second_imu_to_camera)
-                @ np.linalg.inv(np.asarray(derived.imu_to_camera)))
-        c0c1 = torch.as_tensor(c0c1, dtype=torch.float32)
-        self.register_buffer("cam0_to_cam1", c0c1)
-        self.register_buffer("second_to_first", torch.linalg.inv(c0c1))
-        self.epipolar_dist = pt.maxStereoEpipolarDistance * su
+        # in normalized units (the reference's 2 * threshold / (f0 + f1))
+        self.ransac5_threshold = 2.0 * pt.ransac5Threshold / (
+            cameras[0].focal_length + cameras[-1].focal_length)
+        if self.stereo:
+            c0c1 = (np.asarray(derived.second_imu_to_camera)
+                    @ np.linalg.inv(np.asarray(derived.imu_to_camera)))
+            c0c1 = torch.as_tensor(c0c1, dtype=torch.float32)
+            self.register_buffer("cam0_to_cam1", c0c1)
+            self.register_buffer("second_to_first", torch.linalg.inv(c0c1))
+            self.epipolar_dist = pt.maxStereoEpipolarDistance * su
         self.min_distance = max(pt.gfttMinDistance * su, 2.0)
 
     def mask_radius(self, mask_scale):
@@ -146,19 +153,29 @@ class Tracker(nn.Module):
                                      self.cam0_to_cam1, self.epipolar_dist)
         return pts_right, ok
 
-    def init_state(self, first_image, t0, second_image) -> TrackerState:
+    def pyramids(self, image, second_image):
+        """The shared frame's pyramid (and the right frame's in stereo) and
+        the frame's gradients, in one kernel launch."""
+        images = (image, second_image) if self.stereo else (image,)
+        pyrs, grads = build_pyramids_with_gradients(
+            tuple(im.to(torch.float32) for im in images), self.lk.max_level)
+        return pyrs[0], pyrs[1] if self.stereo else None, grads
+
+    def init_state(self, first_image, t0, second_image=None) -> TrackerState:
         """Detect in the first (shared) frame; t0 (B,)."""
         B, T = t0.shape[0], self.T
         dev = first_image.device
         img = first_image.to(torch.float32)
-        (pyr, rpyr), grads = build_pyramids_with_gradients(
-            (img, second_image.to(torch.float32)), self.lk.max_level)
+        pyr, rpyr, grads = self.pyramids(img, second_image)
         xy, _, valid = self.detect(
             img, torch.zeros((B, 1, 2), device=dev), torch.zeros((B, 1), dtype=torch.bool, device=dev),
             torch.zeros((B,), device=dev), T)
-        rxy, rok = self.stereo_match(pyr, grads, rpyr, xy, valid)
-        valid = valid & rok
-        px = torch.stack([xy, rxy], dim=2)
+        if self.stereo:
+            rxy, rok = self.stereo_match(pyr, grads, rpyr, xy, valid)
+            valid = valid & rok
+            px = torch.stack([xy, rxy], dim=2)
+        else:
+            px = xy[:, :, None, :]
         slots = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
         ids = torch.where(valid, slots + 1, -1).to(torch.int32)
         i32 = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)
@@ -171,15 +188,15 @@ class Tracker(nn.Module):
             prev_time=t0.to(torch.float32))
 
     def track_frame(self, ts: TrackerState, image, rng_key, t, flow_guess,
-                    blacklist_flags, blacklist_ids, second_image, stereo_guess):
-        """One new shared stereo frame for every lane: (state, TrackerOutput).
-        rng_key (B, 2); t (B,); flow_guess / stereo_guess (B, T, 2)."""
+                    blacklist_flags, blacklist_ids, second_image=None, stereo_guess=None):
+        """One new shared frame (stereo: pair) for every lane: (state,
+        TrackerOutput). rng_key (B, 2); t (B,); flow_guess / stereo_guess
+        (B, T, 2)."""
         pt, lk, T = self.pt, self.lk, self.T
         B = ts.track_ids.shape[0]
         dev = ts.px.device
         img = image.to(torch.float32)
-        (cur_pyr, right_pyr), cur_grads = build_pyramids_with_gradients(
-            (img, second_image.to(torch.float32)), lk.max_level)
+        cur_pyr, right_pyr, cur_grads = self.pyramids(img, second_image)
 
         alive = ts.track_ids >= 0
         black = blacklist_flags & (blacklist_ids == ts.track_ids) & alive
@@ -190,39 +207,29 @@ class Tracker(nn.Module):
             list(ts.prev_pyr), list(zip(ts.prev_ix, ts.prev_iy)), _lanes(cur_pyr, B),
             prev_px, initial_pts=guesses, params=lk)
         flow_ok = alive & (flow_status == FLOW_OK) & ~black
-        right_px, stereo_ok = self.stereo_match(cur_pyr, cur_grads, right_pyr, new_px,
-                                                flow_ok, guesses=stereo_guess)
-        tracked = flow_ok & stereo_ok
+        tracked = flow_ok
+        if self.stereo:
+            right_px, stereo_ok = self.stereo_match(cur_pyr, cur_grads, right_pyr, new_px,
+                                                    flow_ok, guesses=stereo_guess)
+            tracked = flow_ok & stereo_ok
 
         keys = jr.split(rng_key)
         rng_key, r_key = keys[:, 0], keys[:, 1]
         n1, ok_n1 = normalize_pixel(self.cam0, prev_px)
         n2, ok_n2 = normalize_pixel(self.cam0, new_px)
         valid_n = tracked & ok_n1 & ok_n2
-        r2 = ransac2(self.cam0, self.cam0, prev_px, new_px, valid_n, r_key,
-                     self.ransac2_threshold, int_bits=self.int_bits)
-        ransac_inliers = r2.inliers
-        ransac_skipped = torch.sum(valid_n, dim=1) < 2
-
-        r3_key = jr.split(rng_key)[:, 1]
-        n1r, ok1r = normalize_pixel(self.cam1, ts.px[:, :, 1, :])
-        n2r, ok2r = normalize_pixel(self.cam1, right_px)
-        idp_prev, _, okt1 = triangulate_stereo_idp(n1, n1r, self.second_to_first, with_cov=False)
-        idp_cur, _, okt2 = triangulate_stereo_idp(n2, n2r, self.second_to_first, with_cov=False)
-
-        def idp_to_xyz(idp):
-            z = 1.0 / torch.where(torch.abs(idp[..., 2]) > 1e-9, idp[..., 2],
-                                  torch.ones_like(idp[..., 2]))
-            return torch.stack([idp[..., 0] * z, idp[..., 1] * z, z], dim=-1)
-
-        v3 = (valid_n & ok1r & ok2r & okt1 & okt2
-              & (idp_prev[..., 2] > 1e-4) & (idp_cur[..., 2] > 1e-4))
-        r3 = ransac3(idp_to_xyz(idp_prev), idp_to_xyz(idp_cur), n2, v3, r3_key,
-                     error_thresh=pt.ransac3ErrorThresh, max_iters=64, int_bits=self.int_bits)
-        frac3 = r3.inlier_count / torch.clamp(torch.sum(valid_n, dim=1), min=1).to(img.dtype)
-        r3_good = r3.ok & (frac3 >= pt.ransacMinInlierFraction)
-        ransac_inliers = torch.where(r3_good[:, None], r3.inliers, ransac_inliers)
-        ransac_skipped = torch.where(r3_good, False, ransac_skipped)
+        if self.stereo:
+            ransac_inliers, ransac_skipped, score = self.ransac_stereo(
+                ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key)
+        elif pt.useHybridRansac:
+            hr = hybrid_ransac(self.cam0, self.cam0, prev_px, new_px, n1, n2, valid_n, r_key, pt,
+                               self.ransac2_threshold, self.ransac5_threshold,
+                               int_bits=self.int_bits)
+            ransac_inliers, ransac_skipped, score = hr.inliers, hr.skipped, hr.score
+        else:  # RANSAC2 gives the stationarity score and rejects nothing
+            score = ransac2(self.cam0, self.cam0, prev_px, new_px, valid_n, r_key,
+                            self.ransac2_threshold, int_bits=self.int_bits).score
+            ransac_inliers, ransac_skipped = valid_n, torch.zeros_like(score, dtype=torch.bool)
         inlier = tracked & ransac_inliers
         few = torch.sum(tracked, dim=1) < 2
         inlier = torch.where((ransac_skipped & ~few)[:, None], False, inlier)
@@ -234,7 +241,7 @@ class Tracker(nn.Module):
         move = torch.where(tracked & kf_known, move, torch.full_like(move, -1.0))
         max_move = torch.amax(move, dim=1)
         stationary = ((max_move >= 0.0) & (max_move < pt.visualStationarityMovementThreshold)
-                      & (r2.score > pt.visualStationarityScoreThreshold))
+                      & (score > pt.visualStationarityScoreThreshold))
         keyframe = (ts.frame_num < pt.maxTrackLength) | ~stationary
 
         # capacity culling: when full, drop the larger slot of the closest pairs
@@ -253,21 +260,23 @@ class Tracker(nn.Module):
 
         keep = inlier & ~cull
         ids = torch.where(keep, ts.track_ids, -1).to(torch.int32)
-        zero = torch.zeros_like(new_px)
-        px = torch.stack([torch.where(keep[..., None], new_px, zero),
-                          torch.where(keep[..., None], right_px, zero)], dim=2)
+        cur = (new_px, right_px) if self.stereo else (new_px,)
+        px = torch.stack([torch.where(keep[..., None], c, torch.zeros_like(c)) for c in cur], dim=2)
 
         # detection top-up (every lane runs it; lanes with < 10% free slots
         # discard the result, like the reference's cond under vmap)
         missing = T - torch.sum(keep, dim=1)
         do_detect = missing >= T // 10
         det_xy, _, det_valid = self.detect(img, px[:, :, 0, :], keep, ts.mask_scale, T)
-        det_right, det_sok = self.stereo_match(cur_pyr, cur_grads, right_pyr, det_xy,
-                                               det_valid, guesses=det_xy)
-        det_valid = det_valid & det_sok & do_detect[:, None]
-        zxy = torch.zeros_like(det_xy)
-        det_xy = torch.where(do_detect[:, None, None], det_xy, zxy)
-        det_right = torch.where(do_detect[:, None, None], det_right, zxy)
+        det = [det_xy]
+        if self.stereo:
+            det_right, det_sok = self.stereo_match(cur_pyr, cur_grads, right_pyr, det_xy,
+                                                   det_valid, guesses=det_xy)
+            det_valid = det_valid & det_sok
+            det.append(det_right)
+        det_valid = det_valid & do_detect[:, None]
+        det_px = torch.stack([torch.where(do_detect[:, None, None], d, torch.zeros_like(d))
+                              for d in det], dim=2)
 
         free = ~keep
         free_order = torch.argsort((~free).to(torch.uint8), dim=1, stable=True)
@@ -278,7 +287,6 @@ class Tracker(nn.Module):
         ids_at = torch.gather(ids, 1, free_order)
         ids = _scatter(ids, free_order,
                        torch.where(fill, ts.next_track_id[:, None] + rank, ids_at).to(torch.int32))
-        det_px = torch.stack([det_xy, det_right], dim=2)
         px_at = torch.gather(px, 1, free_order[..., None, None].expand(px.shape))
         det_at = torch.gather(det_px, 1, det_order[..., None, None].expand(px.shape))
         px = _scatter(px, free_order, torch.where(fill[..., None, None], det_at, px_at))
@@ -306,19 +314,51 @@ class Tracker(nn.Module):
         status = torch.where(alive, ST_FAILED_FLOW, -1)
         status = torch.where(alive & (flow_status == FLOW_OUT_OF_RANGE), ST_FLOW_OUT_OF_RANGE, status)
         status = torch.where(flow_ok, ST_TRACKED, status)
-        status = torch.where(flow_ok & ~stereo_ok, ST_FAILED_EPIPOLAR_CHECK, status)
+        if self.stereo:
+            status = torch.where(flow_ok & ~stereo_ok, ST_FAILED_EPIPOLAR_CHECK, status)
         status = torch.where(alive & black, ST_BLACKLISTED, status)
         status = torch.where(tracked & ~inlier, ST_RANSAC_OUTLIER, status)
         status = torch.where(inlier & cull, ST_CULLED, status)
         status = _scatter(status, free_order,
                           torch.where(fill, ST_NEW, torch.gather(status, 1, free_order)))
         settled = (keep | ~alive)[..., None]
-        viz_px = torch.stack([torch.where(settled, px[:, :, 0, :], new_px),
-                              torch.where(settled, px[:, :, 1, :], right_px)], dim=2)
+        viz_px = torch.stack([torch.where(settled, px[:, :, c, :], a) for c, a in enumerate(cur)],
+                             dim=2)
         out = TrackerOutput(
             track_ids=torch.where(keep, ts.track_ids, -1).to(torch.int32),
             pixels=torch.where(keep[..., None, None], px, torch.zeros_like(px)),
-            keyframe=keyframe, ransac_score=r2.score,
+            keyframe=keyframe, ransac_score=score,
             n_tracks=torch.sum(keep, dim=1).to(torch.int32),
             status=status.to(torch.int32), prev_pixels=ts.px, viz_pixels=viz_px)
         return new_state, out
+
+    def ransac_stereo(self, ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key):
+        """RANSAC2 for the stationarity score, then RANSAC3 on the stereo
+        triangulations of the previous and current frames: (inliers,
+        skipped, score)."""
+        pt = self.pt
+        r2 = ransac2(self.cam0, self.cam0, prev_px, new_px, valid_n, r_key,
+                     self.ransac2_threshold, int_bits=self.int_bits)
+        ransac_inliers = r2.inliers
+        ransac_skipped = torch.sum(valid_n, dim=1) < 2
+
+        r3_key = jr.split(rng_key)[:, 1]
+        n1r, ok1r = normalize_pixel(self.cam1, ts.px[:, :, 1, :])
+        n2r, ok2r = normalize_pixel(self.cam1, right_px)
+        idp_prev, _, okt1 = triangulate_stereo_idp(n1, n1r, self.second_to_first, with_cov=False)
+        idp_cur, _, okt2 = triangulate_stereo_idp(n2, n2r, self.second_to_first, with_cov=False)
+
+        def idp_to_xyz(idp):
+            z = 1.0 / torch.where(torch.abs(idp[..., 2]) > 1e-9, idp[..., 2],
+                                  torch.ones_like(idp[..., 2]))
+            return torch.stack([idp[..., 0] * z, idp[..., 1] * z, z], dim=-1)
+
+        v3 = (valid_n & ok1r & ok2r & okt1 & okt2
+              & (idp_prev[..., 2] > 1e-4) & (idp_cur[..., 2] > 1e-4))
+        r3 = ransac3(idp_to_xyz(idp_prev), idp_to_xyz(idp_cur), n2, v3, r3_key,
+                     error_thresh=pt.ransac3ErrorThresh, max_iters=64, int_bits=self.int_bits)
+        frac3 = r3.inlier_count / torch.clamp(torch.sum(valid_n, dim=1), min=1).to(n2.dtype)
+        r3_good = r3.ok & (frac3 >= pt.ransacMinInlierFraction)
+        ransac_inliers = torch.where(r3_good[:, None], r3.inliers, ransac_inliers)
+        ransac_skipped = torch.where(r3_good, False, ransac_skipped)
+        return ransac_inliers, ransac_skipped, r2.score

@@ -1,17 +1,20 @@
-"""Pinhole camera model (port of the reference's ``geometry/cameras.py``,
-pinhole branch without distortion or rectification rotation).
+"""Camera models (port of the reference's ``geometry/cameras.py``): the
+pinhole without distortion or rectification rotation, and the
+Kannala-Brandt (KB4) fisheye.
 
 Intrinsics are Python floats: arithmetic with them keeps the dtype of the
-pixel tensors, and a camera needs no device. Other models raise
-``NotImplementedError`` when built.
+pixel tensors, and a camera needs no device. Pinhole distortion and the
+rectification rotation raise ``NotImplementedError`` when built.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 PINHOLE = "pinhole"
+FISHEYE = "fisheye"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +26,10 @@ class Camera:
     width: int = -1
     height: int = -1
     kind: str = PINHOLE
+    coeffs: tuple = (0.0, 0.0, 0.0, 0.0)  # fisheye k1..k4
+    max_valid_theta: float = math.pi / 2  # fisheye field-of-view cutoff (radians from the axis)
+    max_valid_r: float = math.inf  # the distorted radius at max_valid_theta
+    has_distortion: bool = False
 
     @property
     def focal_length(self) -> float:
@@ -40,11 +47,29 @@ def build_pinhole(fx, fy, cx, cy, coeffs=(), width=-1, height=-1,
                   int(width), int(height))
 
 
+def _poly_theta(theta, k):
+    """KB4 distortion r(theta) = theta (1 + k1 t^2 + k2 t^4 + k3 t^6 + k4 t^8)."""
+    t2 = theta * theta
+    return theta * (1 + t2 * (k[0] + t2 * (k[1] + t2 * (k[2] + t2 * k[3]))))
+
+
+def build_fisheye(fx, fy, cx, cy, coeffs=(), max_valid_fov_deg=180.0,
+                  width=-1, height=-1) -> Camera:
+    coeffs = tuple(float(c) for c in coeffs)
+    has_dist = len(coeffs) > 1
+    if has_dist and len(coeffs) != 4:
+        raise ValueError("the KB4 fisheye needs 4 coefficients")
+    c = coeffs if has_dist else (0.0, 0.0, 0.0, 0.0)
+    max_theta = 0.5 * max_valid_fov_deg * math.pi / 180.0
+    return Camera(float(fx), float(fy), float(cx), float(cy), int(width), int(height),
+                  kind=FISHEYE, coeffs=c, max_valid_theta=max_theta,
+                  max_valid_r=_poly_theta(max_theta, c) if has_dist else max_theta,
+                  has_distortion=has_dist)
+
+
 def build_camera_from_params(pt, width: int, height: int,
                              second: bool = False) -> Camera:
     """From ParametersTracker with the reference's automatic fallbacks."""
-    if pt.fisheyeCamera:
-        raise NotImplementedError("fisheye camera")
     if not second:
         fx = pt.focalLengthX if pt.focalLengthX > 0 else pt.focalLength
         fy = pt.focalLengthY if pt.focalLengthY > 0 else pt.focalLength
@@ -67,25 +92,63 @@ def build_camera_from_params(pt, width: int, height: int,
         cy = 0.5 * height
     if len(coeffs) == 1 and coeffs[0] == 0.0:
         coeffs = ()
+    if pt.fisheyeCamera:
+        return build_fisheye(fx, fy, cx, cy, coeffs, pt.validCameraFov, width, height)
     return build_pinhole(fx, fy, cx, cy, coeffs, width, height)
+
+
+def _fisheye_undistort_theta(cam: Camera, r, iters: int = 12):
+    """Newton solve of r = distort(theta) from min(r, 1.5 max_valid_theta),
+    clamped at 0, a fixed number of steps."""
+    k = cam.coeffs
+    theta = torch.clamp(r, max=cam.max_valid_theta * 1.5)
+    for _ in range(iters):
+        t2 = theta * theta
+        f = _poly_theta(theta, k) - r
+        df = 1 + 3 * t2 * (k[0] + 5.0 / 3 * t2 * (k[1] + 7.0 / 5 * t2 * (k[2] + 9.0 / 7 * t2 * k[3])))
+        theta = torch.clamp(theta - f / df, min=0.0)
+    return theta
 
 
 def pixel_to_ray(cam: Camera, pixel):
     """Unit ray for pixel (..., 2); returns (ray (..., 3), valid)."""
     x = (pixel[..., 0] - cam.cx) / cam.fx
     y = (pixel[..., 1] - cam.cy) / cam.fy
-    ray = torch.stack([x, y, torch.ones_like(x)], dim=-1)
-    ray = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
-    return ray, torch.ones(pixel.shape[:-1], dtype=torch.bool, device=pixel.device)
+    if cam.kind == PINHOLE:
+        ray = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+        ray = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        return ray, torch.ones(pixel.shape[:-1], dtype=torch.bool, device=pixel.device)
+    uv = torch.stack([x, y], dim=-1)
+    r = torch.linalg.norm(uv, dim=-1)
+    big = r > 1e-12
+    dir_xy = uv / torch.where(big, r, torch.ones_like(r))[..., None]
+    valid = r <= cam.max_valid_r
+    rc = torch.clamp(r, max=cam.max_valid_r)
+    theta = _fisheye_undistort_theta(cam, rc) if cam.has_distortion else rc
+    theta = torch.where(big, theta, torch.zeros_like(theta))
+    theta = torch.where(valid, theta, torch.full_like(theta, cam.max_valid_theta))
+    ray = torch.cat([torch.sin(theta)[..., None] * dir_xy, torch.cos(theta)[..., None]], dim=-1)
+    return ray, valid
 
 
 def ray_to_pixel(cam: Camera, ray):
     """Project rays (..., 3); returns (pixel (..., 2), valid)."""
     z = ray[..., 2]
-    valid = z > 0
-    iz = 1.0 / torch.where(valid, z, torch.ones_like(z))
-    px = ray[..., 0] * iz * cam.fx + cam.cx
-    py = ray[..., 1] * iz * cam.fy + cam.cy
+    if cam.kind == PINHOLE:
+        valid = z > 0
+        iz = 1.0 / torch.where(valid, z, torch.ones_like(z))
+        px = ray[..., 0] * iz * cam.fx + cam.cx
+        py = ray[..., 1] * iz * cam.fy + cam.cy
+        return torch.stack([px, py], dim=-1), valid
+    nrm = torch.linalg.norm(ray, dim=-1)
+    cos_t = torch.clamp(z / torch.where(nrm > 0, nrm, torch.ones_like(nrm)), -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    valid = (z > 0) & (theta <= cam.max_valid_theta)
+    r = _poly_theta(theta, cam.coeffs) if cam.has_distortion else theta
+    rxy = torch.linalg.norm(ray[..., :2], dim=-1)
+    uv = r[..., None] * (ray[..., :2] / torch.where(rxy > 1e-12, rxy, torch.ones_like(rxy))[..., None])
+    px = uv[..., 0] * cam.fx + cam.cx
+    py = uv[..., 1] * cam.fy + cam.cy
     return torch.stack([px, py], dim=-1), valid
 
 
@@ -99,6 +162,8 @@ def normalize_pixel(cam: Camera, pixel):
 
 
 def is_valid_pixel(cam: Camera, pixel):
+    if cam.kind == FISHEYE:
+        return pixel_to_ray(cam, pixel)[1]
     if cam.width < 0:
         return torch.ones(pixel.shape[:-1], dtype=torch.bool, device=pixel.device)
     x = torch.round(pixel[..., 0])

@@ -2,8 +2,8 @@
 trajectory with consistent IMU samples, a landmark field, and rendered
 grayscale views (Gaussian blob landmarks over a procedural far-field
 background). A numpy-only copy of the reference's ``io/synthetic.py``
-(``generate_sequence``, ``render_view``, ``SYNTH_IMU_TO_CAMERA`` and their
-helpers): same seeds, same arrays.
+(``generate_sequence``, ``render_view``, ``render_view_fisheye``,
+``SYNTH_IMU_TO_CAMERA`` and their helpers): same seeds, same arrays.
 """
 from __future__ import annotations
 
@@ -228,3 +228,67 @@ def render_view(landmarks, pos, quat, imu_to_camera, fx, fy, cx, cy,
         rng = np.random.RandomState(seed)
         img = np.clip(img + pixel_noise * rng.randn(height, width).astype(np.float32), 0, 1)
     return img
+
+
+def _np_kb4_project(pc, fx, fy, cx, cy, coeffs, max_theta):
+    """numpy Kannala-Brandt-4 projection of camera-frame points (N,3).
+    Returns (pixels (N,2), valid (N,))."""
+    z = pc[:, 2]
+    nrm = np.linalg.norm(pc, axis=1)
+    cos_t = np.clip(z / np.maximum(nrm, 1e-12), -1, 1)
+    theta = np.arccos(cos_t)
+    valid = (z > 0) & (theta <= max_theta)
+    k1, k2, k3, k4 = (list(coeffs) + [0.0] * 4)[:4]
+    t2 = theta * theta
+    r = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+    rxy = np.linalg.norm(pc[:, :2], axis=1)
+    dxy = pc[:, :2] / np.maximum(rxy, 1e-12)[:, None]
+    uv = r[:, None] * dxy
+    return np.stack([uv[:, 0] * fx + cx, uv[:, 1] * fy + cy], axis=1), valid
+
+
+def project_landmarks_fisheye(landmarks, pos, quat, imu_to_camera, fx, fy, cx, cy,
+                              width, height, coeffs, max_fov_deg=160.0,
+                              min_depth=0.3):
+    """KB4 fisheye landmark projection (TUM-VI-style rig)."""
+    R = _np_quat_to_rmat(np.asarray(quat))
+    w2c = imu_to_camera[:3, :3] @ R
+    t = imu_to_camera[:3, :3] @ (-R @ pos) + imu_to_camera[:3, 3]
+    pc = landmarks @ w2c.T + t
+    pix, valid = _np_kb4_project(pc, fx, fy, cx, cy, coeffs,
+                                 np.deg2rad(max_fov_deg / 2))
+    valid &= (pc[:, 2] > min_depth)
+    valid &= (pix[:, 0] >= 5) & (pix[:, 0] < width - 5)
+    valid &= (pix[:, 1] >= 5) & (pix[:, 1] < height - 5)
+    return pix, pc[:, 2], valid
+
+
+def render_view_fisheye(landmarks, pos, quat, imu_to_camera, fx, fy, cx, cy,
+                        width, height, coeffs, max_fov_deg=160.0,
+                        blob_sigma=1.4, seed=0):
+    """Render a fisheye view: KB4 blobs over a ray-direction sky texture."""
+    pix, depth, vis = project_landmarks_fisheye(
+        landmarks, pos, quat, imu_to_camera, fx, fy, cx, cy, width, height,
+        coeffs, max_fov_deg)
+    # background: unproject the pixel grid with the KB4 model (numpy Newton)
+    yy, xx = np.mgrid[0:height, 0:width]
+    u = (xx - cx) / fx
+    v = (yy - cy) / fy
+    rr = np.sqrt(u * u + v * v)
+    k1, k2, k3, k4 = (list(coeffs) + [0.0] * 4)[:4]
+    theta = rr.copy()
+    for _ in range(6):
+        t2 = theta * theta
+        f = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - rr
+        df = 1 + 3 * t2 * (k1 + 5 / 3 * t2 * (k2 + 7 / 5 * t2 * (k3 + 9 / 7 * t2 * k4)))
+        theta = np.maximum(theta - f / df, 0.0)
+    safe_rr = np.maximum(rr, 1e-12)
+    rays = np.stack([np.sin(theta) * u / safe_rr,
+                     np.sin(theta) * v / safe_rr, np.cos(theta)], axis=-1)
+    R = _np_quat_to_rmat(np.asarray(quat))
+    w2c = imu_to_camera[:3, :3] @ R
+    world_rays = rays @ w2c
+    phase = world_rays @ _SKY_K.T + _SKY_PH[None, None, :]
+    bg = (0.35 + np.einsum("hwk,k->hw", np.sin(phase), _SKY_A) * 0.25).astype(np.float32)
+    return render_frame(pix, depth, vis, width, height, blob_sigma=blob_sigma,
+                        background=bg, seed=seed)

@@ -1,4 +1,4 @@
-"""Benchmark preset of the port (the reference's
+"""Benchmark presets of the port (the reference's
 ``models.synthetic_bench_params`` and ``_finalize``)."""
 from __future__ import annotations
 
@@ -8,9 +8,12 @@ from ..config import DerivedParameters, Parameters
 from ..geometry.cameras import build_camera_from_params
 from ..io.synthetic import SYNTH_IMU_TO_CAMERA
 
+CONFIGS = ("stereo", "mono", "fisheye")
+
 
 def _finalize(p: Parameters, width: int, height: int):
-    """(params, derived, cameras) for a parameter set."""
+    """(params, derived, cameras) for a parameter set: one camera, or two
+    with ``useStereo``."""
     cams = [build_camera_from_params(p.tracker, width, height)]
     if p.tracker.useStereo:
         cams.append(build_camera_from_params(p.tracker, width, height, second=True))
@@ -18,9 +21,10 @@ def _finalize(p: Parameters, width: int, height: int):
 
 
 def synthetic_bench_params(config: str = "stereo") -> Parameters:
-    """The benchmark preset for the synthetic EuRoC-like world; only the
-    stereo configuration runs in the port so far."""
-    if config != "stereo":
+    """The benchmark preset for the synthetic EuRoC-like world: "stereo"
+    and "mono" at 752x480 (BASELINE configs 2 and 1), "fisheye" (KB4,
+    512x512, BASELINE config 4). The SLAM preset ("vislam") is not ported."""
+    if config not in CONFIGS:
         raise NotImplementedError(f"preset {config!r}")
     p = Parameters()
     p.odometry.cameraTrailLength = 12
@@ -36,12 +40,23 @@ def synthetic_bench_params(config: str = "stereo") -> Parameters:
     p.odometry.maxVisualUpdates = 12
     p.tracker.ransac2Threshold = 8.0
     p.tracker.ransac5Threshold = 4.0
+    if config == "fisheye":
+        W = H = 512
+        p.tracker.fisheyeCamera = True
+        p.tracker.validCameraFov = 150.0
+        p.tracker.focalLength = 190.0
+        p.tracker.principalPointX = W / 2
+        p.tracker.principalPointY = H / 2
+        p.tracker.distortionCoeffs = (0.0035, 0.0007, -0.002, 0.0002)
+        p.odometry.visualR = 0.4
+        return p
     W, H = 752, 480
     p.tracker.focalLength = 458.0
     p.tracker.principalPointX = W / 2
     p.tracker.principalPointY = H / 2
-    second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
-    second[0, 3] = -0.11  # EuRoC-like baseline
-    p.tracker.useStereo = True
-    p.odometry.secondImuToCameraMatrix = tuple(second.T.flatten())
+    if config == "stereo":
+        second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
+        second[0, 3] = -0.11  # EuRoC-like baseline
+        p.tracker.useStereo = True
+        p.odometry.secondImuToCameraMatrix = tuple(second.T.flatten())
     return p

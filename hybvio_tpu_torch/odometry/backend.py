@@ -108,8 +108,7 @@ class Backend(nn.Module):
     def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
         super().__init__()
         po, pt = params.odometry, params.tracker
-        for name, bad in (("mono backend", not pt.useStereo),
-                          ("hybridMapSize > 0", po.hybridMapSize > 0),
+        for name, bad in (("hybridMapSize > 0", po.hybridMapSize > 0),
                           ("useSquareRootEkf", bool(getattr(po, "useSquareRootEkf", False))),
                           ("batchVisualUpdate = false", not bool(getattr(po, "batchVisualUpdate", False))),
                           ("visualUpdateForEveryNFrame > 1", po.visualUpdateForEveryNFrame > 1),
@@ -118,7 +117,8 @@ class Backend(nn.Module):
             if bad:
                 raise NotImplementedError(name)
         self.po = po
-        self.n_cams = 2
+        self.stereo = bool(pt.useStereo)
+        self.n_cams = 2 if self.stereo else 1
         self.cameras = tuple(cameras)
         self.T = max_tracks if max_tracks is not None else pt.maxTracks
         self.L = po.cameraTrailLength
@@ -141,7 +141,7 @@ class Backend(nn.Module):
     def _visual_update(self):
         # built per call so the closure sees the buffers on their current device
         prepare = make_prepare_track_update(
-            self.po, self.imu_to_camera, self.second_imu_to_camera, True, self.d)
+            self.po, self.imu_to_camera, self.second_imu_to_camera, self.stereo, self.d)
         return make_batched_visual_update(
             self.po, prepare, self.d, self.NV, self.n_cams,
             self.visual_r, self.rmse_thr0, self.chi_r0)
@@ -210,9 +210,13 @@ class Backend(nn.Module):
             trail=tuple_where(keyframe, state.trail, tr.pop_head_keyframe(state.trail)),
             ekf=tuple_where(keyframe, state.ekf, undo_augmentation(state.ekf, L)))
         norm0, ok0 = normalize_pixel(self.cameras[0], tin.pixels[:, :, 0, :])
-        norm1, ok1 = normalize_pixel(self.cameras[1], tin.pixels[:, :, 1, :])
-        norm = torch.stack([norm0, norm1], dim=2)
-        valid = (tin.track_ids >= 0) & ok0 & ok1
+        if self.stereo:
+            norm1, ok1 = normalize_pixel(self.cameras[1], tin.pixels[:, :, 1, :])
+            norm = torch.stack([norm0, norm1], dim=2)
+            ok0 = ok0 & ok1
+        else:
+            norm = norm0[:, :, None, :]
+        valid = (tin.track_ids >= 0) & ok0
         ids = torch.where(valid, tin.track_ids, torch.full_like(tin.track_ids, -1))
         trail = tr.insert_head_features(
             state.trail, tin.track_ids, norm, tin.pixels[:, :, 0, :], valid,

@@ -1,6 +1,6 @@
-"""Full stereo VIO step: image front-end + odometry backend (port of the
-reference's ``odometry/vio.py``), batch-first over B lanes that share each
-stereo frame.
+"""Full VIO step, stereo or mono: image front-end + odometry backend (port
+of the reference's ``odometry/vio.py``), batch-first over B lanes that share
+each frame (stereo: each pair).
 
     step = imu_only -> track_stage (predict_flow, Tracker.track_frame)
            -> backend_stage (Backend.process_frame)
@@ -8,7 +8,8 @@ stereo frame.
 ``predict_flow`` gives each track an LK guess: its distance from the
 widest-baseline two-view triangulation over the pose trail (at least
 predictOpticalFlowMinTriangulationDistance), the previous corner unprojected
-at that distance and reprojected with the current EKF pose, in both cameras.
+at that distance and reprojected with the current EKF pose (in stereo into
+both cameras).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ class VioState(NamedTuple):
 
 def normalize_input(img):
     """Integer frames (e.g. uint8) -> [0, 1] float32 on the device."""
-    if img.is_floating_point():
+    if img is None or img.is_floating_point():
         return img
     return img.to(IMAGE_DTYPE) * torch.tensor(1.0 / 255.0, dtype=IMAGE_DTYPE, device=img.device)
 
@@ -49,16 +50,15 @@ def _lane_gather(a, idx):
 
 
 class Vio(nn.Module):
-    """The stereo VIO for static parameters; ``dtype`` is the filter's."""
+    """The stereo or mono VIO for static parameters; ``dtype`` is the
+    filter's."""
 
     def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
         super().__init__()
         pt = params.tracker
-        if not pt.useStereo:
-            raise NotImplementedError("mono VIO")
         if not pt.predictOpticalFlow:
             raise NotImplementedError("predictOpticalFlow = false")
-        if pt.useStereoUpright2p and not pt.useRansac3:
+        if pt.useStereo and pt.useStereoUpright2p and not pt.useRansac3:
             raise NotImplementedError("upright-2p RANSAC")
         self.pt = pt
         self.dtype = dtype
@@ -69,7 +69,7 @@ class Vio(nn.Module):
         self.tracker = Tracker(params, cameras, derived, max_tracks=self.T,
                                int_bits=random_int_bits(dtype))
 
-    def init_state(self, first_image, t0, rng_keys, second_image) -> VioState:
+    def init_state(self, first_image, t0, rng_keys, second_image=None) -> VioState:
         first_image = normalize_input(first_image)
         second_image = normalize_input(second_image)
         return VioState(
@@ -78,7 +78,8 @@ class Vio(nn.Module):
             tracker_ready=torch.ones_like(t0, dtype=torch.bool))
 
     def predict_flow(self, bstate: BackendState, tstate: TrackerState):
-        """Per-slot predicted pixels (B, T, 2) in the left and right camera."""
+        """Per-slot predicted pixels (B, T, 2) in the left and (stereo; else
+        None) the right camera."""
         m = bstate.ekf.m
         B = m.shape[0]
         K = self.L + 1
@@ -110,6 +111,8 @@ class Vio(nn.Module):
         pw = transform_vec3(cam_to_world[:, None], ray0 * dist[..., None])
         pix1, ok1 = ray_to_pixel(c0, transform_vec3(world_to_cam[:, None], pw))
         guess = torch.where((ok0 & ok1)[..., None], pix1, prev_px)
+        if not self.pt.useStereo:
+            return guess.to(IMAGE_DTYPE), None
         world_to_cam2 = to_world_to_camera(pos, ori, self.backend.second_imu_to_camera)
         pix2, ok2 = ray_to_pixel(self.cameras[1], transform_vec3(world_to_cam2[:, None], pw))
         guess2 = torch.where((ok0 & ok2)[..., None], pix2, guess)
@@ -118,7 +121,7 @@ class Vio(nn.Module):
     def imu_only(self, state: VioState, imu: ImuBatch) -> VioState:
         return state._replace(backend=self.backend.imu_scan(state.backend, imu))
 
-    def track_stage(self, state: VioState, t, image, second_image):
+    def track_stage(self, state: VioState, t, image, second_image=None):
         image = normalize_input(image)
         second_image = normalize_input(second_image)
         bstate = state.backend
@@ -141,7 +144,7 @@ class Vio(nn.Module):
         bstate, out = self.backend.process_frame(state.backend, tin)
         return state._replace(backend=bstate), out
 
-    def step(self, state: VioState, imu: ImuBatch, image, second_image):
+    def step(self, state: VioState, imu: ImuBatch, image, second_image=None):
         """IMU propagation first, so the flow prediction uses the pose at
         the frame time."""
         state = self.imu_only(state, imu)

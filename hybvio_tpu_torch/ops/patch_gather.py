@@ -28,7 +28,8 @@ def gather_patches(images, y0, x0, ps: int):
     (B, H, W) tensors of one shape) at the same origins ``y0``/``x0``, int32
     (B, N): one kernel launch on CUDA tensors, the plain version on CPU
     tensors. Image rows must be contiguous; a batch stride may be 0 (one
-    image shared by all lanes, e.g. ``img.expand(B, H, W)``)."""
+    image shared by all lanes, e.g. ``img.expand(B, H, W)``). A launch is
+    counted under (images, B, N, ps, H, W)."""
     images = tuple(images)
     if all(t.device.type == "cpu" for t in (*images, y0, x0)):
         return tuple(gather_patches_plain(img, y0, x0, ps) for img in images)
@@ -54,5 +55,5 @@ def gather_patches(images, y0, x0, ps: int):
     launch("patch_gather", "hv_patch_gather", *(img.data_ptr() for img in padded),
            *(img.stride(0) if B > 1 else 0 for img in padded), len(images), H, W,
            y0.data_ptr(), x0.data_ptr(), B, N, ps, out.data_ptr(),
-           shape=(len(images), B, N, ps))
+           shape=(len(images), B, N, ps, H, W))
     return tuple(out)

@@ -88,3 +88,34 @@ def test_make_batched_vio_needs_a_card_unless_asked_for_the_cpu():
         make_batched_vio(params, derived, cams, batch_size=2)
     _, _, vio = make_batched_vio(params, derived, cams, batch_size=2, device="cpu")
     assert vio.dtype == torch.float64
+
+
+@pytest.mark.parametrize("config", ["mono", "fisheye"])
+def test_mono_and_fisheye_presets_match_reference(config):
+    """The presets equal the reference's field by field, and so do their
+    cameras (one each; the fisheye one KB4)."""
+    import jax.numpy as jnp
+
+    from hybvio_tpu.models import _finalize as ref_finalize
+    from hybvio_tpu.models import synthetic_bench_params as ref_params
+
+    p, r = synthetic_bench_params(config), ref_params(config)
+    for group in ("odometry", "tracker", "slam"):
+        assert dataclasses.asdict(getattr(p, group)) == dataclasses.asdict(getattr(r, group)), group
+    wh = (512, 512) if config == "fisheye" else (752, 480)
+    _, _, cams = _finalize(p, *wh)
+    _, _, rcams = ref_finalize(r, *wh, dtype=jnp.float64)
+    assert len(cams) == len(rcams) == 1
+    assert cams[0] == convert.camera_from_jax(rcams[0])
+    assert cams[0].kind == ("fisheye" if config == "fisheye" else "pinhole")
+
+
+@pytest.mark.parametrize("config", ["mono", "fisheye"])
+def test_make_batched_vio_mono_and_fisheye_need_a_card_unless_asked_for_the_cpu(config):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is the card")
+    params, derived, cams = _finalize(synthetic_bench_params(config), 96, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_vio(params, derived, cams, batch_size=2)
+    _, _, vio = make_batched_vio(params, derived, cams, batch_size=2, device="cpu")
+    assert vio.dtype == torch.float64 and vio.backend.n_cams == 1 and not vio.tracker.stereo

@@ -68,6 +68,63 @@ def test_patch_gather_plain_shared_image_stride0():
         np.testing.assert_array_equal(out.numpy(), scale * ref)
 
 
+# the frames of the mono (and stereo) and fisheye paths
+FRAMES = [(480, 752), (512, 512)]
+
+
+@pytest.mark.parametrize("hw", FRAMES)
+def test_patch_gather_plain_on_path_frames(hw):
+    """The plain gather of one frame shared by 16 lanes equals the
+    reference's at every window size the paths use on it (LK template 18,
+    search 50 and 34, subpixel 33), origins at both extremes included."""
+    H, W = hw
+    rng = np.random.RandomState(9)
+    img = rng.rand(H, W).astype(np.float32)
+    shared = torch.tensor(img).expand(16, H, W)
+    for ps in (18, 50, 34, 33):
+        y0 = rng.randint(0, H - ps + 1, size=(16, 96)).astype(np.int32)
+        x0 = rng.randint(0, W - ps + 1, size=(16, 96)).astype(np.int32)
+        y0[:, 0], y0[:, 1], x0[:, 0], x0[:, 1] = 0, H - ps, 0, W - ps
+        ref = np.asarray(jax.vmap(lambda a, b: _gather_fallback(jnp.asarray(img), a, b, ps))(
+            jnp.asarray(y0), jnp.asarray(x0)))
+        (out,) = ops.gather_patches((shared,), torch.tensor(y0), torch.tensor(x0), ps)
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_patch_gather_launch_counted_by_image_size(monkeypatch):
+    """A launch is counted under (images, B, N, ps, H, W): each gather row
+    is charged at the image size it reads. (The launch itself is replaced:
+    meta tensors carry the shapes and strides without a card.)"""
+    from hybvio_tpu_torch.ops import patch_gather
+
+    seen = []
+    monkeypatch.setattr(patch_gather, "require_cuda", lambda *t, dtype=None: None)
+    monkeypatch.setattr(patch_gather, "launch", lambda *args, shape: seen.append(shape))
+    origins = torch.zeros((16, 96), dtype=torch.int32, device="meta")
+    for h, w in ((480, 752), (120, 188), (512, 512), (256, 256)):
+        img = torch.empty((h, w), device="meta").expand(16, h, w)
+        patch_gather.gather_patches((img, img, img), origins, origins, 18)
+    assert seen == [(3, 16, 96, 18, 480, 752), (3, 16, 96, 18, 120, 188),
+                    (3, 16, 96, 18, 512, 512), (3, 16, 96, 18, 256, 256)]
+
+
+@pytest.mark.parametrize("hw", FRAMES)
+def test_build_pyramid_with_gradients_one_image_matches_reference(hw):
+    """The mono and fisheye paths' form: one frame's levels 1-2 and the
+    gradients of its levels 0-2 from one build_pyramids_with_gradients call
+    equal the reference's build_pyramid and scharr_gradients bit for bit in
+    float32 (the CPU runs the plain version)."""
+    img = _img(hw, np.float32, 12)
+    (pyr,), grads = build_pyramids_with_gradients((torch.tensor(img),), 2)
+    ref = build_pyramid(jnp.asarray(img), 2)
+    assert len(pyr) == len(ref) == len(grads) == 3
+    for got, want, (gx, gy) in zip(pyr, ref, grads):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        rx, ry = scharr_gradients(want)
+        np.testing.assert_array_equal(gx.numpy(), np.asarray(rx))
+        np.testing.assert_array_equal(gy.numpy(), np.asarray(ry))
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("hw", SHAPES)
 def test_pyr_down_plain(hw, dtype):
@@ -487,6 +544,12 @@ def test_cuda_kernels_match_plain():
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
     for bs in (3, 5):
         assert torch.equal(ops.corner_response(img, bs), ops.corner_response_plain(img, bs))
+    fish = torch.rand((512, 512), generator=g).to(dev)  # the fisheye frame
+    assert torch.equal(ops.corner_response(fish, 3), ops.corner_response_plain(fish, 3))
+    (pyr,), grads = ops.pyramid_with_gradients((fish,), 2)
+    (want_pyr,), want_grads = ops.pyramid_with_gradients_plain((fish,), 2)
+    assert all(torch.equal(a, b) for a, b in zip(pyr, want_pyr))
+    assert all(torch.equal(a, b) for ga, gb in zip(grads, want_grads) for a, b in zip(ga, gb))
     y0 = torch.randint(-3, 480 - 34 + 4, (16, 96), generator=g, dtype=torch.int32).to(dev)
     x0 = torch.randint(-3, 752 - 34 + 4, (16, 96), generator=g, dtype=torch.int32).to(dev)
     shared = img.expand(16, 480, 752)
