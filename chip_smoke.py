@@ -4,11 +4,12 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. card name and power limit (nvidia-smi), torch and CUDA versions;
+  1. card name and power limit (nvidia-smi), torch and CUDA versions; every
+     later line starts with the card's name and power limit;
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
   3. the card's launch floor (an empty kernel, timed like the rows below);
      each kernel against its plain PyTorch version on the card at every
-     input shape the three paths of phase 4 give it (exact for gather /
+     input shape the four paths of phase 4 give it (exact for gather /
      greedy / pyramid / fused pyramid and gradients / corner response,
      <= 1e-6 max abs for the standalone Scharr), plus edge cases of the
      gather, the greedy walk, the corner response and the pyramid with and
@@ -23,19 +24,25 @@ Phases (any failure exits non-zero and prints no result line):
      the three Scharr launches it replaced, and of one 480x752 or 512x512
      frame; the pyramid alone beside its single-image single-level launches
      and one launch per level; the standalone Scharr at each of the three
-     level sizes; the corner response at 480x752 and 512x512;
-  4. three paths through make_batched_vio, each B=16 lanes sharing each
-     frame, float32, over a 60-frame synthetic sequence (io.synthetic, the
-     benchmark's worlds): the stereo preset at 752x480, the mono preset at
-     752x480 and the fisheye (KB4) preset at 512x512. For each: median step
-     time, aggregate frames/s, warm-up step, finite lanes, ATE median
-     against ground truth, every kernel's launch count in that run, in total
-     and by input shape, and the host syncs of one step
-     (torch.cuda.set_sync_debug_mode). Fails on a Pallas kernel none of
-     whose port kernels was launched, a path that did not launch one of the
-     four kernels every path runs, a non-finite lane or an ATE median over
-     0.05 m;
-  5. the kernels ranked, per path and over the three, by the time the paths
+     level sizes; the corner response at 480x752 and 512x512; and at the
+     per-lane shapes: the fused pyramid of 16 lanes x 2 cameras, the corner
+     response of 16 lanes, the gather of per-lane images at every window
+     shape and level, greedy with a per-lane d2;
+  4. four paths through make_batched_vio, each B=16 lanes, float32, over
+     60 synthetic frames (io.synthetic, the benchmark's worlds): the stereo
+     preset at 752x480, the mono preset at 752x480 and the fisheye (KB4)
+     preset at 512x512, each lane sharing each frame (shared_frames=True),
+     and the stereo preset over 16 distinct worlds, one per lane
+     (shared_frames=False; bench.py's seed-diverse worlds, rendered on the
+     card each step by io.synthetic_device outside the timed step). For
+     each: median step time, aggregate frames/s, warm-up step, finite lanes,
+     ATE median and p90 against each lane's ground truth, every kernel's
+     launch count in that run, in total and by input shape, and the host
+     syncs of one step (torch.cuda.set_sync_debug_mode). Fails on a host
+     sync, a Pallas kernel none of whose port kernels was launched, a path
+     that did not launch one of the four kernels every path runs, a
+     non-finite lane or an ATE median over 0.05 m;
+  5. the kernels ranked, per path and over the four, by the time the paths
      lose in them: the sum over input shapes of launches x (device time -
      bound); fails on a shape launched in phase 4 and not timed in phase 3.
 Before the last line come the kernel JSON and the card's name and power
@@ -52,8 +59,9 @@ import numpy as np
 
 B = 16
 FRAMES = 60
-PATHS = ("stereo", "mono", "fisheye")
-FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512)}
+PATHS = ("stereo", "mono", "fisheye", "stereo_per_lane")
+FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512),
+            "stereo_per_lane": (480, 752)}
 # kernels every path launches (pyr_down and scharr alone are off the paths)
 PATH_KERNELS = ("pyramid_scharr", "patch_gather", "corner_response", "greedy_nms")
 # the gathers the paths launch, per frame size: (images, window, pyramid
@@ -92,16 +100,25 @@ KERNELS = {  # name -> (source, Pallas kernels it replaces, ", "-separated)
 }
 
 
+CARD = ""  # nvidia-smi's "name, power limit", set in main
+
+
+def say(msg: str) -> None:
+    """Print a line that begins with the card's name and power limit."""
+    print(f"[{CARD}] {msg}", flush=True)
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
 
 
-def device_ms(fn):
+def device_ms(fn, reps=R):
     """(ms, ahead): the card's time per call of fn, the median over RUNS runs
-    of R back-to-back calls between two CUDA events (inputs made before).
+    of ``reps`` back-to-back calls between two CUDA events (inputs made
+    before).
     Before each run the stream sleeps long enough for the host to enqueue
-    all R calls, so the card runs them back to back and never waits on the
+    all the calls, so the card runs them back to back and never waits on the
     Python wrapper. ``ahead`` is False if the card caught up with the host in
     some run anyway (a composition of many launches can fill the queue);
     that time then includes host dispatch."""
@@ -111,7 +128,7 @@ def device_ms(fn):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(R):
+    for _ in range(reps):
         fn()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -122,12 +139,12 @@ def device_ms(fn):
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         a.record()
-        for _ in range(R):
+        for _ in range(reps):
             fn()
         b.record()
         ahead = ahead and not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b) / R)
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times), ahead
 
 
@@ -169,10 +186,11 @@ def check_edge_cases(dev, g):
     on widths whose rows are and are not 16-byte aligned, shared and
     per-lane images, B = 1 and 16, origins past the edges; greedy at K up
     to 1024, shared and per-lane d2, exact ties, B = 1 and 16; the corner
-    response at blocks 3 and 5 on the frame and on two odd level sizes; the
-    pyramid, with and without the gradients of the first image's levels, of
-    one and two images at 1 to 4 levels on the frame and on odd sizes.
-    Returns the number of cases."""
+    response at blocks 3 and 5 on the frame and on two odd level sizes, of
+    one image and of 3 lanes; the pyramid, with and without the gradients of
+    the first image's levels, of one and two images at 1 to 4 levels on the
+    frame and on odd sizes, and of 3 lanes x 1 or 2 cameras at 0 to 4
+    levels. Returns the number of cases."""
     import torch
 
     from hybvio_tpu_torch import ops
@@ -226,6 +244,26 @@ def check_edge_cases(dev, g):
                     raise AssertionError(f"pyramid_scharr {h}x{w}, {n} images, {levels} levels: "
                                          f"max abs error {err}")
                 cases += 2
+    for h, w in ((480, 752), (239, 377), (60, 94)):  # per lane, laid out as the renderer's
+        lanes = torch.rand((3, 2, h, w), generator=g).to(dev)
+        for n in (1, 2):
+            cams = (lanes[:, 0], lanes[:, 1])[:n]
+            for levels in (0, 1, 2, 3, 4):  # 0: the standalone Scharr; 4: two chained launches
+                got = ops.pyr_down_levels(cams, levels)
+                want = ops.pyr_down_levels_plain(cams, levels)
+                err = max([max_err(a, b) for pa, pb in zip(got, want) for a, b in zip(pa, pb)]
+                          + [fused_err(cams, levels)])
+                if err != 0:
+                    raise AssertionError(f"pyramid per lane {h}x{w}, {n} cameras, {levels} "
+                                         f"levels: max abs error {err}")
+                cases += 2
+        for bs in (3, 5):
+            err = max_err(ops.corner_response(lanes[:, 1], bs),
+                          ops.corner_response_plain(lanes[:, 1], bs))
+            if err != 0:
+                raise AssertionError(f"corner_response per lane {h}x{w} block {bs}: "
+                                     f"max abs error {err}")
+            cases += 1
     return cases
 
 
@@ -276,25 +314,26 @@ def check_kernels(dev):
     results = {}
 
     floor_ms, _ = device_ms(ops.launch_empty)
-    print(f"launch floor: {floor_ms:.5f} ms per launch of an empty kernel (one thread), "
-          f"the least any row below can read", flush=True)
+    say(f"launch floor: {floor_ms:.5f} ms per launch of an empty kernel (one thread), "
+        f"the least any row below can read")
 
-    def timed(label, err, tol, kernel, library, nbytes, nops, plain=None):
-        """Check err against tol, time kernel / library / plain, print a
-        line; the row's numbers."""
+    def timed(label, err, tol, kernel, library, nbytes, nops, plain=None, plain_reps=R):
+        """Check err against tol, time kernel / library / plain (the plain
+        version over ``plain_reps`` calls a run), print a line; the row's
+        numbers."""
         if not err <= tol:
             raise AssertionError(f"{label}: max abs error {err} > {tol}")
         ms, ahead = device_ms(kernel)
         library_ms = device_ms(library)[0] if library is not None else None
-        plain_ms, plain_ahead = device_ms(plain) if plain is not None else (None, True)
+        plain_ms, plain_ahead = (device_ms(plain, plain_reps) if plain is not None
+                                 else (None, True))
         bound_ms, bound_by = bound(nbytes, nops)
         lib = f"{library_ms:.5f} ms" if library_ms is not None else "none"
         plain_s = (f", plain {plain_ms:.5f} ms{'' if plain_ahead else ' (host-bound)'}"
                    if plain is not None else "")
-        print(f"kernel {label}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
-              f"{'' if ahead else ' (card caught up with the host)'}, bound {bound_ms:.5f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}{plain_s}",
-              flush=True)
+        say(f"kernel {label}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
+            f"{'' if ahead else ' (card caught up with the host)'}, bound {bound_ms:.5f} ms "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}{plain_s}")
         return {"max_abs_err": float(err), "ms": ms, "device_ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
@@ -346,9 +385,9 @@ def check_kernels(dev):
                          lambda: torch.gather(flat, 2, idx),
                          4 * (k * B * n * ps * ps + k * read_px + 2 * B * n), 0,
                          plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in images])
-            print(f"  the windows cover {read_px} of the level's {h * w} pixels "
-                  f"({100 * read_px / (h * w):.1f}%)", flush=True)
-            shapes[shape_key((k, B, n, ps, h, w))] = shape_row(srow)
+            say(f"  the windows cover {read_px} of the level's {h * w} pixels "
+                f"({100 * read_px / (h * w):.1f}%)")
+            shapes[shape_key((k, B, n, ps, h, w, "shared"))] = shape_row(srow)
             if (ps, h, w) == (34, H, W):
                 row = srow
             if (k, ps, h, w) == (3, 18, H, W):  # the template's three images in one launch, or three
@@ -357,8 +396,8 @@ def check_kernels(dev):
     row.update(shapes=shapes, template_3img_ms=three_ms,
                template_3launches_ms=three_launches_ms)
     results["patch_gather"] = row
-    print(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18 on {H}x{W}): "
-          f"one launch {three_ms:.5f} ms, three launches {three_launches_ms:.5f} ms", flush=True)
+    say(f"kernel patch_gather, LK template (3 images of 16x96 windows of 18x18 on {H}x{W}): "
+        f"one launch {three_ms:.5f} ms, three launches {three_launches_ms:.5f} ms")
 
     # pyramid, main-path form: levels 1 and 2 of the left and right frames in
     # one launch (no single PyTorch call computes it: library none)
@@ -372,7 +411,7 @@ def check_kernels(dev):
     row = timed("pyr_down (2 images, 2 levels, one launch)", err, 0.0,
                 lambda: ops.pyr_down_levels(pair, 2), None, pbytes, pops,
                 plain=lambda: ops.pyr_down_levels_plain(pair, 2))
-    row["shapes"] = {shape_key((2, H, W, 2)): shape_row(row)}
+    row["shapes"] = {shape_key((2, 1, H, W, 2)): shape_row(row)}
     results["pyr_down"] = row
     # the single-image single-level kernel at both level sizes it replaces,
     # with the one-call yardstick (the 5x5 outer-product kernel at stride 2)
@@ -388,20 +427,20 @@ def check_kernels(dev):
                      lambda: ops.pyr_down(im), lambda: F.conv2d(pad2, k5, stride=2),
                      4 * (h * w + ho * wo), 9 * h * wo + 9 * ho * wo,
                      plain=(lambda: ops.pyr_down_plain(im)) if h == H else None)
-        row["shapes"][shape_key((1, h, w, 1))] = shape_row(srow)
+        row["shapes"][shape_key((1, 1, h, w, 1))] = shape_row(srow)
         if h == H:
             row.update({f"single_{k}": v for k, v in srow.items() if k != "device_ms"})
     four, _ = device_ms(lambda: [ops.pyr_down(ops.pyr_down(im)) for im in pair])
     per_level, _ = device_ms(lambda: ops.pyr_down_levels(
         [lv[0] for lv in ops.pyr_down_levels(pair, 1)], 1))
-    singles = 2 * sum(row["shapes"][shape_key((1, h, w, 1))]["ms"] for h, w in levels_hw[:2])
+    singles = 2 * sum(row["shapes"][shape_key((1, 1, h, w, 1))]["ms"] for h, w in levels_hw[:2])
     # one launch per level computes the same function: the same bound
     row.update(four_launches_ms=four, per_level_2img_ms=per_level, single_sum_ms=singles)
-    print(f"kernel pyr_down, the pyramid of one stereo frame: one launch {row['ms']:.5f} ms; "
-          f"four single-image single-level launches {four:.5f} ms (their timed rows summed: "
-          f"{singles:.5f} ms); two launches of one level each for both images "
-          f"{per_level:.5f} ms (bound {row['bound_ms']:.5f} ms, "
-          f"{100 * row['bound_ms'] / per_level:.1f}% of it)", flush=True)
+    say(f"kernel pyr_down, the pyramid of one stereo frame: one launch {row['ms']:.5f} ms; "
+        f"four single-image single-level launches {four:.5f} ms (their timed rows summed: "
+        f"{singles:.5f} ms); two launches of one level each for both images "
+        f"{per_level:.5f} ms (bound {row['bound_ms']:.5f} ms, "
+        f"{100 * row['bound_ms'] / per_level:.1f}% of it)")
 
     # Scharr at every level size the main path gives it: one 2-channel 3x3
     # convolution of the padded level as the yardstick
@@ -416,7 +455,7 @@ def check_kernels(dev):
         srow = timed(f"scharr {h}x{w}", max(max_err(ix, rx), max_err(iy, ry)), STENCIL_TOL,
                      lambda: ops.scharr(im), lambda: F.conv2d(pad1, k3), 4 * 3 * h * w,
                      2 * 10 * h * w, plain=(lambda: ops.scharr_plain(im)) if h == H else None)
-        shapes[shape_key((h, w))] = shape_row(srow)
+        shapes[shape_key((1, h, w))] = shape_row(srow)
         if h == H:
             results["scharr"] = srow
     results["scharr"]["shapes"] = shapes
@@ -436,7 +475,7 @@ def check_kernels(dev):
                 "launch)", fused_err(pair, 2), 0.0, lambda: ops.pyramid_with_gradients(pair, 2),
                 None, 2 * pbytes, pops + sum(2 * 10 * h * w for h, w in levels_hw),
                 plain=lambda: ops.pyramid_with_gradients_plain(pair, 2))
-    row["shapes"] = {shape_key((2, H, W, 2)): shape_row(row)}
+    row["shapes"] = {shape_key((2, 1, H, W, 2)): shape_row(row)}
     # the mono and fisheye paths' form: one frame's levels 1-2 and the
     # gradients of its levels 0-2 (bytes: read level 0, write levels 1-2,
     # write both gradients of levels 0-2)
@@ -450,15 +489,15 @@ def check_kernels(dev):
                      lambda: ops.pyramid_with_gradients((frame,), 2), None,
                      3 * 4 * sum(h * w for h, w in lhw), ops1,
                      plain=lambda: ops.pyramid_with_gradients_plain((frame,), 2))
-        row["shapes"][shape_key((1, fh, fw, 2))] = shape_row(srow)
+        row["shapes"][shape_key((1, 1, fh, fw, 2))] = shape_row(srow)
     replaced, _ = device_ms(lambda: [ops.pyr_down_levels(pair, 2)]
                             + [ops.scharr(im) for im in level_imgs])
     rows_sum = results["pyr_down"]["ms"] + sum(v["ms"] for v in shapes.values())
     row.update(replaced_4launches_ms=replaced, replaced_rows_sum_ms=rows_sum)
     results["pyramid_scharr"] = row
-    print(f"kernel pyramid_scharr, one stereo frame's pyramid and left gradients: one launch "
-          f"{row['ms']:.5f} ms; the pyramid launch and three Scharr launches it replaced "
-          f"{replaced:.5f} ms (their timed rows summed: {rows_sum:.5f} ms)", flush=True)
+    say(f"kernel pyramid_scharr, one stereo frame's pyramid and left gradients: one launch "
+        f"{row['ms']:.5f} ms; the pyramid launch and three Scharr launches it replaced "
+        f"{replaced:.5f} ms (their timed rows summed: {rows_sum:.5f} ms)")
 
     for bs in (3, 5):
         srow = timed(f"corner_response block {bs}",
@@ -466,7 +505,7 @@ def check_kernels(dev):
                      0.0, lambda: ops.corner_response(img, bs), None, 4 * 2 * px,
                      (46 + 6 * (bs - 3)) * px, plain=lambda: ops.corner_response_plain(img, bs))
         if bs == 3:
-            srow["shapes"] = {shape_key((H, W, 3)): shape_row(srow)}
+            srow["shapes"] = {shape_key((1, H, W, 3)): shape_row(srow)}
             results["corner_response"] = srow
         else:
             results["corner_response"].update(block5_ms=srow["ms"], block5_bound_ms=srow["bound_ms"],
@@ -476,7 +515,7 @@ def check_kernels(dev):
                  max_err(ops.corner_response(fish, 3), ops.corner_response_plain(fish, 3)), 0.0,
                  lambda: ops.corner_response(fish, 3), None, 4 * 2 * fh * fw, 46 * fh * fw,
                  plain=lambda: ops.corner_response_plain(fish, 3))
-    results["corner_response"]["shapes"][shape_key((fh, fw, 3))] = shape_row(srow)
+    results["corner_response"]["shapes"][shape_key((1, fh, fw, 3))] = shape_row(srow)
 
     # greedy: the main path's layout, one d2 shared by the lanes (stride 0)
     K = 192
@@ -487,22 +526,97 @@ def check_kernels(dev):
                 lambda: ops.greedy_min_distance(d2, ok, min_d2), None,
                 4 * K * K + 2 * B * K, B * K * (K - 1) // 2,
                 plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2))
-    row["shapes"] = {shape_key((B, K)): shape_row(row)}
+    row["shapes"] = {shape_key((B, K, "shared")): shape_row(row)}
     results["greedy_nms"] = row
-    # and with a distinct d2 per lane
+    # and with a distinct d2 per lane (the per-lane path)
     d2l, okl, _ = greedy_inputs(g, B, K, False, False, dev)
-    ms, _ = device_ms(lambda: ops.greedy_min_distance(d2l, okl, min_d2))
-    bms, _ = bound(4 * B * K * K + 2 * B * K, B * K * (K - 1) // 2)
-    row.update(per_lane_d2_ms=ms, per_lane_d2_bound_ms=bms)
-    print(f"kernel greedy_nms, per-lane d2: device {ms:.5f} ms, bound {bms:.5f} ms", flush=True)
+    srow = timed("greedy_nms, per-lane d2", float((ops.greedy_min_distance(d2l, okl, min_d2)
+                                                   != ops.greedy_min_distance_plain(d2l, okl, min_d2)
+                                                   ).sum()), 0.0,
+                 lambda: ops.greedy_min_distance(d2l, okl, min_d2), None,
+                 4 * B * K * K + 2 * B * K, B * K * (K - 1) // 2,
+                 plain=lambda: ops.greedy_min_distance_plain(d2l, okl, min_d2), plain_reps=10)
+    row["shapes"][shape_key((B, K, "per-lane"))] = shape_row(srow)
 
-    print(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
-          f"/ pyramid-and-gradients cases equal their plain versions", flush=True)
+    check_per_lane(dev, g, results, timed, shape_row)
+
+    say(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
+        f"/ pyramid-and-gradients cases equal their plain versions")
     return results, floor_ms
 
 
+def check_per_lane(dev, g, results, timed, shape_row):
+    """Phase 3 at the per-lane path's shapes: B lanes of distinct 480x752
+    stereo frames laid out (B, 2, H, W) as the renderer gives them (camera
+    c is a (B, H, W) view with lane stride 2 H W). The fused pyramid of the
+    B x 2 images, the corner response of the B left images, the gather of
+    per-lane levels and gradients at every window shape and level of
+    GATHER_ROWS (its bound reads each lane's footprint once per image),
+    each against its plain version exactly; rows join the kernels' shape
+    tables under the keys the wrappers count launches by."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    H, W = FRAME_HW["stereo_per_lane"]
+    frames = torch.rand((B, 2, H, W), generator=g).to(dev)
+    cams = (frames[:, 0], frames[:, 1])
+    lhw = [(H, W), ((H + 1) // 2, (W + 1) // 2), ((H + 3) // 4, (W + 3) // 4)]
+    err = fused_err(cams, 2)
+    pops = B * (2 * sum(9 * lhw[l - 1][0] * w + 9 * h * w for l, (h, w) in enumerate(lhw) if l > 0)
+                + sum(2 * 10 * h * w for h, w in lhw))
+    # bytes: read the B x 2 frames, write their levels 1-2 and the gradients
+    # of the B left frames' levels 0-2
+    pbytes = 4 * B * (2 * H * W + 2 * sum(h * w for h, w in lhw[1:])
+                      + 2 * sum(h * w for h, w in lhw))
+    srow = timed(f"pyramid_scharr ({B} lanes x 2 cameras, {H}x{W}, 2 levels, gradients of the "
+                 f"left levels 0-2, one launch)", err, 0.0,
+                 lambda: ops.pyramid_with_gradients(cams, 2), None, pbytes, pops,
+                 plain=lambda: ops.pyramid_with_gradients_plain(cams, 2), plain_reps=3)
+    results["pyramid_scharr"]["shapes"][shape_key((2, B, H, W, 2))] = shape_row(srow)
+
+    left = cams[0]
+    srow = timed(f"corner_response block 3, {B} lanes x {H}x{W}",
+                 max_err(ops.corner_response(left, 3), ops.corner_response_plain(left, 3)), 0.0,
+                 lambda: ops.corner_response(left, 3), None, 4 * 2 * B * H * W, 46 * B * H * W,
+                 plain=lambda: ops.corner_response_plain(left, 3), plain_reps=3)
+    results["corner_response"]["shapes"][shape_key((B, H, W, 3))] = shape_row(srow)
+
+    (lv, _), grads = ops.pyramid_with_gradients(cams, 2)
+    n = 96
+    for k, ps, level in GATHER_ROWS[(H, W)]:
+        base = (left, *lv)[level]
+        planes = {3: (base, *grads[level]), 1: (base,), 2: grads[level]}[k]
+        h, w = base.shape[-2:]
+        y0 = torch.randint(0, h - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+        x0 = torch.randint(0, w - ps + 1, (B, n), generator=g, dtype=torch.int32).to(dev)
+        r = torch.arange(ps, device=dev)
+        idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+               + (x0.long()[..., None] + r)[..., None, :]).reshape(B, -1).expand(k, B, -1)
+        flat = torch.stack([p.reshape(B, h * w) for p in planes])
+        covered = torch.zeros((B, h * w), dtype=torch.bool, device=dev)
+        covered.scatter_(1, idx[0], True)
+        read_px = int(covered.sum())  # each lane's footprint, summed over the lanes
+        got = ops.gather_patches(planes, y0, x0, ps)
+        err = max(max_err(a, ops.gather_patches_plain(im, y0, x0, ps)) for a, im in zip(got, planes))
+        if not torch.equal(torch.gather(flat, 2, idx).reshape(k, B, n, ps, ps), torch.stack(got)):
+            raise AssertionError(f"patch_gather per lane {ps}x{ps} on {h}x{w}: the torch.gather "
+                                 f"yardstick disagrees")
+        srow = timed(f"patch_gather ({k} per-lane image{'s' if k > 1 else ''}, {B}x{n} windows "
+                     f"of {ps}x{ps} on {B} lanes of {h}x{w})", err, 0.0,
+                     lambda: ops.gather_patches(planes, y0, x0, ps),
+                     lambda: torch.gather(flat, 2, idx),
+                     4 * (k * B * n * ps * ps + k * read_px + 2 * B * n), 0,
+                     plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in planes],
+                     plain_reps=10)
+        say(f"  the windows cover {read_px} of the {B} lanes' {B * h * w} pixels "
+            f"({100 * read_px / (B * h * w):.1f}%)")
+        results["patch_gather"]["shapes"][shape_key((k, B, n, ps, h, w, "per-lane"))] = \
+            shape_row(srow)
+
+
 def rank(rows, path=None):
-    """The order in which the kernels lose ``path`` (or, with None, the three
+    """The order in which the kernels lose ``path`` (or, with None, the four
     paths together) the most time: first any kernel slower than its library
     call at some shape, then the rest by the sum over the input shapes the
     path gave it of launches x (device time - bound); a kernel at >= 50% of
@@ -568,8 +682,8 @@ def path_inputs(config, dev):
                                  else (SYNTH_IMU_TO_CAMERA,))]
         views = tuple(torch.as_tensor(v).to(dev) for v in views)
         frames.append(views if pt.useStereo else views[0])
-    print(f"{config}: rendered {F} frames of {W}x{H} ({len(cams)} camera"
-          f"{'s' if len(cams) > 1 else ''}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    say(f"{config}: rendered {F} frames of {W}x{H} ({len(cams)} camera"
+        f"{'s' if len(cams) > 1 else ''}) in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.RandomState(1)
     S = int(np.max(np.diff(np.concatenate([[0], seq.frame_sample_idx + 1]))))
@@ -589,6 +703,67 @@ def path_inputs(config, dev):
     return params, derived, cams, seq, frames, batches
 
 
+def per_lane_inputs(dev):
+    """(params, derived, cameras, ground truth (B, F - 1, 3), frame(fi) ->
+    (left, right) (B, H, W) views of frames rendered on the card, IMU
+    batches) of the stereo preset over B distinct worlds, built as
+    bench.py's seed-diverse leg builds them: lane b's sequence has seed
+    1000 + b and its radius, angular speed and z-wobble drawn from
+    RandomState(7000 + b); 500 landmarks 6 m out, the IMU noise of
+    path_inputs, no per-lane jitter beyond each lane's own noise."""
+    import torch
+
+    from hybvio_tpu_torch import runtime
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence
+    from hybvio_tpu_torch.io.synthetic_device import make_blob_renderer
+    from hybvio_tpu_torch.models import _finalize, synthetic_bench_params
+    from hybvio_tpu_torch.odometry.backend import ImuBatch
+
+    H, W = FRAME_HW["stereo_per_lane"]
+    params, derived, cams = _finalize(synthetic_bench_params("stereo"), W, H)
+    pt = params.tracker
+    seqs = []
+    for b in range(B):
+        lane_rng = np.random.RandomState(7000 + b)
+        seqs.append(generate_sequence(
+            duration=FRAMES / 20.0 + 0.25, imu_rate=200.0, frame_rate=20.0,
+            radius=float(lane_rng.uniform(1.7, 2.3)),
+            angular_speed=float(lane_rng.uniform(0.34, 0.46)),
+            z_wobble=float(lane_rng.uniform(0.10, 0.20)), n_landmarks=500,
+            landmark_radius=6.0, gyro_noise=5e-4, acc_noise=5e-3, seed=1000 + b))
+    idx, times = seqs[0].frame_sample_idx[:FRAMES], seqs[0].times  # one time grid for all
+    second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
+    second[0, 3] = -0.11
+    f, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
+    render = make_blob_renderer([SYNTH_IMU_TO_CAMERA, second], f, f, cx, cy, W, H,
+                                blob_sigma=1.4, device=dev)
+    landmarks = torch.as_tensor(np.stack([s.landmarks for s in seqs]), dtype=torch.float32,
+                                device=dev)
+    pos = torch.as_tensor(np.stack([s.pos[idx] for s in seqs], axis=1), dtype=torch.float32,
+                          device=dev)  # (F, B, 3)
+    quat = torch.as_tensor(np.stack([s.quat[idx] for s in seqs], axis=1), dtype=torch.float32,
+                           device=dev)
+
+    def frame(fi):
+        out = render(landmarks, pos[fi], quat[fi])  # (B, 2, H, W)
+        return out[:, 0], out[:, 1]
+
+    S = int(np.max(np.diff(np.concatenate([[0], idx + 1]))))
+    batches, prev = [], idx[0] + 1
+    fl = lambda x: torch.as_tensor(x, dtype=runtime.filter_dtype(dev), device=dev)
+    for fi in range(1, len(idx)):
+        k = idx[fi] + 1
+        n, pad = k - prev, S - (k - prev)
+        t = np.pad(times[prev:k], (0, pad), constant_values=times[k - 1])
+        gB = np.stack([np.pad(s.gyro[prev:k], ((0, pad), (0, 0))) for s in seqs])
+        aB = np.stack([np.pad(s.acc[prev:k], ((0, pad), (0, 0))) for s in seqs])
+        batches.append(ImuBatch(fl(np.tile(t, (B, 1))), fl(gB), fl(aB),
+                                torch.as_tensor(np.tile(np.arange(S) < n, (B, 1)), device=dev)))
+        prev = k
+    gt = np.stack([s.pos[idx[1:]] - s.pos[0] for s in seqs])  # (B, F - 1, 3)
+    return params, derived, cams, float(times[idx[0]]), gt, frame, batches
+
+
 def host_syncs(step):
     """Run ``step()`` under torch.cuda.set_sync_debug_mode("warn"): (its
     result, the host syncs it made, counted by the Python line that made
@@ -605,9 +780,12 @@ def host_syncs(step):
             out = step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # The first set_sync_debug_mode of a process also warns that the mode
+    # "is a prototype feature and does not yet detect all synchronizing
+    # operations": that warning is no sync.
     lines = collections.Counter(
         f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
+        if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message))
     return out, lines
 
 
@@ -620,19 +798,38 @@ def run_path(dev, config):
     from hybvio_tpu_torch.eval.ate import ate_rmse
     from hybvio_tpu_torch.parallel.batched import make_batched_vio
 
-    params, derived, cams, seq, frames, batches = path_inputs(config, dev)
-    F = len(frames)
-    binit, bstep, _ = make_batched_vio(params, derived, cams, batch_size=B, device=dev)
+    H, W = FRAME_HW[config]
+    if config == "stereo_per_lane":
+        t0 = time.perf_counter()
+        params, derived, cams, start, gt, frame, batches = per_lane_inputs(dev)
+        F = len(batches) + 1
+        first = frame(0)
+        if not (first[0][0] - first[0][1]).abs().max() > 0:
+            raise AssertionError(f"{config}: lanes 0 and 1 got the same frame")
+        torch.cuda.synchronize()
+        say(f"{config}: {B} distinct worlds, frames of {W}x{H} (2 cameras) rendered on the card "
+            f"each step; set-up {time.perf_counter() - t0:.1f} s; lanes 0 and 1 differ by "
+            f"{float((first[0][0] - first[0][1]).abs().max()):.3f} at most")
+        shared = False
+    else:
+        params, derived, cams, seq, frames, batches = path_inputs(config, dev)
+        F = len(frames)
+        frame, first, start = frames.__getitem__, frames[0], float(seq.frame_times[0])
+        gt = np.stack([seq.pos[seq.frame_sample_idx[1:F]] - seq.pos[0]] * B)
+        shared = True
+    binit, bstep, _ = make_batched_vio(params, derived, cams, batch_size=B,
+                                       shared_frames=shared, device=dev)
     ops.reset_launch_counts()
-    states = binit(frames[0], np.full(B, float(seq.frame_times[0])), np.arange(B))
+    states = binit(first, np.full(B, start), np.arange(B))
     positions, step_ms = [], []
     for fi in range(1, F):
+        images = frame(fi)  # per lane: rendered here, outside the timed step
         torch.cuda.synchronize()
         ts = time.perf_counter()
         if fi == 2:  # the host syncs of one step (not timed: the warnings cost time)
-            (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], frames[fi]))
+            (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], images))
         else:
-            states, out = bstep(states, batches[fi - 1], frames[fi])
+            states, out = bstep(states, batches[fi - 1], images)
         torch.cuda.synchronize()
         step_ms.append(1000.0 * (time.perf_counter() - ts))
         positions.append(out.position)
@@ -642,24 +839,23 @@ def run_path(dev, config):
     est = torch.stack(positions).cpu().numpy()  # (F-1, B, 3)
     if est.shape != (F - 1, B, 3):
         raise AssertionError(f"{config}: positions of shape {est.shape}")
-    gt = seq.pos[seq.frame_sample_idx[1:F]] - seq.pos[0]
     finite = [b for b in range(B) if np.isfinite(est[:, b]).all()]
-    ates = [float(ate_rmse(est[:, b], gt)) for b in finite]
+    ates = [float(ate_rmse(est[:, b], gt[b])) for b in finite]
     timed = step_ms[2:]  # the first step is the warm-up, the second counted the syncs
     med = statistics.median(timed)
     fps = B * len(timed) / (sum(timed) / 1000.0)
     ate_med = float(np.median(ates)) if ates else float("nan")
-    H, W = FRAME_HW[config]
-    print(f"{config}: B={B} {W}x{H} f32, {F - 1} steps (median and frames/s over the last "
-          f"{len(timed)}): median step {med:.2f} ms, aggregate {fps:.1f} frames/s, "
-          f"warm-up step {step_ms[0]:.1f} ms", flush=True)
-    print(f"{config}: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m "
-          f"(max {max(ates) if ates else float('nan'):.4f} m)", flush=True)
-    print(f"{config}: host syncs in one step (step 2): {sum(syncs.values())} "
-          f"{json.dumps(dict(sorted(syncs.items())))}", flush=True)
-    print(f"{config}: kernel launches {json.dumps(launches)}", flush=True)
-    print(f"{config}: kernel launches by input shape " + json.dumps(
-        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}), flush=True)
+    ate_p90 = float(np.percentile(ates, 90)) if ates else float("nan")
+    say(f"{config}: B={B} {W}x{H} f32, {F - 1} steps (median and frames/s over the last "
+        f"{len(timed)}): median step {med:.2f} ms, aggregate {fps:.1f} frames/s, "
+        f"warm-up step {step_ms[0]:.1f} ms")
+    say(f"{config}: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m, p90 "
+        f"{ate_p90:.4f} m (max {max(ates) if ates else float('nan'):.4f} m)")
+    say(f"{config}: host syncs in one step (step 2): {sum(syncs.values())} "
+        f"{json.dumps(dict(sorted(syncs.items())))}")
+    say(f"{config}: kernel launches {json.dumps(launches)}")
+    say(f"{config}: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
     if len(finite) != B:
         raise AssertionError(f"{config}: only {len(finite)}/{B} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
@@ -695,15 +891,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         return fail(f"nvidia-smi gave no card name and power limit: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}", flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     runtime.configure_precision()
     dev = runtime.default_device()
     try:
         secs = ops.build(force=True)
-        print(f"build: nvcc sm_90a, {len(list(ops._lib.CSRC.glob('*.cu')))} sources, "
-              f"{secs:.1f} s", flush=True)
+        say(f"build: nvcc sm_90a, {len(list(ops._lib.CSRC.glob('*.cu')))} sources, "
+            f"{secs:.1f} s")
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
         runs = {config: run_path(dev, config) for config in PATHS}
@@ -720,29 +917,32 @@ def main() -> int:
                                  "launches": {c: counts[c].get(key, 0) for c in PATHS}}
                            for key in sorted(keys)}
         rankings = {c: rank(rows, c) for c in PATHS}
-        rankings["the three paths"] = rank(rows)
+        rankings["the four paths"] = rank(rows)
     except (AssertionError, RuntimeError, ValueError, TypeError) as e:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    print("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS), flush=True)
+    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS))
+    synced = [c for c in PATHS if runs[c][2]]
+    if synced:
+        return fail(f"host syncs in the step of {synced}")
     for which, ranking in rankings.items():
-        print(f"ranking, {which} (sum over input shapes of launches x (device - bound) per "
-              f"60-frame run; launch floor {floor_ms:.5f} ms): " + "; ".join(
-                  f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
-                  f"{' (>= 50% of its bound: left alone)' if alone else ''}"
-                  for name, loss, slower, alone in ranking), flush=True)
+        say(f"ranking, {which} (sum over input shapes of launches x (device - bound) per "
+            f"60-frame run; launch floor {floor_ms:.5f} ms): " + "; ".join(
+                f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
+                f"{' (>= 50% of its bound: left alone)' if alone else ''}"
+                for name, loss, slower, alone in ranking))
     for r in rows:
-        print(f"  {r['name']}: " + ("; ".join(
+        say(f"  {r['name']}: " + ("; ".join(
             f"{key} {json.dumps(s['launches'])} launches x ({s['ms']:.5f} - "
             f"{s['bound_ms']:.5f}) ms"
             for key, s in r["shapes"].items() if any(s["launches"].values()))
-            or "not launched on the paths"), flush=True)
+            or "not launched on the paths"))
     print(json.dumps({"kernels": rows}), flush=True)
-    print(card, flush=True)
+    print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+                                             "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -7,7 +7,8 @@
 // stencil per row band in VMEM.
 //
 // What bounds it on the H100: one 752 x 480 f32 frame (1.4 MB) is read and
-// one response map written per step, so bytes set the floor; what held the
+// one response map written per step (per lane with per-lane frames, one lane
+// per gridDim.z: 46 MB at 16 lanes), so bytes set the floor; what held the
 // first design back was its loads (each thread recomputed the Sobel
 // gradients of every pixel of its box from global memory: 81 loads a pixel
 // at block 3), and then the instructions and shared-memory accesses of
@@ -70,7 +71,10 @@ __device__ __forceinline__ void ypass(float d0, float d1, float d2, float s0, fl
 
 template <int R>
 __global__ void __launch_bounds__(32 * kRows)
-corner_response_kernel(const float* __restrict__ img, int H, int W, float* __restrict__ out) {
+corner_response_kernel(const float* __restrict__ img, long long lane_stride, int H, int W,
+                       float* __restrict__ out) {
+  img += blockIdx.z * lane_stride;  // lane z's image and response
+  out += (long long)blockIdx.z * H * W;
   constexpr int TW = 32 - 2 * R, GH = kTH + 2 * R;  // output tile; gradient region rows
   constexpr int IH = GH + 2, IW = 34;                // input tile
   constexpr int KG = (GH + kRows - 1) / kRows;       // gradient rows per thread
@@ -191,30 +195,33 @@ corner_response_kernel(const float* __restrict__ img, int H, int W, float* __res
 }
 
 template <int R>
-int launch(const float* img, int H, int W, float* out, cudaStream_t s) {
+int launch(const float* img, int lanes, long long lane_stride, int H, int W, float* out,
+           cudaStream_t s) {
   constexpr int TW = 32 - 2 * R;
-  dim3 grid((W + TW - 1) / TW, (H + kTH - 1) / kTH);
-  corner_response_kernel<R><<<grid, dim3(32, kRows), 0, s>>>(img, H, W, out);
+  dim3 grid((W + TW - 1) / TW, (H + kTH - 1) / kTH, lanes);
+  corner_response_kernel<R><<<grid, dim3(32, kRows), 0, s>>>(img, lane_stride, H, W, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The response of an (H, W) image at an odd block_size from 1 to 15.
-// Returns cudaErrorInvalidValue for other arguments.
-extern "C" int hv_corner_response(const float* img, int H, int W, int block_size, float* out,
-                                  void* stream) {
-  if (block_size < 1 || block_size % 2 == 0 || block_size > 2 * kMaxR + 1 || H < 1 || W < 1)
+// The responses of `lanes` (H, W) images, lane b's at img + b * lane_stride
+// (rows contiguous), into out (lanes x H x W), at an odd block_size from 1
+// to 15. Returns cudaErrorInvalidValue for other arguments.
+extern "C" int hv_corner_response(const float* img, int lanes, long long lane_stride, int H,
+                                  int W, int block_size, float* out, void* stream) {
+  if (block_size < 1 || block_size % 2 == 0 || block_size > 2 * kMaxR + 1 || H < 1 || W < 1 ||
+      lanes < 1 || lanes > 65535 || lane_stride < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (block_size / 2) {
-    case 0: return launch<0>(img, H, W, out, s);
-    case 1: return launch<1>(img, H, W, out, s);
-    case 2: return launch<2>(img, H, W, out, s);
-    case 3: return launch<3>(img, H, W, out, s);
-    case 4: return launch<4>(img, H, W, out, s);
-    case 5: return launch<5>(img, H, W, out, s);
-    case 6: return launch<6>(img, H, W, out, s);
-    default: return launch<7>(img, H, W, out, s);
+    case 0: return launch<0>(img, lanes, lane_stride, H, W, out, s);
+    case 1: return launch<1>(img, lanes, lane_stride, H, W, out, s);
+    case 2: return launch<2>(img, lanes, lane_stride, H, W, out, s);
+    case 3: return launch<3>(img, lanes, lane_stride, H, W, out, s);
+    case 4: return launch<4>(img, lanes, lane_stride, H, W, out, s);
+    case 5: return launch<5>(img, lanes, lane_stride, H, W, out, s);
+    case 6: return launch<6>(img, lanes, lane_stride, H, W, out, s);
+    default: return launch<7>(img, lanes, lane_stride, H, W, out, s);
   }
 }

@@ -8,9 +8,12 @@
 // What bounds them on the H100: launch latency first, then bytes. A
 // 752 x 480 f32 level is 1.4 MB read once and written once (Scharr:
 // twice); a few flops per byte, and the smaller levels take less time than
-// a launch. So one launch builds levels 1..L of one or two images
-// (gridDim.z) and, in its fused form, the Scharr gradients of levels 0..L
-// of the first image. A block owns a th x tw tile of level L and computes,
+// a launch. So one launch builds levels 1..L of the images of one or two
+// cameras in each of B lanes (gridDim.z = B x cameras; a shared frame is
+// B = 1) and, in its fused form, the Scharr gradients of levels 0..L of
+// camera 0 of every lane. With per-lane frames (B = 16 stereo: 46 MB read,
+// 75 MB written) bytes, not latency, set the floor. A block owns a th x tw
+// tile of level L and computes,
 // in shared memory, the region of every earlier level that the tile needs
 // (level l-1 spans 2 n + 3 rows for n rows of level l); it writes its own
 // share of every level and recomputes the small halo its neighbours also
@@ -279,24 +282,29 @@ __device__ __forceinline__ void scharr_share(At at, int H, int W, Share s, float
 }
 
 // L levels at compile time, so the level loop unrolls and the regions live
-// in registers. G: the fused form, which also writes the gradients of
-// levels 0..L (level 0 only when grad_base) of the first image into grad
-// (per level, Ix then Iy, row-major, from level grad_base ? 0 : 1 on).
+// in registers. Block z works on camera z % n_cams of lane z / n_cams: the
+// camera's image of lane b starts at img_c + b * lane_stride, and its levels
+// go to out + z * per_image. G: the fused form, which also writes the
+// gradients of levels 0..L (level 0 only when grad_base) of camera 0 of
+// lane b into grad + b * grad_per_lane (per level, Ix then Iy, row-major,
+// from level grad_base ? 0 : 1 on).
 template <int L, bool G>
 __global__ void __launch_bounds__(kThreads)
-pyramid_kernel(const float* __restrict__ img0, const float* __restrict__ img1, int H, int W,
-               float* __restrict__ out, long long per_image, float* __restrict__ grad,
-               int grad_base) {
+pyramid_kernel(const float* __restrict__ img0, const float* __restrict__ img1, int n_cams,
+               long long lane_stride, int H, int W, float* __restrict__ out, long long per_image,
+               float* __restrict__ grad, long long grad_per_lane, int grad_base) {
   constexpr int th = tile_rows(L), tw = tile_cols(L);
   extern __shared__ float smem[];
   const int ty = blockIdx.y, tx = blockIdx.x;
-  const bool grads = G && blockIdx.z == 0;
+  const int lane = blockIdx.z / n_cams, cam = blockIdx.z - lane * n_cams;
+  const bool grads = G && cam == 0;
   Regions g;
   regions(H, W, L, grads ? 1 : 0, ty, tx, th, tw, &g);
   float* X = smem;                   // x pass of level l-1 at the columns level l keeps
   float* V = smem + x_floats(g, L);  // region of level l
-  const float* img = blockIdx.z == 0 ? img0 : img1;
+  const float* img = (cam == 0 ? img0 : img1) + lane * lane_stride;
   float* dst = out + blockIdx.z * per_image;
+  if (grads) grad += lane * grad_per_lane;
   long long off = 0;                             // of level l in this image's output
   long long goff = grad_base ? 2LL * H * W : 0;  // of level l's gradients in grad
 #pragma unroll
@@ -328,11 +336,15 @@ pyramid_kernel(const float* __restrict__ img0, const float* __restrict__ img1, i
   }
 }
 
-__global__ void scharr_kernel(const float* __restrict__ img, int H, int W,
+// Scharr of lane z's image (img + z * lane_stride) into ix, iy + z * H * W.
+__global__ void scharr_kernel(const float* __restrict__ img, long long lane_stride, int H, int W,
                               float* __restrict__ ix, float* __restrict__ iy) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= H || c >= W) return;
+  img += blockIdx.z * lane_stride;
+  ix += (long long)blockIdx.z * H * W;
+  iy += (long long)blockIdx.z * H * W;
   const auto at = [&](int row, int col) { return __ldg(img + (long long)row * W + col); };
   const int cl = clampi(c - 1, 0, W - 1), cr = clampi(c + 1, 0, W - 1);
   float d[3], m[3], gx, gy;
@@ -344,55 +356,67 @@ __global__ void scharr_kernel(const float* __restrict__ img, int H, int W,
 }
 
 template <bool G>
-int launch_pyramid(const float* img0, const float* img1, int n_images, int H, int W, int levels,
-                   float* out, float* grad, int grad_base, void* stream) {
-  if (n_images < 1 || n_images > 2 || levels < 1 || levels > kMaxLevels || H < 1 || W < 1)
+int launch_pyramid(const float* img0, const float* img1, int n_cams, int lanes,
+                   long long lane_stride, int H, int W, int levels, float* out, float* grad,
+                   int grad_base, void* stream) {
+  if (n_cams < 1 || n_cams > 2 || lanes < 1 || (long long)lanes * n_cams > 65535 ||
+      lane_stride < 0 || levels < 1 || levels > kMaxLevels || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   const int th = tile_rows(levels), tw = tile_cols(levels);
   Regions g;
   regions(H, W, levels, 0, 0, 0, th, tw, &g);
   const size_t smem = sizeof(float) * (size_t)smem_floats(levels, G ? 1 : 0);
-  long long per_image = 0;
+  long long per_image = 0, grad_per_lane = 0;
   for (int l = 1; l <= levels; ++l) per_image += (long long)g.H[l] * g.W[l];
-  dim3 grid((g.W[levels] + tw - 1) / tw, (g.H[levels] + th - 1) / th, n_images);
+  for (int l = grad_base ? 0 : 1; l <= levels; ++l) grad_per_lane += 2LL * g.H[l] * g.W[l];
+  dim3 grid((g.W[levels] + tw - 1) / tw, (g.H[levels] + th - 1) / th, lanes * n_cams);
   cudaStream_t s = (cudaStream_t)stream;
-  const float* img1_ = n_images > 1 ? img1 : img0;
+  const float* img1_ = n_cams > 1 ? img1 : img0;
   if (levels == 1)
-    pyramid_kernel<1, G><<<grid, kThreads, smem, s>>>(img0, img1_, H, W, out, per_image, grad,
-                                                      grad_base);
+    pyramid_kernel<1, G><<<grid, kThreads, smem, s>>>(img0, img1_, n_cams, lane_stride, H, W, out,
+                                                      per_image, grad, grad_per_lane, grad_base);
   else if (levels == 2)
-    pyramid_kernel<2, G><<<grid, kThreads, smem, s>>>(img0, img1_, H, W, out, per_image, grad,
-                                                      grad_base);
+    pyramid_kernel<2, G><<<grid, kThreads, smem, s>>>(img0, img1_, n_cams, lane_stride, H, W, out,
+                                                      per_image, grad, grad_per_lane, grad_base);
   else
-    pyramid_kernel<3, G><<<grid, kThreads, smem, s>>>(img0, img1_, H, W, out, per_image, grad,
-                                                      grad_base);
+    pyramid_kernel<3, G><<<grid, kThreads, smem, s>>>(img0, img1_, n_cams, lane_stride, H, W, out,
+                                                      per_image, grad, grad_per_lane, grad_base);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Levels 1..levels of n_images (1 or 2) images of one (H, W) shape, in one
-// launch of tiles of the last level. out holds, per image, every level
-// row-major one after the other. Returns cudaErrorInvalidValue if the
-// arguments are out of range.
-extern "C" int hv_pyramid(const float* img0, const float* img1, int n_images, int H, int W,
-                          int levels, float* out, void* stream) {
-  return launch_pyramid<false>(img0, img1, n_images, H, W, levels, out, nullptr, 0, stream);
+// Levels 1..levels of the (H, W) images of n_cams (1 or 2) cameras in each
+// of `lanes` lanes, in one launch of tiles of the last level: camera c's
+// image of lane b starts at img_c + b * lane_stride (rows contiguous; a
+// shared frame is lanes = 1). out holds, per lane and camera (lane-major),
+// every level row-major one after the other. Returns cudaErrorInvalidValue
+// if the arguments are out of range.
+extern "C" int hv_pyramid(const float* img0, const float* img1, int n_cams, int lanes,
+                          long long lane_stride, int H, int W, int levels, float* out,
+                          void* stream) {
+  return launch_pyramid<false>(img0, img1, n_cams, lanes, lane_stride, H, W, levels, out, nullptr,
+                               0, stream);
 }
 
 // hv_pyramid, and in the same launch the Scharr gradients of levels
-// (grad_base ? 0 : 1)..levels of img0 into grad: per level, Ix then Iy,
-// each row-major.
-extern "C" int hv_pyramid_scharr(const float* img0, const float* img1, int n_images, int H,
-                                 int W, int levels, float* out, float* grad, int grad_base,
-                                 void* stream) {
-  return launch_pyramid<true>(img0, img1, n_images, H, W, levels, out, grad, grad_base, stream);
+// (grad_base ? 0 : 1)..levels of camera 0 of every lane into grad: per lane,
+// per level, Ix then Iy, each row-major.
+extern "C" int hv_pyramid_scharr(const float* img0, const float* img1, int n_cams, int lanes,
+                                 long long lane_stride, int H, int W, int levels, float* out,
+                                 float* grad, int grad_base, void* stream) {
+  return launch_pyramid<true>(img0, img1, n_cams, lanes, lane_stride, H, W, levels, out, grad,
+                              grad_base, stream);
 }
 
-extern "C" int hv_scharr(const float* img, int H, int W, float* ix, float* iy,
-                         void* stream) {
+// The Scharr gradients of `lanes` (H, W) images, lane b's at
+// img + b * lane_stride, into ix and iy (lanes x H x W each).
+extern "C" int hv_scharr(const float* img, int lanes, long long lane_stride, int H, int W,
+                         float* ix, float* iy, void* stream) {
+  if (lanes < 1 || lanes > 65535 || lane_stride < 0 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
-  dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  scharr_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, H, W, ix, iy);
+  dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, lanes);
+  scharr_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, lane_stride, H, W, ix, iy);
   return (int)cudaGetLastError();
 }

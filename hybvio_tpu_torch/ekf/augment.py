@@ -6,8 +6,12 @@ index, so one program serves every lane; A P A^T is a double gather + mask.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..runtime import constant
 from .state import CAM, ORI, POS, POSE_DIM, EKFState
 from .update import normalize_quaternions, pdot, solve_innovation
 
@@ -17,6 +21,19 @@ def _gather_sym(P, src):
     d = P.shape[-1]
     rows = torch.gather(P, 1, src[:, :, None].expand(-1, -1, d))
     return torch.gather(rows, 2, src[:, None, :].expand(-1, d, -1))
+
+
+@functools.lru_cache(maxsize=None)
+def _head_h(d: int) -> tuple:
+    """The (POSE_DIM, d) measurement "trail head == current pose"."""
+    H = np.zeros((POSE_DIM, d))
+    for i in range(3):
+        H[i, POS + i] = 1.0
+        H[i, CAM + i] = -1.0
+    for i in range(4):
+        H[3 + i, ORI + i] = 1.0
+        H[3 + i, CAM + 3 + i] = -1.0
+    return tuple(map(tuple, H.tolist()))
 
 
 def augment_pose(s: EKFState, dropped_pose_index, po) -> EKFState:
@@ -37,18 +54,12 @@ def augment_pose(s: EKFState, dropped_pose_index, po) -> EKFState:
     m = torch.gather(s.m, 1, src) * keepf
     P = _gather_sym(s.P, src) * (keepf[:, :, None] * keepf[:, None, :])
 
-    H = torch.zeros((POSE_DIM, d), dtype=dtype, device=dev)
-    for i in range(3):
-        H[i, POS + i] = 1.0
-        H[i, CAM + i] = -1.0
-    for i in range(4):
-        H[3 + i, ORI + i] = 1.0
-        H[3 + i, CAM + 3 + i] = -1.0
+    H = constant(_head_h(d), dtype, dev)
     r = po.augmentR * noise_scale
-    qdiag = torch.zeros(d, dtype=dtype, device=dev)
+    qdiag = np.zeros(d)
     qdiag[CAM:CAM + 3] = po.noiseInitialPosTrail**2 * noise_scale
     qdiag[CAM + 3:CAM + POSE_DIM] = po.noiseInitialOriTrail**2 * noise_scale
-    P = P + torch.diag(qdiag)
+    P = P + torch.diag(constant(tuple(qdiag.tolist()), dtype, dev))
 
     R = r * torch.eye(POSE_DIM, dtype=dtype, device=dev)
     HP = pdot(H, P)

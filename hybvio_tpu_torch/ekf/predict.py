@@ -13,9 +13,10 @@ import torch
 
 from ..geometry.quaternion import gyro_update_matrix, quat_to_rmat
 from ..lanes import lane_where
+from ..runtime import constant
 from .state import (
     BAA, BAT, BGA, INER_DIM, ORI, POS, Q_ACC, Q_BAA_DRIFT, Q_BGA_DRIFT, Q_DIM,
-    Q_GYRO, VEL, EKFState, process_noise_q,
+    Q_GYRO, VEL, EKFState, process_noise_values,
 )
 from .update import pdot
 
@@ -39,7 +40,7 @@ def predict_mean_and_jacobians(po, m, dt, xg, xa):
     B = m.shape[0]
     dtype, dev = m.dtype, m.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    gravity = torch.tensor([0.0, 0.0, -po.gravity], dtype=dtype, device=dev)
+    gravity = constant((0.0, 0.0, -po.gravity), dtype, dev)
     dtc = dt[:, None]
 
     A = gyro_update_matrix(xg - m[:, BGA:BGA + 3], dt)
@@ -93,7 +94,7 @@ def predict_mean_and_jacobians(po, m, dt, xg, xa):
 def process_noise_diag(po, dt, dtype, device):
     """(B, Q_DIM) process-noise diagonal with the dt-dependent OU terms."""
     noise_scale = po.noiseScale * po.noiseScale
-    q = process_noise_q(po, dtype, device).repeat(dt.shape[0], 1)
+    q = constant(process_noise_values(po), dtype, device).repeat(dt.shape[0], 1)
     if po.noiseProcessBAA > 0.0:
         qb = noise_scale * po.noiseProcessBAA**2 * torch.ones_like(dt)
         if po.noiseProcessBAARev > 0.0:

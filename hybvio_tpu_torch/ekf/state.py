@@ -89,13 +89,18 @@ def init_state(po, batch: int, dtype=torch.float64, device=None) -> EKFState:
     )
 
 
-def process_noise_q(po, dtype=torch.float64, device=None) -> torch.Tensor:
-    """Constant acc & gyro part of the process-noise diagonal (Q_DIM,), on
-    the card unless ``device`` says otherwise."""
-    if device is None:
-        device = default_device()
+def process_noise_values(po) -> tuple:
+    """Constant acc & gyro part of the process-noise diagonal, Q_DIM floats."""
     noise_scale = po.noiseScale * po.noiseScale
     q = np.zeros(Q_DIM)
     q[Q_ACC:Q_ACC + 3] = po.noiseProcessAcc**2
     q[Q_GYRO:Q_GYRO + 3] = po.noiseProcessGyro**2
-    return torch.as_tensor(q * noise_scale, dtype=dtype, device=device)
+    return tuple((q * noise_scale).tolist())
+
+
+def process_noise_q(po, dtype=torch.float64, device=None) -> torch.Tensor:
+    """``process_noise_values`` as a (Q_DIM,) tensor, on the card unless
+    ``device`` says otherwise."""
+    if device is None:
+        device = default_device()
+    return torch.as_tensor(process_noise_values(po), dtype=dtype, device=device)

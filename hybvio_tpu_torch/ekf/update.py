@@ -14,12 +14,16 @@ from typing import NamedTuple
 import torch
 
 from ..lanes import lane_where, tuple_where
+from ..runtime import constant
 from .chi2 import CHI2INV95
 from .state import CAM, ORI, POSE_DIM, VEL, EKFState
 
+_CHI2INV95 = tuple(CHI2INV95.tolist())
+
 
 def pdot(a, b):
-    """Full-precision product (TF32 is off, see runtime.configure_precision)."""
+    """Full-precision product (the step runs under runtime.full_precision:
+    "highest", TF32 off)."""
     return torch.matmul(a, b)
 
 
@@ -145,7 +149,7 @@ def _gate(P, H, v, n_valid, noise_scale, chi_outlier_r, rmse_threshold):
     Sv = solve_innovation(HPHt + r_gate * eye, v[..., None])[..., 0]
     Sv = torch.where(torch.isfinite(Sv), Sv, torch.full_like(Sv, float("inf")))
     chi2 = noise_scale * torch.sum(Sv * v, dim=-1)
-    table = torch.as_tensor(CHI2INV95, dtype=P.dtype, device=P.device)
+    table = constant(_CHI2INV95, P.dtype, P.device)
     thresh = table[torch.clamp(n_valid, max=len(CHI2INV95) - 1)]
     chi2_ok = (chi2 <= thresh if chi_outlier_r >= 0
                else torch.ones_like(n_valid, dtype=torch.bool))

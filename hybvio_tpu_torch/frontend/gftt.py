@@ -1,10 +1,11 @@
 """GFTT (Shi-Tomasi) corner detection and subpixel refinement (port of the
 reference's ``frontend/gftt.py``).
 
-The frame is shared by every lane, so the response map, the block maxima
-and the top candidates are computed once per step; the per-lane parts are
-the rejection near each lane's live tracks and the greedy min-distance walk
-(the greedy kernel, one block per lane).
+A frame shared by every lane, (H, W), has its response map, block maxima
+and top candidates computed once per step; per-lane frames, (B, H, W), have
+them computed per lane. Per lane in both cases are the rejection near each
+lane's live tracks and the greedy min-distance walk (the greedy kernel, one
+block per lane).
 """
 from __future__ import annotations
 
@@ -16,33 +17,37 @@ from .lk import gather_window_patches, window_shift_sample
 
 
 def block_max_candidates(response, cell: int):
-    """Max response and its (x, y) per cell: (scores (NC,), xy (NC, 2))."""
-    H, W = response.shape
+    """Max response and its (x, y) per cell of (..., H, W) responses:
+    (scores (..., NC), xy (..., NC, 2))."""
+    lead = response.shape[:-2]
+    H, W = response.shape[-2:]
     Hc, Wc = H // cell, W // cell
-    r = response[:Hc * cell, :Wc * cell].reshape(Hc, cell, Wc, cell)
-    r = r.permute(0, 2, 1, 3).reshape(Hc, Wc, cell * cell)
+    r = response[..., :Hc * cell, :Wc * cell].reshape(lead + (Hc, cell, Wc, cell))
+    r = r.transpose(-3, -2).reshape(lead + (Hc, Wc, cell * cell))
     scores = torch.amax(r, dim=-1)
     idx = torch.argmax(r, dim=-1)
     ys = torch.arange(Hc, device=r.device)[:, None] * cell + idx // cell
     xs = torch.arange(Wc, device=r.device)[None, :] * cell + idx % cell
-    return scores.reshape(-1), torch.stack([xs, ys], dim=-1).reshape(-1, 2)
+    return scores.reshape(lead + (-1,)), torch.stack([xs, ys], dim=-1).reshape(lead + (-1, 2))
 
 
 def detect_corners(img, n_out: int, existing_xy, existing_valid, mask_radius,
                    min_distance: float, block_size: int = 3, min_response: float = 1e-3,
                    n_candidates: int = 256, margin: int = 5, crop_fraction: float = 1.0,
                    quality_level: float = 0.0):
-    """Up to ``n_out`` new corners per lane in the shared (H, W) ``img``.
+    """Up to ``n_out`` new corners per lane in ``img``: one (H, W) frame
+    shared by the lanes, or one (B, H, W) frame per lane.
 
     existing_xy (B, T, 2) / existing_valid (B, T): live tracks; candidates
     within ``mask_radius`` (B,) of one, or within ``min_distance`` of a
     stronger taken candidate, are rejected. Returns (xy (B, n_out, 2),
     score (B, n_out), valid (B, n_out))."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    B = existing_xy.shape[0]
     resp = corner_response(img, block_size)
     cell = max(int(min_distance) // 2, 2)
-    scores, xy = block_max_candidates(resp, cell)
-    x, y = xy[:, 0], xy[:, 1]
+    scores, xy = block_max_candidates(resp, cell)  # (NC,) or (B, NC)
+    x, y = xy[..., 0], xy[..., 1]
     ok = (x >= margin) & (x < W - margin) & (y >= margin) & (y < H - margin)
     if crop_fraction < 1.0:
         xd = W * (1 - crop_fraction) / 2
@@ -50,41 +55,44 @@ def detect_corners(img, n_out: int, existing_xy, existing_valid, mask_radius,
         ok = ok & (x >= xd) & (x < W - xd) & (y >= yd) & (y < H - yd)
     ok = ok & (scores > min_response)
     if quality_level > 0.0:
-        ok = ok & (scores > quality_level * torch.amax(scores))
+        ok = ok & (scores > quality_level * torch.amax(scores, dim=-1, keepdim=True))
     scores = torch.where(ok, scores, torch.full_like(scores, float("-inf")))
 
     # lax.top_k order: descending, equal scores in index order
-    k = min(max(n_candidates, n_out), scores.shape[0])
-    top_scores, top_idx = torch.sort(scores, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:k], top_idx[:k]
-    top_xy = xy[top_idx].to(img.dtype)
+    k = min(max(n_candidates, n_out), scores.shape[-1])
+    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[..., :k], top_idx[..., :k]
+    top_xy = torch.gather(xy, -2, top_idx[..., None].expand(top_idx.shape + (2,))).to(img.dtype)
 
-    B = existing_xy.shape[0]
-    d2_exist = torch.sum((top_xy[None, :, None, :] - existing_xy[:, None, :, :]) ** 2, dim=-1)
+    d2 = torch.sum((top_xy[..., :, None, :] - top_xy[..., None, :, :]) ** 2, dim=-1)
+    if img.dim() == 2:  # one frame: the lanes read its candidates through stride-0 views
+        top_scores, top_xy, d2 = (top_scores.expand(B, k), top_xy.expand(B, k, 2),
+                                  d2.expand(B, k, k))
+    d2_exist = torch.sum((top_xy[:, :, None, :] - existing_xy[:, None, :, :]) ** 2, dim=-1)
     rad2 = (mask_radius * mask_radius)[:, None, None]
     near_exist = torch.any((d2_exist < rad2) & existing_valid[:, None, :], dim=2)
-    cand_ok = torch.isfinite(top_scores)[None, :] & ~near_exist
+    cand_ok = torch.isfinite(top_scores) & ~near_exist
 
-    d2 = torch.sum((top_xy[:, None, :] - top_xy[None, :, :]) ** 2, dim=-1)
-    taken = greedy_min_distance(d2.expand(B, k, k), cand_ok.contiguous(),
-                                min_distance * min_distance)
+    taken = greedy_min_distance(d2, cand_ok.contiguous(), min_distance * min_distance)
     order = torch.argsort((~taken).to(torch.uint8), dim=1, stable=True)[:, :n_out]
-    return (top_xy[order], top_scores[order], torch.gather(taken, 1, order))
+    return (torch.gather(top_xy, 1, order[..., None].expand(B, n_out, 2)),
+            torch.gather(top_scores, 1, order), torch.gather(taken, 1, order))
 
 
 def subpixel_refine(img, xy, window: int = 10, iters: int = 5, epsilon: float = 0.0):
     """Corner subpixel refinement (cv::cornerSubPix-style centroid
-    iteration) of ``xy`` (B, N, 2) in the shared (H, W) ``img``. With
-    ``epsilon > 0`` a lane stops once no corner of it moved by epsilon."""
-    H, W = img.shape
+    iteration) of ``xy`` (B, N, 2) in ``img``, one (H, W) frame shared by
+    the lanes or one (B, H, W) frame per lane. With ``epsilon > 0`` a lane
+    stops once no corner of it moved by epsilon."""
+    H, W = img.shape[-2:]
     r = window
     w = 2 * r + 1
     B, N = xy.shape[:2]
     dtype = img.dtype
-    gx_img = torch.zeros_like(img)
-    gx_img[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
-    gy_img = torch.zeros_like(img)
-    gy_img[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    gx_img = torch.zeros(img.shape, dtype=dtype, device=img.device)
+    gx_img[..., :, 1:-1] = (img[..., :, 2:] - img[..., :, :-2]) * 0.5
+    gy_img = torch.zeros(img.shape, dtype=dtype, device=img.device)
+    gy_img[..., 1:-1, :] = (img[..., 2:, :] - img[..., :-2, :]) * 0.5
     ps = 2 * w + 3
     (gxp, gyp), c = gather_window_patches((gx_img.expand(B, H, W), gy_img.expand(B, H, W)),
                                           xy, ps)

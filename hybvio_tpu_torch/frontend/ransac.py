@@ -14,6 +14,7 @@ import torch
 from .. import random as jr
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.quaternion import quat_to_rmat
+from ..runtime import constant
 from .five_point import five_point_essential
 
 ROT_RANSAC_MAX_ITERS = 100
@@ -71,7 +72,7 @@ def rotation_from_cross_cov(S, n_newton_iters: int = 20):
 
     qB, nB = best_column(B)
     qC, nC = best_column(C)
-    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    unit = constant((1.0, 0.0, 0.0, 0.0), dtype, dev)
     q = torch.where(nB > 1e-6, qB / torch.clamp(nB, min=1e-30),
                     torch.where(nC > 1e-6, qC / torch.clamp(nC, min=1e-30), unit))
     return quat_to_rmat(q)
@@ -144,6 +145,47 @@ def ransac2(cam1, cam2, pts1, pts2, valid, rng_key, threshold_px,
     return Ransac2Result(R=R_final, inliers=inl, inlier_count=cnt.to(torch.int32), score=score)
 
 
+JACOBI_SWEEPS = 5  # one-sided Jacobi sweeps of a 3x3: float64 converges in 4
+
+
+def essential_projection(E, sweeps: int = JACOBI_SWEEPS):
+    """U diag(1, 1, 0) V^T of the SVD E = U diag(s) V^T, for (..., 3, 3):
+    the nearest essential matrix. A fixed number of one-sided (Hestenes)
+    Jacobi sweeps over the column pairs of A = E V makes them orthogonal
+    (then a_i = s_i u_i); the projection is the sum of a_i v_i^T / s_i over
+    the two largest s_i. Plain tensor ops with no checked factorization,
+    so no host sync; the result does not depend on the signs of the paired
+    singular vectors."""
+    A = E
+    V = torch.eye(3, dtype=E.dtype, device=E.device).expand(E.shape).clone()
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            ap, aq = A[..., :, p], A[..., :, q]
+            alpha = torch.sum(ap * ap, dim=-1)
+            beta = torch.sum(aq * aq, dim=-1)
+            gamma = torch.sum(ap * aq, dim=-1)
+            rotate = gamma != 0.0
+            zeta = (beta - alpha) / (2.0 * torch.where(rotate, gamma, torch.ones_like(gamma)))
+            t = torch.where(zeta >= 0.0, 1.0, -1.0) / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(rotate, t, torch.zeros_like(t))
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            sn = c * t
+
+            def turn(M):
+                mp, mq = M[..., :, p], M[..., :, q]
+                cols = [M[..., :, k] for k in range(3)]
+                cols[p] = c[..., None] * mp - sn[..., None] * mq
+                cols[q] = sn[..., None] * mp + c[..., None] * mq
+                return torch.stack(cols, dim=-1)
+
+            A, V = turn(A), turn(V)
+    s = torch.linalg.norm(A, dim=-2)  # (..., 3)
+    keep = torch.arange(3, device=E.device) != torch.argmin(s, dim=-1, keepdim=True)
+    inv = torch.where(keep & (s > 0.0), 1.0 / torch.where(s > 0.0, s, torch.ones_like(s)),
+                      torch.zeros_like(s))
+    return (A * inv[..., None, :]) @ V.transpose(-1, -2)
+
+
 class Ransac5Result(NamedTuple):
     E: torch.Tensor  # (B, 3, 3)
     inliers: torch.Tensor  # (B, T)
@@ -186,8 +228,7 @@ def ransac5(norm1, norm2, valid, rng_key, threshold, max_iters: int = 256,
     counts = torch.where(val, torch.sum(sampson_inliers(Es), dim=-1), -1)
     best = torch.argmax(counts, dim=1)
     # project the winner onto the essential manifold and re-score
-    U, _, Vt = torch.linalg.svd(Es[torch.arange(Bn, device=dev), best])
-    E_best = U[..., :2] @ Vt[..., :2, :]  # U diag(1, 1, 0) V^T
+    E_best = essential_projection(Es[torch.arange(Bn, device=dev), best])
     ok = n_tracked >= 5
     inl = sampson_inliers(E_best) & ok[:, None]
     return Ransac5Result(E=E_best, inliers=inl,

@@ -8,6 +8,7 @@ import torch
 
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.poses import transform_vec3
+from ..runtime import constant
 
 CURVE_POINTS = 8
 
@@ -40,6 +41,6 @@ def within_curve_distance(point, curve, curve_valid, d2):
 def epipolar_check(cam0, cam1, pts0, pts1, valid, cam0_to_cam1, max_dist_px):
     """(...,) bool: right points consistent with the left points' curves."""
     curves, curve_valid = epipolar_curves(cam0, cam1, pts0, cam0_to_cam1)
-    dist = torch.tensor(max_dist_px, dtype=pts0.dtype, device=pts0.device)
+    dist = constant(max_dist_px, pts0.dtype, pts0.device)
     ok = within_curve_distance(pts1, curves, curve_valid, dist * dist)
     return valid & ok

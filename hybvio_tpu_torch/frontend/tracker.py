@@ -2,8 +2,10 @@
 ``frontend/tracker.py``: the stereo path with RANSAC3 and the mono path with
 the hybrid RANSAC2/RANSAC5), batch-first.
 
-Per frame: the pyramid of the shared frame (of the left and right frames in
-stereo; once per step), LK of every lane's tracks prev -> cur with
+Per frame: the pyramid of the frame (of the left and right frames in
+stereo; once per step for a frame shared by every lane, (H, W), or per lane
+for per-lane frames, (B, H, W), in the same one launch), LK of every lane's
+tracks prev -> cur with
 odometry-predicted guesses, in stereo left -> right LK with the epipolar
 check, RANSAC2 (stationarity score) and RANSAC3 in stereo or the hybrid
 RANSAC2/RANSAC5 selection in mono, keyframe / stationarity decision,
@@ -22,6 +24,7 @@ from torch import nn
 from .. import random as jr
 from ..geometry.cameras import normalize_pixel
 from ..odometry.triangulation import triangulate_stereo_idp
+from ..runtime import constant
 from .gftt import detect_corners, subpixel_refine
 from .lk import FLOW_OK, FLOW_OUT_OF_RANGE, LKParams, lk_track_pyramid
 from .pyramid import build_pyramids_with_gradients
@@ -42,7 +45,7 @@ ST_BLACKLISTED = 8
 class TrackerState(NamedTuple):
     track_ids: torch.Tensor  # (B, T) int32, -1 = free slot
     px: torch.Tensor  # (B, T, C, 2)
-    prev_pyr: Tuple[torch.Tensor, ...]  # (B, H_l, W_l); batch stride 0 when shared
+    prev_pyr: Tuple[torch.Tensor, ...]  # (B, H_l, W_l); lane stride 0 when shared
     prev_ix: Tuple[torch.Tensor, ...]
     prev_iy: Tuple[torch.Tensor, ...]
     mask_scale: torch.Tensor  # (B,)
@@ -65,7 +68,8 @@ class TrackerOutput(NamedTuple):
 
 
 def _lanes(levels, B):
-    """Shared (H, W) levels as (B, H, W) views with batch stride 0."""
+    """Levels as (B, H, W): shared (H, W) ones as views with lane stride 0,
+    per-lane ones as they are."""
     return [lv.expand((B,) + lv.shape[-2:]) if lv.dim() == 2 else lv for lv in levels]
 
 
@@ -76,8 +80,8 @@ def _scatter(a, idx, v):
 
 
 class Tracker(nn.Module):
-    """Stereo or mono tracker for static parameters; images are f32 (H, W)
-    in [0, 1] shared by the B lanes."""
+    """Stereo or mono tracker for static parameters; images are f32 in
+    [0, 1], (H, W) shared by the B lanes or (B, H, W) one per lane."""
 
     def __init__(self, params, cameras, derived, max_tracks=None, int_bits: int = 32):
         super().__init__()
@@ -120,7 +124,7 @@ class Tracker(nn.Module):
         self.min_distance = max(pt.gfttMinDistance * su, 2.0)
 
     def mask_radius(self, mask_scale):
-        r = torch.pow(torch.tensor(1.3, dtype=mask_scale.dtype, device=mask_scale.device),
+        r = torch.pow(constant(1.3, mask_scale.dtype, mask_scale.device),
                       mask_scale) * self.min_dim * self.pt.relativeMaskRadius
         return torch.clamp(torch.round(r), min=2.0)
 
@@ -154,15 +158,17 @@ class Tracker(nn.Module):
         return pts_right, ok
 
     def pyramids(self, image, second_image):
-        """The shared frame's pyramid (and the right frame's in stereo) and
-        the frame's gradients, in one kernel launch."""
+        """The frame's pyramid (and the right frame's in stereo) and the
+        frame's gradients, in one kernel launch, of a shared (H, W) frame or
+        of every lane's (B, H, W) one."""
         images = (image, second_image) if self.stereo else (image,)
         pyrs, grads = build_pyramids_with_gradients(
             tuple(im.to(torch.float32) for im in images), self.lk.max_level)
         return pyrs[0], pyrs[1] if self.stereo else None, grads
 
     def init_state(self, first_image, t0, second_image=None) -> TrackerState:
-        """Detect in the first (shared) frame; t0 (B,)."""
+        """Detect in the first frame (shared (H, W) or per lane (B, H, W));
+        t0 (B,)."""
         B, T = t0.shape[0], self.T
         dev = first_image.device
         img = first_image.to(torch.float32)
@@ -189,9 +195,9 @@ class Tracker(nn.Module):
 
     def track_frame(self, ts: TrackerState, image, rng_key, t, flow_guess,
                     blacklist_flags, blacklist_ids, second_image=None, stereo_guess=None):
-        """One new shared frame (stereo: pair) for every lane: (state,
-        TrackerOutput). rng_key (B, 2); t (B,); flow_guess / stereo_guess
-        (B, T, 2)."""
+        """One new frame (stereo: pair), shared (H, W) or per lane
+        (B, H, W): (state, TrackerOutput). rng_key (B, 2); t (B,);
+        flow_guess / stereo_guess (B, T, 2)."""
         pt, lk, T = self.pt, self.lk, self.T
         B = ts.track_ids.shape[0]
         dev = ts.px.device

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime import constant
+
 
 def quat_to_rmat(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix of a (possibly unnormalized) quaternion; quadratic in
@@ -29,8 +31,8 @@ def quat_from_two_vectors(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     w = torch.sqrt(torch.clamp((1.0 + c) / 2.0, min=0.0))
     xyz = axis / torch.sqrt(torch.clamp(2.0 * (1.0 + c), min=1e-30))[..., None]
     q = torch.cat([w[..., None], xyz], dim=-1)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=u.dtype, device=u.device).expand_as(un)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=u.dtype, device=u.device).expand_as(un)
+    ex = constant((1.0, 0.0, 0.0), u.dtype, u.device).expand_as(un)
+    ey = constant((0.0, 1.0, 0.0), u.dtype, u.device).expand_as(un)
     ortho = torch.where(torch.abs(un[..., 0:1]) < 0.9,
                         torch.linalg.cross(un, ex), torch.linalg.cross(un, ey))
     ortho = ortho / torch.linalg.norm(ortho, dim=-1, keepdim=True)

@@ -2,6 +2,8 @@
 ``models.synthetic_bench_params`` and ``_finalize``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from ..config import DerivedParameters, Parameters
@@ -20,23 +22,28 @@ def _finalize(p: Parameters, width: int, height: int):
     return p, DerivedParameters.from_parameters(p), tuple(cams)
 
 
-def synthetic_bench_params(config: str = "stereo") -> Parameters:
+def synthetic_bench_params(config: str = "stereo", lk_levels: Optional[int] = None,
+                           lk_iters: Optional[int] = None,
+                           rcond: Optional[float] = None) -> Parameters:
     """The benchmark preset for the synthetic EuRoC-like world: "stereo"
     and "mono" at 752x480 (BASELINE configs 2 and 1), "fisheye" (KB4,
-    512x512, BASELINE config 4). The SLAM preset ("vislam") is not ported."""
+    512x512, BASELINE config 4). The SLAM preset ("vislam") is not ported.
+    ``lk_levels``, ``lk_iters`` and ``rcond``, where given, replace the
+    preset's pyrLKMaxLevel (2), pyrLKMaxIter (8) and
+    triangulationRcondThreshold (1e-5), as the reference's keywords do."""
     if config not in CONFIGS:
         raise NotImplementedError(f"preset {config!r}")
     p = Parameters()
     p.odometry.cameraTrailLength = 12
     p.tracker.maxTracks = 96
     p.tracker.pyrLKWindowSize = 15
-    p.tracker.pyrLKMaxLevel = 2
-    p.tracker.pyrLKMaxIter = 8
+    p.tracker.pyrLKMaxLevel = 2 if lk_levels is None else lk_levels
+    p.tracker.pyrLKMaxIter = 8 if lk_iters is None else lk_iters
     p.tracker.gfttMinDistance = 35.0
     p.odometry.imuToCameraMatrix = tuple(SYNTH_IMU_TO_CAMERA.T.flatten())
     p.odometry.visualR = 0.3
     p.odometry.batchVisualUpdate = True
-    p.odometry.triangulationRcondThreshold = 1e-5
+    p.odometry.triangulationRcondThreshold = 1e-5 if rcond is None else rcond
     p.odometry.maxVisualUpdates = 12
     p.tracker.ransac2Threshold = 8.0
     p.tracker.ransac5Threshold = 4.0

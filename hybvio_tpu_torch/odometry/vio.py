@@ -1,6 +1,6 @@
 """Full VIO step, stereo or mono: image front-end + odometry backend (port
 of the reference's ``odometry/vio.py``), batch-first over B lanes that share
-each frame (stereo: each pair).
+each frame (stereo: each pair) or have one frame each.
 
     step = imu_only -> track_stage (predict_flow, Tracker.track_frame)
            -> backend_stage (Backend.process_frame)
@@ -23,7 +23,7 @@ from ..ekf import ORI, POS
 from ..frontend.tracker import Tracker, TrackerState
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.poses import to_camera_to_world, to_world_to_camera, transform_vec3
-from ..runtime import IMAGE_DTYPE, random_int_bits
+from ..runtime import IMAGE_DTYPE, constant, random_int_bits, scoped_precision
 from . import trail as tr
 from .backend import Backend, BackendState, ImuBatch, TrackerInput
 from .batched_update import gather_pose_states
@@ -37,10 +37,11 @@ class VioState(NamedTuple):
 
 
 def normalize_input(img):
-    """Integer frames (e.g. uint8) -> [0, 1] float32 on the device."""
+    """Integer frames (e.g. uint8, any shape) -> [0, 1] float32 on the
+    device."""
     if img is None or img.is_floating_point():
         return img
-    return img.to(IMAGE_DTYPE) * torch.tensor(1.0 / 255.0, dtype=IMAGE_DTYPE, device=img.device)
+    return img.to(IMAGE_DTYPE) * constant(1.0 / 255.0, IMAGE_DTYPE, img.device)
 
 
 def _lane_gather(a, idx):
@@ -69,6 +70,7 @@ class Vio(nn.Module):
         self.tracker = Tracker(params, cameras, derived, max_tracks=self.T,
                                int_bits=random_int_bits(dtype))
 
+    @scoped_precision
     def init_state(self, first_image, t0, rng_keys, second_image=None) -> VioState:
         first_image = normalize_input(first_image)
         second_image = normalize_input(second_image)
@@ -78,8 +80,11 @@ class Vio(nn.Module):
             tracker_ready=torch.ones_like(t0, dtype=torch.bool))
 
     def predict_flow(self, bstate: BackendState, tstate: TrackerState):
-        """Per-slot predicted pixels (B, T, 2) in the left and (stereo; else
-        None) the right camera."""
+        """(guess, stereo_guess, has_baseline): per-slot predicted pixels
+        (B, T, 2) in the left and (stereo; else None) the right camera, and
+        (B, T) whether the slot's distance came from the trail's
+        two-view triangulation (trail slots at least 10 apart) instead of
+        the minimum distance."""
         m = bstate.ekf.m
         B = m.shape[0]
         K = self.L + 1
@@ -111,12 +116,12 @@ class Vio(nn.Module):
         pw = transform_vec3(cam_to_world[:, None], ray0 * dist[..., None])
         pix1, ok1 = ray_to_pixel(c0, transform_vec3(world_to_cam[:, None], pw))
         guess = torch.where((ok0 & ok1)[..., None], pix1, prev_px)
-        if not self.pt.useStereo:
-            return guess.to(IMAGE_DTYPE), None
-        world_to_cam2 = to_world_to_camera(pos, ori, self.backend.second_imu_to_camera)
-        pix2, ok2 = ray_to_pixel(self.cameras[1], transform_vec3(world_to_cam2[:, None], pw))
-        guess2 = torch.where((ok0 & ok2)[..., None], pix2, guess)
-        return guess.to(IMAGE_DTYPE), guess2.to(IMAGE_DTYPE)
+        guess2 = None
+        if self.pt.useStereo:
+            world_to_cam2 = to_world_to_camera(pos, ori, self.backend.second_imu_to_camera)
+            pix2, ok2 = ray_to_pixel(self.cameras[1], transform_vec3(world_to_cam2[:, None], pw))
+            guess2 = torch.where((ok0 & ok2)[..., None], pix2, guess).to(IMAGE_DTYPE)
+        return guess.to(IMAGE_DTYPE), guess2, has_baseline
 
     def imu_only(self, state: VioState, imu: ImuBatch) -> VioState:
         return state._replace(backend=self.backend.imu_scan(state.backend, imu))
@@ -125,7 +130,7 @@ class Vio(nn.Module):
         image = normalize_input(image)
         second_image = normalize_input(second_image)
         bstate = state.backend
-        guess, stereo_guess = self.predict_flow(bstate, state.tracker)
+        guess, stereo_guess, _ = self.predict_flow(bstate, state.tracker)
         keys = jr.split(bstate.rng)
         tkey = jr.fold_in(keys[:, 1], self.pt.ransacRngSeed)
         bstate = bstate._replace(rng=keys[:, 0])
@@ -144,9 +149,11 @@ class Vio(nn.Module):
         bstate, out = self.backend.process_frame(state.backend, tin)
         return state._replace(backend=bstate), out
 
+    @scoped_precision
     def step(self, state: VioState, imu: ImuBatch, image, second_image=None):
         """IMU propagation first, so the flow prediction uses the pose at
-        the frame time."""
+        the frame time. Its products run at "highest" with TF32 off,
+        whatever the caller set (restored on return)."""
         state = self.imu_only(state, imu)
         state, tin = self.track_stage(state, imu.t[:, -1], image, second_image)
         return self.backend_stage(state, tin)

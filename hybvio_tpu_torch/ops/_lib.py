@@ -35,11 +35,13 @@ _SIGNATURES = {
     "hv_patch_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P, _P],
-    "hv_pyramid": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
-    "hv_pyramid_scharr": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
-                          _P, ctypes.c_int, _P],
-    "hv_scharr": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
-    "hv_corner_response": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    "hv_pyramid": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, _P, _P],
+    "hv_pyramid_scharr": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P],
+    "hv_scharr": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    "hv_corner_response": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P, _P],
     "hv_greedy_nms": [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, _P, _P],
     "hv_empty": [_P],
@@ -125,6 +127,26 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SHAPE_LAUNCHES.clear()
+
+
+def lane_layout(images):
+    """(lanes, lane stride in elements) of one or more images of one shape,
+    each (H, W) (one lane, stride 0) or (B, H, W) with contiguous rows and
+    one lane stride for all of them; raises on any other layout."""
+    shape = images[0].shape
+    if any(img.shape != shape for img in images) or len(shape) not in (2, 3):
+        raise ValueError(f"expected (H, W) or (B, H, W) images of one shape, got "
+                         f"{[tuple(i.shape) for i in images]}")
+    W = shape[-1]
+    for img in images:
+        if img.stride(-1) != 1 or img.stride(-2) != W:
+            raise ValueError(f"image rows must be contiguous, got strides {img.stride()}")
+    if len(shape) == 2:
+        return 1, 0
+    strides = {img.stride(0) if shape[0] > 1 else 0 for img in images}
+    if len(strides) != 1:
+        raise ValueError(f"the images' lanes must share one stride, got {sorted(strides)}")
+    return shape[0], strides.pop()
 
 
 def require_cuda(*tensors, dtype=None) -> None:

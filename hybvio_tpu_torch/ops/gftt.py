@@ -6,7 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._lib import launch, require_cuda
+from ..runtime import constant
+from ._lib import lane_layout, launch, require_cuda
 from .pyramid import sep_conv2d
 
 _SOBEL_D = np.array([-1.0, 0.0, 1.0])
@@ -15,13 +16,14 @@ MAX_BLOCK = 15  # the kernel's largest box
 
 
 def corner_response_plain(img, block_size: int = 3):
-    """Unnormalized Sobel -> box-mean structure matrix -> min eigenvalue."""
+    """Unnormalized Sobel -> box-mean structure matrix -> min eigenvalue, of
+    (..., H, W) images."""
     ix = sep_conv2d(img, _SOBEL_D, _SOBEL_S)
     iy = sep_conv2d(img, _SOBEL_S, _SOBEL_D)
     box = np.ones(block_size)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the IEEE quotient the kernel computes
-    n = torch.tensor(float(block_size * block_size), dtype=img.dtype, device=img.device)
+    n = constant(float(block_size * block_size), img.dtype, img.device)
     sxx = sep_conv2d(ix * ix, box, box) / n
     syy = sep_conv2d(iy * iy, box, box) / n
     sxy = sep_conv2d(ix * iy, box, box) / n
@@ -34,17 +36,18 @@ def corner_response_plain(img, block_size: int = 3):
 
 
 def corner_response(img, block_size: int = 3):
-    """(H, W) response of an (H, W) image; kernel on CUDA (odd block sizes
-    up to MAX_BLOCK), plain on CPU."""
+    """The (H, W) response of an (H, W) image, or the (B, H, W) responses of
+    B lanes' images (rows contiguous, any lane stride); kernel on CUDA (odd
+    block sizes up to MAX_BLOCK, one launch for every lane), plain on CPU.
+    A launch is counted under (lanes, H, W, block_size)."""
     if img.device.type == "cpu":
         return corner_response_plain(img, block_size)
     require_cuda(img, dtype=torch.float32)
-    if img.dim() != 2 or not img.is_contiguous():
-        raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
+    lanes, stride = lane_layout((img,))
     if not (1 <= block_size <= MAX_BLOCK and block_size % 2 == 1):
         raise ValueError(f"block size {block_size}: the kernel takes odd sizes up to {MAX_BLOCK}")
-    H, W = img.shape
-    out = torch.empty_like(img)
-    launch("corner_response", "hv_corner_response", img.data_ptr(), H, W, block_size,
-           out.data_ptr(), shape=(H, W, block_size))
+    H, W = img.shape[-2:]
+    out = torch.empty(img.shape, dtype=img.dtype, device=img.device)
+    launch("corner_response", "hv_corner_response", img.data_ptr(), lanes, stride, H, W,
+           block_size, out.data_ptr(), shape=(lanes, H, W, block_size))
     return out

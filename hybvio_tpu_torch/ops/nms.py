@@ -24,8 +24,10 @@ MAX_K = 1024  # the kernel keeps one 32-bit taken word per lane of a warp
 
 
 def greedy_min_distance(d2, cand_ok, min_d2: float):
-    """d2: f32 (B, K, K), rows contiguous, batch stride may be 0;
-    cand_ok: bool (B, K), K <= MAX_K. Kernel on CUDA, plain version on CPU."""
+    """d2: f32 (B, K, K), rows contiguous, batch stride may be 0 (one d2
+    shared by the lanes); cand_ok: bool (B, K), K <= MAX_K. Kernel on CUDA,
+    plain version on CPU. A launch is counted under (B, K, "shared" or
+    "per-lane" d2)."""
     if d2.device.type == "cpu" and cand_ok.device.type == "cpu":
         return greedy_min_distance_plain(d2, cand_ok, min_d2)
     require_cuda(d2, dtype=torch.float32)
@@ -38,6 +40,7 @@ def greedy_min_distance(d2, cand_ok, min_d2: float):
     if K > MAX_K:
         raise ValueError(f"{K} candidates: the kernel takes at most {MAX_K}")
     taken = torch.empty((B, K), dtype=torch.bool, device=d2.device)
-    launch("greedy_nms", "hv_greedy_nms", d2.data_ptr(), d2.stride(0) if B > 1 else 0,
-           cand_ok.data_ptr(), B, K, float(min_d2), taken.data_ptr(), shape=(B, K))
+    stride = d2.stride(0) if B > 1 else 0
+    launch("greedy_nms", "hv_greedy_nms", d2.data_ptr(), stride, cand_ok.data_ptr(), B, K,
+           float(min_d2), taken.data_ptr(), shape=(B, K, "per-lane" if stride else "shared"))
     return taken

@@ -29,7 +29,8 @@ def gather_patches(images, y0, x0, ps: int):
     (B, N): one kernel launch on CUDA tensors, the plain version on CPU
     tensors. Image rows must be contiguous; a batch stride may be 0 (one
     image shared by all lanes, e.g. ``img.expand(B, H, W)``). A launch is
-    counted under (images, B, N, ps, H, W)."""
+    counted under (images, B, N, ps, H, W, "shared" when every image is
+    shared by the lanes, else "per-lane")."""
     images = tuple(images)
     if all(t.device.type == "cpu" for t in (*images, y0, x0)):
         return tuple(gather_patches_plain(img, y0, x0, ps) for img in images)
@@ -52,8 +53,8 @@ def gather_patches(images, y0, x0, ps: int):
     N = y0.shape[1]
     out = torch.empty((len(images), B, N, ps, ps), dtype=torch.float32, device=y0.device)
     padded = images + images[-1:] * (MAX_IMAGES - len(images))
-    launch("patch_gather", "hv_patch_gather", *(img.data_ptr() for img in padded),
-           *(img.stride(0) if B > 1 else 0 for img in padded), len(images), H, W,
-           y0.data_ptr(), x0.data_ptr(), B, N, ps, out.data_ptr(),
-           shape=(len(images), B, N, ps, H, W))
+    strides = [img.stride(0) if B > 1 else 0 for img in padded]
+    launch("patch_gather", "hv_patch_gather", *(img.data_ptr() for img in padded), *strides,
+           len(images), H, W, y0.data_ptr(), x0.data_ptr(), B, N, ps, out.data_ptr(),
+           shape=(len(images), B, N, ps, H, W, "per-lane" if any(strides) else "shared"))
     return tuple(out)

@@ -2,23 +2,24 @@
 ``ops/pyramid_pallas.py`` pyr_down_pallas and scharr_pallas) and their
 plain PyTorch versions, composed exactly like the reference's XLA path.
 
-``pyramid_with_gradients`` builds several levels of one or two images and
-the Scharr gradients of every level of the first image in one launch (the
-tracker's path); ``pyr_down_levels`` is the same kernel without the
-gradients, ``pyr_down`` that at one image and one level, and ``scharr`` the
-gradients of one image alone."""
+``pyramid_with_gradients`` builds several levels of one or two images (the
+cameras; one frame shared by every lane, or one per lane) and the Scharr
+gradients of every level of the first image in one launch (the tracker's
+path); ``pyr_down_levels`` is the same kernel without the gradients,
+``pyr_down`` that at one image and one level, and ``scharr`` the gradients
+of one image alone. The plain versions take any leading dimensions."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ._lib import launch, require_cuda
+from ._lib import lane_layout, launch, require_cuda
 
 PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
 SCHARR_D = np.array([-1.0, 0.0, 1.0])
 SCHARR_S = np.array([3.0, 10.0, 3.0]) / 32.0
 LEVELS_PER_LAUNCH = 3  # deeper pyramids chain launches (a deep tile would be tiny)
-MAX_IMAGES = 2  # the left and right frames of a stereo pair
+MAX_IMAGES = 2  # cameras: the left and right frames of a stereo pair
 
 
 def sep_conv2d(img, kx, ky):
@@ -68,26 +69,22 @@ def pyramid_with_gradients_plain(images, levels: int):
     return pyrs, [scharr_plain(img) for img in (images[0], *pyrs[0])]
 
 
-def _check_image(img):
-    require_cuda(img, dtype=torch.float32)
-    if img.dim() != 2 or not img.is_contiguous():
-        raise ValueError(f"expected one contiguous (H, W) image, got {tuple(img.shape)}")
-
-
 def _check_images(images):
+    """(lanes, lane stride) of 1 to MAX_IMAGES images (cameras) of one shape
+    on one CUDA device: each (H, W), or (B, H, W) with contiguous rows and
+    one lane stride."""
     require_cuda(*images, dtype=torch.float32)
-    for img in images:
-        _check_image(img)
-    if not 1 <= len(images) <= MAX_IMAGES or any(i.shape != images[0].shape for i in images):
-        raise ValueError(f"the kernel takes 1 to {MAX_IMAGES} images of one shape, got "
-                         f"{[tuple(i.shape) for i in images]}")
+    if not 1 <= len(images) <= MAX_IMAGES:
+        raise ValueError(f"the kernel takes 1 to {MAX_IMAGES} cameras, got {len(images)}")
+    return lane_layout(images)
 
 
 def pyr_down_levels(images, levels: int):
     """Levels 1..levels (each ((H+1)//2, (W+1)//2) of the one before) of one
-    or two (H, W) images of one shape, a list of ``levels`` tensors per
-    image: on CUDA tensors one kernel launch for up to LEVELS_PER_LAUNCH
-    levels, on CPU tensors the plain version."""
+    or two images of one shape, (H, W) each or (B, H, W) each (one per
+    lane), a list of ``levels`` tensors per image: on CUDA tensors one kernel
+    launch for up to LEVELS_PER_LAUNCH levels of every lane, on CPU tensors
+    the plain version."""
     images = tuple(images)
     if all(img.device.type == "cpu" for img in images):
         return pyr_down_levels_plain(images, levels)
@@ -96,11 +93,13 @@ def pyr_down_levels(images, levels: int):
 
 
 def pyramid_with_gradients(images, levels: int):
-    """(pyramids, gradients): levels 1..levels of one or two (H, W) images
-    of one shape, as pyr_down_levels gives them, and the Scharr (Ix, Iy) of
-    levels 0..levels of ``images[0]``. On CUDA tensors one kernel launch for
-    up to LEVELS_PER_LAUNCH levels (deeper pyramids chain launches; none
-    computes a level's gradients twice), on CPU tensors the plain version."""
+    """(pyramids, gradients): levels 1..levels of one or two images of one
+    shape (the cameras; (H, W) each, or (B, H, W) each with one image per
+    lane), as pyr_down_levels gives them, and the Scharr (Ix, Iy) of levels
+    0..levels of ``images[0]`` (of every lane). On CUDA tensors one kernel
+    launch for up to LEVELS_PER_LAUNCH levels (deeper pyramids chain
+    launches; none computes a level's gradients twice), on CPU tensors the
+    plain version."""
     images = tuple(images)
     if all(img.device.type == "cpu" for img in images):
         return pyramid_with_gradients_plain(images, levels)
@@ -123,32 +122,39 @@ def _chained(images, levels, gradients):
 
 
 def _pyramid(images, levels, gradients, base):
-    """One launch: levels 1..levels of each image and, with ``gradients``,
-    the (Ix, Iy) of levels 1..levels of images[0] (and of level 0 with
-    ``base``)."""
-    H, W = images[0].shape
+    """One launch: levels 1..levels of each image (camera) of every lane
+    and, with ``gradients``, the (Ix, Iy) of levels 1..levels of images[0]
+    (and of level 0 with ``base``). The levels are views of one buffer laid
+    out (lanes, cameras, levels), the gradients of one laid out (lanes,
+    levels, Ix / Iy). A launch is counted under (cameras, lanes, H, W,
+    levels)."""
+    lanes, stride = lane_layout(images)
+    lead = images[0].shape[:-2]  # () for a shared frame, (B,) per lane
+    H, W = images[0].shape[-2:]
     shapes = [(H, W)]
     for _ in range(levels):
         shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
     sizes = [h * w for h, w in shapes[1:]]
     dev = images[0].device
-    out = torch.empty((len(images), sum(sizes)), dtype=torch.float32, device=dev)
-    args = (images[0].data_ptr(), images[-1].data_ptr(), len(images), H, W, levels,
+    out = torch.empty((lanes, len(images), sum(sizes)), dtype=torch.float32, device=dev)
+    args = (images[0].data_ptr(), images[-1].data_ptr(), len(images), lanes, stride, H, W, levels,
             out.data_ptr())
-    key = (len(images), H, W, levels)
+    key = (len(images), lanes, H, W, levels)
     grads = []
     if gradients:
         gshapes = shapes if base else shapes[1:]
         gsizes = [n for h, w in gshapes for n in (h * w, h * w)]
-        gbuf = torch.empty(sum(gsizes), dtype=torch.float32, device=dev)
+        gbuf = torch.empty((lanes, sum(gsizes)), dtype=torch.float32, device=dev)
         launch("pyramid_scharr", "hv_pyramid_scharr", *args, gbuf.data_ptr(), int(base),
                shape=key)
-        flat = gbuf.split(gsizes)
-        grads = [(flat[2 * i].view(s), flat[2 * i + 1].view(s)) for i, s in enumerate(gshapes)]
+        flat = gbuf.split(gsizes, dim=1)
+        grads = [(flat[2 * i].view(lead + s), flat[2 * i + 1].view(lead + s))
+                 for i, s in enumerate(gshapes)]
     else:
         launch("pyr_down", "hv_pyramid", *args, shape=key)
-    pyrs = [[level.view(shape) for level, shape in zip(row.split(sizes), shapes[1:])]
-            for row in out]
+    pyrs = [[level.view(lead + shape) for level, shape in zip(out[:, c].split(sizes, dim=1),
+                                                              shapes[1:])]
+            for c in range(len(images))]
     return pyrs, grads
 
 
@@ -158,13 +164,15 @@ def pyr_down(img):
 
 
 def scharr(img):
-    """(Ix, Iy) Scharr gradients of an (H, W) image."""
+    """(Ix, Iy) Scharr gradients of an (H, W) image, or of each lane of a
+    (B, H, W) one (rows contiguous); a launch is counted under (lanes, H,
+    W)."""
     if img.device.type == "cpu":
         return scharr_plain(img)
-    _check_image(img)
-    H, W = img.shape
-    ix = torch.empty_like(img)
-    iy = torch.empty_like(img)
-    launch("scharr", "hv_scharr", img.data_ptr(), H, W, ix.data_ptr(), iy.data_ptr(),
-           shape=(H, W))
+    lanes, stride = _check_images((img,))
+    H, W = img.shape[-2:]
+    ix = torch.empty(img.shape, dtype=img.dtype, device=img.device)
+    iy = torch.empty(img.shape, dtype=img.dtype, device=img.device)
+    launch("scharr", "hv_scharr", img.data_ptr(), lanes, stride, H, W, ix.data_ptr(),
+           iy.data_ptr(), shape=(lanes, H, W))
     return ix, iy

@@ -107,19 +107,24 @@ def randint(key, shape, minval, maxval, bits: int = 32) -> torch.Tensor:
     """``jax.random.randint`` in [minval, maxval) as int64.
 
     ``bits`` is the sampling width: jax samples int64 when x64 is enabled
-    and int32 otherwise. ``minval``/``maxval`` are scalars or tensors of the
-    key's lane shape ``key.shape[:-1]`` (one bound per lane), spans < 2**31.
+    and int32 otherwise. ``minval``/``maxval`` are Python ints or tensors of
+    the key's lane shape ``key.shape[:-1]`` (one bound per lane, already on
+    the key's device), spans < 2**31.
     """
     shape = tuple(shape)
-    lanes = key.shape[:-1]
-    view = lanes + (1,) * len(shape)
-    minval = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
-    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
-    if minval.dim():
-        minval = minval.reshape(view)
-    if maxval.dim():
-        maxval = maxval.reshape(view)
-    span = torch.where(maxval <= minval, torch.ones_like(maxval), maxval - minval)
+    view = key.shape[:-1] + (1,) * len(shape)
+
+    def bound(v):  # a Python int stays one: making it a tensor would copy it to the device
+        if not isinstance(v, torch.Tensor):
+            return int(v)
+        v = v.to(torch.int64)
+        return v.reshape(view) if v.dim() else v
+
+    minval, maxval = bound(minval), bound(maxval)
+    if isinstance(minval, int) and isinstance(maxval, int):
+        span = maxval - minval if maxval > minval else 1
+    else:
+        span = torch.where(maxval <= minval, 1, maxval - minval)
     k = split(key)
     k1, k2 = k[..., 0, :], k[..., 1, :]
 

@@ -7,10 +7,17 @@
   tracker with ``image_dtype=float32`` even under x64).
 * TF32 stays off: the covariance algebra does not survive reduced-precision
   products (README numerics note), and PyTorch turns TF32 on for cuDNN by
-  default.
+  default. The step scopes this policy (``full_precision``) whatever the
+  caller set, as the reference forces "highest" inside its visual updates.
+* The step makes no host sync: every constant it needs goes to the device
+  once (``constant``), since a copy from the host waits for the card.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
+import numpy as np
 import torch
 
 IMAGE_DTYPE = torch.float32
@@ -18,9 +25,42 @@ IMAGE_DTYPE = torch.float32
 
 def configure_precision() -> None:
     """Full float32 products everywhere (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_precision():
+    """``configure_precision`` inside the block; the caller's matmul
+    precision and cuDNN TF32 flag are restored after it."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    configure_precision()
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def scoped_precision(fn):
+    """``fn`` run under ``full_precision``."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with full_precision():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(values), dtype=dtype).to(device)
+
+
+def constant(values, dtype, device) -> torch.Tensor:
+    """The fixed ``values`` (a number, or nested tuples of numbers) as a
+    tensor of ``dtype`` on ``device``, copied there once per (values,
+    dtype, device) and shared by every later call: never write into it."""
+    return _constant(values, dtype, torch.device(device))
 
 
 def default_device() -> torch.device:

@@ -119,3 +119,54 @@ def test_make_batched_vio_mono_and_fisheye_need_a_card_unless_asked_for_the_cpu(
         make_batched_vio(params, derived, cams, batch_size=2)
     _, _, vio = make_batched_vio(params, derived, cams, batch_size=2, device="cpu")
     assert vio.dtype == torch.float64 and vio.backend.n_cams == 1 and not vio.tracker.stereo
+
+
+@pytest.mark.parametrize("config", ["stereo", "mono", "fisheye"])
+@pytest.mark.parametrize("kw", [{}, {"lk_levels": 3}, {"lk_iters": 20, "rcond": 1e-8},
+                                {"lk_levels": 1, "lk_iters": 4, "rcond": 1e-6}])
+def test_preset_keywords_match_reference(config, kw):
+    """synthetic_bench_params' lk_levels, lk_iters and rcond set what the
+    reference's set, field by field."""
+    from hybvio_tpu.models import synthetic_bench_params as ref_params
+
+    p, r = synthetic_bench_params(config, **kw), ref_params(config, **kw)
+    for group in ("odometry", "tracker", "slam"):
+        assert dataclasses.asdict(getattr(p, group)) == dataclasses.asdict(getattr(r, group)), group
+    if "lk_levels" in kw:
+        assert p.tracker.pyrLKMaxLevel == kw["lk_levels"]
+
+
+KB4 = (0.0035, 0.0007, -0.002, 0.0002)
+
+
+@pytest.mark.parametrize("lens", ["pinhole stereo", "kb4"])
+def test_device_renderer_matches_reference(lens):
+    """The port's on-device blob renderer equals the reference's
+    (io/synthetic_jax.py) on the CPU for two lanes with distinct worlds, to
+    1e-5 abs in float32 (the scatter-add order and the transcendentals'
+    last bits differ), and renders a distinct frame per lane."""
+    import jax
+    import jax.numpy as jnp
+
+    from hybvio_tpu.io.synthetic_jax import make_blob_renderer as ref_renderer
+    from hybvio_tpu_torch.io.synthetic_device import make_blob_renderer
+
+    second = synthetic.SYNTH_IMU_TO_CAMERA.copy()
+    second[0, 3] = -0.11
+    if lens == "kb4":
+        args = ([synthetic.SYNTH_IMU_TO_CAMERA], 36.0, 36.0, 48.0, 48.0, 96, 96)
+        kw = {"fisheye_coeffs": KB4, "max_fov_deg": 150.0}
+    else:
+        args = ([synthetic.SYNTH_IMU_TO_CAMERA, second], 80.0, 80.0, 48.0, 32.0, 96, 64)
+        kw = {}
+    seqs = [synthetic.generate_sequence(duration=0.3, n_landmarks=300, seed=1000 + b,
+                                        radius=r, landmark_radius=5.0 if lens == "kb4" else 6.0)
+            for b, r in ((0, 2.0), (1, 1.8))]
+    k = seqs[0].frame_sample_idx[3]
+    world = [np.stack(a) for a in zip(*[(s.landmarks, s.pos[k], s.quat[k]) for s in seqs])]
+    got = make_blob_renderer(*args, **kw, device="cpu")(*world).numpy()
+    want = np.asarray(jax.vmap(ref_renderer(*args, **kw))(
+        *(jnp.asarray(a, jnp.float32) for a in world)))
+    assert got.shape == want.shape == (2, len(args[0]), args[6], args[5])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert np.abs(got[0] - got[1]).max() > 0.1

@@ -92,9 +92,11 @@ def test_patch_gather_plain_on_path_frames(hw):
 
 
 def test_patch_gather_launch_counted_by_image_size(monkeypatch):
-    """A launch is counted under (images, B, N, ps, H, W): each gather row
-    is charged at the image size it reads. (The launch itself is replaced:
-    meta tensors carry the shapes and strides without a card.)"""
+    """A launch is counted under (images, B, N, ps, H, W, "shared" or
+    "per-lane"): each gather row is charged at the image size it reads, and
+    per-lane images apart from one image shared by the lanes. (The launch
+    itself is replaced: meta tensors carry the shapes and strides without a
+    card.)"""
     from hybvio_tpu_torch.ops import patch_gather
 
     seen = []
@@ -104,8 +106,11 @@ def test_patch_gather_launch_counted_by_image_size(monkeypatch):
     for h, w in ((480, 752), (120, 188), (512, 512), (256, 256)):
         img = torch.empty((h, w), device="meta").expand(16, h, w)
         patch_gather.gather_patches((img, img, img), origins, origins, 18)
-    assert seen == [(3, 16, 96, 18, 480, 752), (3, 16, 96, 18, 120, 188),
-                    (3, 16, 96, 18, 512, 512), (3, 16, 96, 18, 256, 256)]
+    lanes = torch.empty((16, 2, 480, 752), device="meta")[:, 0]  # a renderer's camera 0
+    patch_gather.gather_patches((lanes,), origins, origins, 34)
+    assert seen == [(3, 16, 96, 18, 480, 752, "shared"), (3, 16, 96, 18, 120, 188, "shared"),
+                    (3, 16, 96, 18, 512, 512, "shared"), (3, 16, 96, 18, 256, 256, "shared"),
+                    (1, 16, 96, 34, 480, 752, "per-lane")]
 
 
 @pytest.mark.parametrize("hw", FRAMES)
@@ -556,6 +561,16 @@ def test_cuda_kernels_match_plain():
     for got, im in zip(ops.gather_patches((shared, img.expand(16, 480, 752) * 2), y0, x0, 34),
                        (shared, img.expand(16, 480, 752) * 2)):
         assert torch.equal(got, ops.gather_patches_plain(im, y0, x0, 34))
+    lanes = torch.rand((16, 2, 480, 752), generator=g).to(dev)  # per-lane frames, lane stride 2HW
+    cams = (lanes[:, 0], lanes[:, 1])
+    for n in (1, 2):
+        pyrs, grads = ops.pyramid_with_gradients(cams[:n], 2)
+        want_pyrs, want_grads = ops.pyramid_with_gradients_plain(cams[:n], 2)
+        for pyr, want in zip(pyrs, want_pyrs):
+            assert all(torch.equal(a, b) for a, b in zip(pyr, want))
+        for got, want in zip(grads, want_grads):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(ops.corner_response(cams[0], 3), ops.corner_response_plain(cams[0], 3))
     xy = torch.rand((16, 192, 2), generator=g).to(dev) * 400
     d2 = torch.sum((xy[:, :, None] - xy[:, None]) ** 2, dim=-1).contiguous()
     ok = (torch.rand((16, 192), generator=g) > 0.2).to(dev)

@@ -46,7 +46,8 @@ def test_uint8_frames_initialize_like_reference():
     rstate = rinit(tuple(jnp.asarray(f) for f in pair), np.full(B, 10.0), np.arange(B))
     cam = convert.camera_from_jax(rcam)
     tinit, _, _ = make_batched_vio(p, PortDerived.from_parameters(p), (cam, cam), batch_size=B,
-                                   max_tracks=12, dtype=torch.float64, device="cpu")
+                                   max_tracks=12, dtype=torch.float64, shared_frames=True,
+                                   device="cpu")
     state = tinit(tuple(torch.as_tensor(f) for f in pair), np.full(B, 10.0), np.arange(B))
     assert state.tracker.prev_pyr[0].dtype == torch.float32
     diff = mismatches(convert.to_numpy(state), jax.tree.map(np.asarray, rstate), step_tol, "init")
