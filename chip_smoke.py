@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
   3. the card's launch floor (an empty kernel, timed like the rows below);
      each kernel against its plain PyTorch version on the card at every
-     input shape the four paths of phase 4 give it (exact for gather /
+     input shape the five paths of phase 4 give it (exact for gather /
      greedy / pyramid / fused pyramid and gradients / corner response,
      <= 1e-6 max abs for the standalone Scharr), plus edge cases of the
      gather, the greedy walk, the corner response and the pyramid with and
@@ -28,23 +28,35 @@ Phases (any failure exits non-zero and prints no result line):
      per-lane shapes: the fused pyramid of 16 lanes x 2 cameras, the corner
      response of 16 lanes, the gather of per-lane images at every window
      shape and level, greedy with a per-lane d2;
-  4. four paths through make_batched_vio, each B=16 lanes, float32, over
-     60 synthetic frames (io.synthetic, the benchmark's worlds): the stereo
-     preset at 752x480, the mono preset at 752x480 and the fisheye (KB4)
-     preset at 512x512, each lane sharing each frame (shared_frames=True),
-     and the stereo preset over 16 distinct worlds, one per lane
-     (shared_frames=False; bench.py's seed-diverse worlds, rendered on the
-     card each step by io.synthetic_device outside the timed step). For
-     each: median step time, aggregate frames/s, warm-up step, finite lanes,
-     ATE median and p90 against each lane's ground truth, every kernel's
-     launch count in that run, in total and by input shape, and the host
-     syncs of one step (torch.cuda.set_sync_debug_mode). Fails on a host
-     sync, a Pallas kernel none of whose port kernels was launched, a path
-     that did not launch one of the four kernels every path runs, a
-     non-finite lane or an ATE median over 0.05 m;
-  5. the kernels ranked, per path and over the four, by the time the paths
+  4. five paths through make_batched_vio, each B=16 lanes, a float32
+     filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
+     frames (io.synthetic, the benchmark's worlds; mono and
+     fisheye over 40): the stereo preset at 752x480, the mono preset at
+     752x480 and the fisheye (KB4) preset at 512x512, each lane sharing
+     each frame (shared_frames=True); the stereo preset over 16 distinct
+     worlds, one per lane (shared_frames=False; bench.py's seed-diverse
+     worlds, rendered on the card each step by io.synthetic_device outside
+     the timed step), with the batched visual update (stereo_per_lane) and
+     with the reference's default sequential update and a hybrid map of 16
+     points (stereo_sequential_hybrid). For each: median step time,
+     aggregate frames/s, warm-up step, finite lanes, ATE median and p90
+     against each lane's ground truth, every kernel's launch count in that
+     run, in total and by input shape, and the host syncs of one step
+     (torch.cuda.set_sync_debug_mode); with the map, the slots claimed and
+     the map-point (PF_HYBRID) updates. Fails on a host sync, a Pallas
+     kernel none of whose port kernels was launched, a path that did not
+     launch one of the four kernels every path runs, a non-finite lane, an
+     ATE median over 0.05 m, or a map that claimed no slot or updated no
+     map point;
+  5. the kernels ranked, per path and over the five, by the time the paths
      lose in them: the sum over input shapes of launches x (device time -
-     bound); fails on a shape launched in phase 4 and not timed in phase 3.
+     bound); fails on a shape launched in phase 4 and not timed in phase 3;
+  6. the estimator options, each on top of stereo_sequential_hybrid, 5
+     steps of the per-lane stereo input at B=16: RANDOM and ALL track
+     sampling, linear triangulation, the visual update every 2nd frame, the
+     visual update disabled, the batched update with the map, shared
+     frames; and 20 steps of a float32 filter. Each reports its ATE; fails
+     on a non-finite lane or a host sync in a step.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -59,9 +71,41 @@ import numpy as np
 
 B = 16
 FRAMES = 60
-PATHS = ("stereo", "mono", "fisheye", "stereo_per_lane")
+# mono and fisheye are cut to 40 frames to keep the run near half its time
+# limit with the sequential path (the paths that share their code with
+# stereo_per_lane and stereo_sequential_hybrid keep 60)
+PATH_FRAMES = {"mono": 40, "fisheye": 40}
+PATHS = ("stereo", "mono", "fisheye", "stereo_per_lane", "stereo_sequential_hybrid")
 FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512),
-            "stereo_per_lane": (480, 752)}
+            "stereo_per_lane": (480, 752), "stereo_sequential_hybrid": (480, 752)}
+PER_LANE_PATHS = ("stereo_per_lane", "stereo_sequential_hybrid")
+# the reference's default estimator: the sequential visual update, here with
+# a hybrid map of 16 points (d = 20 + 7 * 12 + 3 * 16 = 152), in a float64
+# filter: a map point enters with variance 1e6, and in float32 its first
+# updates cancel that to a few hundred chaotically: the JAX package's own
+# float32 estimator with a map moves by more than 0.1 m within 20 frames
+# when its accelerometer input moves by 1e-6 m/s^2, its float64 one by
+# less than 1e-6 m (tests/test_torch_sequential.py; PERF.md section 6)
+SEQUENTIAL_HYBRID = {"batchVisualUpdate": False, "hybridMapSize": 16}
+FILTER_DTYPE = {"stereo_sequential_hybrid": "float64"}
+PF_HYBRID = 2  # point_cloud_status of a map-point update
+# the options phase: each on top of stereo_sequential_hybrid, OPTION_STEPS
+# steps of the per-lane stereo input (shared frames: lane 0's frames and
+# IMU for all): (name, odometry parameters, shared frames, filter dtype,
+# steps). The float32 filter runs longer, to show its map drift per lane.
+OPTION_STEPS = 5
+OPTIONS = (("RANDOM sampling", {"trackSampling": "RANDOM"}, False, "float64", OPTION_STEPS),
+           ("ALL sampling", {"trackSampling": "ALL"}, False, "float64", OPTION_STEPS),
+           ("linear triangulation", {"useLinearTriangulation": True}, False, "float64",
+            OPTION_STEPS),
+           ("visual update every 2nd frame", {"visualUpdateForEveryNFrame": 2}, False, "float64",
+            OPTION_STEPS),
+           ("visual update disabled", {"visualUpdateEnabled": False}, False, "float64",
+            OPTION_STEPS),
+           ("batched visual update with the map", {"batchVisualUpdate": True}, False, "float64",
+            OPTION_STEPS),
+           ("shared frames", {}, True, "float64", OPTION_STEPS),
+           ("float32 filter", {}, False, "float32", 20))
 # kernels every path launches (pyr_down and scharr alone are off the paths)
 PATH_KERNELS = ("pyramid_scharr", "patch_gather", "corner_response", "greedy_nms")
 # the gathers the paths launch, per frame size: (images, window, pyramid
@@ -616,7 +660,7 @@ def check_per_lane(dev, g, results, timed, shape_row):
 
 
 def rank(rows, path=None):
-    """The order in which the kernels lose ``path`` (or, with None, the four
+    """The order in which the kernels lose ``path`` (or, with None, all the
     paths together) the most time: first any kernel slower than its library
     call at some shape, then the rest by the sum over the input shapes the
     path gave it of launches x (device time - bound); a kernel at >= 50% of
@@ -643,7 +687,8 @@ def rank(rows, path=None):
 
 def path_inputs(config, dev):
     """(params, derived, cameras, sequence, frames on the card, IMU batches)
-    of a preset over FRAMES frames of its synthetic world: the stereo and
+    of a preset over its PATH_FRAMES (else FRAMES) frames of its synthetic
+    world: the stereo and
     mono presets on render_view at 752x480 (landmarks 6 m out), the fisheye
     preset on render_view_fisheye at 512x512 with its KB4 lens and field of
     view (landmarks 5 m out, as bench.py's fisheye world)."""
@@ -659,7 +704,8 @@ def path_inputs(config, dev):
     H, W = FRAME_HW[config]
     params, derived, cams = _finalize(synthetic_bench_params(config), W, H)
     pt = params.tracker
-    seq = generate_sequence(duration=FRAMES / 20.0, imu_rate=200.0, frame_rate=20.0,
+    seq = generate_sequence(duration=PATH_FRAMES.get(config, FRAMES) / 20.0, imu_rate=200.0,
+                            frame_rate=20.0,
                             n_landmarks=500, landmark_radius=5.0 if config == "fisheye" else 6.0,
                             gyro_noise=5e-4, acc_noise=5e-3, seed=0)
     F = len(seq.frame_times)
@@ -703,14 +749,15 @@ def path_inputs(config, dev):
     return params, derived, cams, seq, frames, batches
 
 
-def per_lane_inputs(dev):
-    """(params, derived, cameras, ground truth (B, F - 1, 3), frame(fi) ->
-    (left, right) (B, H, W) views of frames rendered on the card, IMU
-    batches) of the stereo preset over B distinct worlds, built as
+def per_lane_inputs(dev, dtype=None):
+    """(params, derived, cameras, start time, ground truth (B, F - 1, 3),
+    frame(fi) -> (left, right) (B, H, W) views of frames rendered on the
+    card, IMU batches) of the stereo preset over B distinct worlds, built as
     bench.py's seed-diverse leg builds them: lane b's sequence has seed
     1000 + b and its radius, angular speed and z-wobble drawn from
     RandomState(7000 + b); 500 landmarks 6 m out, the IMU noise of
-    path_inputs, no per-lane jitter beyond each lane's own noise."""
+    path_inputs, no per-lane jitter beyond each lane's own noise. The IMU
+    batches are of ``dtype`` (default: the port's filter dtype on ``dev``)."""
     import torch
 
     from hybvio_tpu_torch import runtime
@@ -750,7 +797,8 @@ def per_lane_inputs(dev):
 
     S = int(np.max(np.diff(np.concatenate([[0], idx + 1]))))
     batches, prev = [], idx[0] + 1
-    fl = lambda x: torch.as_tensor(x, dtype=runtime.filter_dtype(dev), device=dev)
+    dtype = runtime.filter_dtype(dev) if dtype is None else dtype
+    fl = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     for fi in range(1, len(idx)):
         k = idx[fi] + 1
         n, pad = k - prev, S - (k - prev)
@@ -799,9 +847,13 @@ def run_path(dev, config):
     from hybvio_tpu_torch.parallel.batched import make_batched_vio
 
     H, W = FRAME_HW[config]
-    if config == "stereo_per_lane":
+    dtype = getattr(torch, FILTER_DTYPE[config]) if config in FILTER_DTYPE else None
+    if config in PER_LANE_PATHS:
         t0 = time.perf_counter()
-        params, derived, cams, start, gt, frame, batches = per_lane_inputs(dev)
+        params, derived, cams, start, gt, frame, batches = per_lane_inputs(dev, dtype)
+        if config == "stereo_sequential_hybrid":
+            for k, v in SEQUENTIAL_HYBRID.items():
+                setattr(params.odometry, k, v)
         F = len(batches) + 1
         first = frame(0)
         if not (first[0][0] - first[0][1]).abs().max() > 0:
@@ -818,10 +870,10 @@ def run_path(dev, config):
         gt = np.stack([seq.pos[seq.frame_sample_idx[1:F]] - seq.pos[0]] * B)
         shared = True
     binit, bstep, _ = make_batched_vio(params, derived, cams, batch_size=B,
-                                       shared_frames=shared, device=dev)
+                                       shared_frames=shared, device=dev, dtype=dtype)
     ops.reset_launch_counts()
     states = binit(first, np.full(B, start), np.arange(B))
-    positions, step_ms = [], []
+    positions, step_ms, hybrid_points = [], [], []
     for fi in range(1, F):
         images = frame(fi)  # per lane: rendered here, outside the timed step
         torch.cuda.synchronize()
@@ -833,8 +885,11 @@ def run_path(dev, config):
         torch.cuda.synchronize()
         step_ms.append(1000.0 * (time.perf_counter() - ts))
         positions.append(out.position)
+        hybrid_points.append(torch.sum(out.point_cloud_status == PF_HYBRID))
     launches = dict(ops.LAUNCHES)
     by_shape = dict(ops.SHAPE_LAUNCHES)
+    claimed = int(torch.sum(states.backend.trail.map_point_ids >= 0))
+    hybrid = int(torch.stack(hybrid_points).sum())
 
     est = torch.stack(positions).cpu().numpy()  # (F-1, B, 3)
     if est.shape != (F - 1, B, 3):
@@ -846,20 +901,30 @@ def run_path(dev, config):
     fps = B * len(timed) / (sum(timed) / 1000.0)
     ate_med = float(np.median(ates)) if ates else float("nan")
     ate_p90 = float(np.percentile(ates, 90)) if ates else float("nan")
-    say(f"{config}: B={B} {W}x{H} f32, {F - 1} steps (median and frames/s over the last "
-        f"{len(timed)}): median step {med:.2f} ms, aggregate {fps:.1f} frames/s, "
-        f"warm-up step {step_ms[0]:.1f} ms")
+    say(f"{config}: B={B} {W}x{H}, {FILTER_DTYPE.get(config, 'float32')} filter, {F - 1} "
+        f"steps (median and frames/s over the last {len(timed)}): median step {med:.2f} ms, "
+        f"aggregate {fps:.1f} frames/s, warm-up step {step_ms[0]:.1f} ms")
     say(f"{config}: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m, p90 "
-        f"{ate_p90:.4f} m (max {max(ates) if ates else float('nan'):.4f} m)")
+        f"{ate_p90:.4f} m (max {max(ates) if ates else float('nan'):.4f} m); per lane "
+        + " ".join(f"{a:.4f}" for a in ates))
     say(f"{config}: host syncs in one step (step 2): {sum(syncs.values())} "
         f"{json.dumps(dict(sorted(syncs.items())))}")
     say(f"{config}: kernel launches {json.dumps(launches)}")
     say(f"{config}: kernel launches by input shape " + json.dumps(
         {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    M = params.odometry.hybridMapSize
+    if M:
+        lanes = int(torch.sum(torch.any(states.backend.trail.map_point_ids >= 0, dim=1)))
+        say(f"{config}: hybrid map of {M} points a lane: {claimed} of the {B * M} slots claimed "
+            f"at the end, {lanes}/{B} lanes with a claimed slot; {hybrid} map-point updates "
+            f"(PF_HYBRID points) in the run")
     if len(finite) != B:
         raise AssertionError(f"{config}: only {len(finite)}/{B} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
         raise AssertionError(f"{config}: ATE median {ate_med} m > {ATE_LIMIT_M} m")
+    if M and not (claimed and hybrid):
+        raise AssertionError(f"{config}: the hybrid map did not run: {claimed} slots claimed, "
+                             f"{hybrid} PF_HYBRID points")
     missing = [k for k in PATH_KERNELS if not launches[k]]
     if missing:
         raise AssertionError(f"{config}: kernels not launched: {missing}")
@@ -871,6 +936,63 @@ def run_path(dev, config):
     if never:
         raise AssertionError(f"{config}: Pallas kernels with no port kernel launched: {never}")
     return launches, by_shape, sum(syncs.values())
+
+
+def run_options(dev):
+    """The options phase: each estimator option of OPTIONS on top of the
+    sequential update with the hybrid map, in its filter dtype,
+    OPTION_STEPS steps of the per-lane stereo input at B lanes (or, with
+    shared frames, lane 0's frames and IMU for every lane). Fails on a
+    non-finite lane or a host sync in a step; returns the syncs by
+    option."""
+    import copy
+
+    import torch
+
+    from hybvio_tpu_torch.odometry.backend import ImuBatch
+    from hybvio_tpu_torch.parallel.batched import make_batched_vio
+
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+
+    base, derived, cams, start, gt, frame, batches = per_lane_inputs(dev, torch.float64)
+    lane0 = lambda x: x[:1].expand_as(x).contiguous()
+    syncs_by_option = {}
+    for name, settings, shared, dtype, steps in OPTIONS:
+        dtype = getattr(torch, dtype)
+        params = copy.deepcopy(base)
+        for k, v in {**SEQUENTIAL_HYBRID, **settings}.items():
+            setattr(params.odometry, k, v)
+        binit, bstep, _ = make_batched_vio(params, derived, cams, batch_size=B,
+                                           shared_frames=shared, device=dev, dtype=dtype)
+        images = (lambda fi: tuple(im[0] for im in frame(fi))) if shared else frame
+        states = binit(images(0), np.full(B, start), np.arange(B))
+        positions, t0 = [], time.perf_counter()
+        for fi in range(1, steps + 1):
+            imu = ImuBatch(*(x.to(dtype) if x.is_floating_point() else x for x in batches[fi - 1]))
+            imu = ImuBatch(*map(lane0, imu)) if shared else imu
+            im = images(fi)  # rendered outside the step
+            step = lambda: bstep(states, imu, im)
+            if fi == 2:
+                (states, out), syncs = host_syncs(step)
+            else:
+                states, out = step()
+            positions.append(out.position)
+        torch.cuda.synchronize()
+        est = torch.stack(positions).double().cpu().numpy()  # (steps, B, 3)
+        finite = int(np.isfinite(est).all(axis=(0, 2)).sum())
+        # ATE against each lane's ground truth (lane 0's with shared frames)
+        ates = [float(ate_rmse(est[:, b], gt[0 if shared else b][:steps]))
+                for b in range(B) if np.isfinite(est[:, b]).all()]
+        syncs_by_option[name] = sum(syncs.values())
+        say(f"option {name}: {steps} steps ({'shared' if shared else 'per-lane'} frames, "
+            f"{str(dtype)[6:]} filter) in {time.perf_counter() - t0:.1f} s, finite lanes "
+            f"{finite}/{B}, host syncs in step 2: {syncs_by_option[name]} "
+            f"{json.dumps(dict(sorted(syncs.items())))}; ATE median "
+            f"{statistics.median(ates) if ates else float('nan'):.4f} m, max "
+            f"{max(ates, default=float('nan')):.4f} m; per lane " + " ".join(f"{a:.4f}" for a in ates))
+        if finite != B:
+            raise AssertionError(f"option {name}: only {finite}/{B} lanes finite")
+    return syncs_by_option
 
 
 def main() -> int:
@@ -917,18 +1039,20 @@ def main() -> int:
                                  "launches": {c: counts[c].get(key, 0) for c in PATHS}}
                            for key in sorted(keys)}
         rankings = {c: rank(rows, c) for c in PATHS}
-        rankings["the four paths"] = rank(rows)
+        rankings[f"the {len(PATHS)} paths"] = rank(rows)
+        option_syncs = run_options(dev)
     except (AssertionError, RuntimeError, ValueError, TypeError) as e:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS))
-    synced = [c for c in PATHS if runs[c][2]]
+    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS)
+        + "; options: " + ", ".join(f"{o} {n}" for o, n in option_syncs.items()))
+    synced = [c for c in PATHS if runs[c][2]] + [o for o, n in option_syncs.items() if n]
     if synced:
         return fail(f"host syncs in the step of {synced}")
     for which, ranking in rankings.items():
         say(f"ranking, {which} (sum over input shapes of launches x (device - bound) per "
-            f"60-frame run; launch floor {floor_ms:.5f} ms): " + "; ".join(
+            f"run; launch floor {floor_ms:.5f} ms): " + "; ".join(
                 f"{name} {loss:.3f} ms{' SLOWER THAN ITS LIBRARY CALL' if slower else ''}"
                 f"{' (>= 50% of its bound: left alone)' if alone else ''}"
                 for name, loss, slower, alone in ranking))

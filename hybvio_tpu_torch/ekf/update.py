@@ -136,31 +136,49 @@ class VisualUpdateResult(NamedTuple):
     chi2_value: torch.Tensor
 
 
+def _over(x, lead):
+    """A (B,) threshold tensor shaped to broadcast over the leading dims
+    ``lead`` (B, ...); a Python float as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(x.shape + (1,) * (len(lead) - x.dim()))
+    return x
+
+
+def _gated(ok, threshold):
+    """``ok`` where the gate is on (threshold >= 0), else True: decided once
+    for a Python float, lane by lane (no host sync) for a tensor."""
+    if isinstance(threshold, torch.Tensor):
+        return ok | (threshold < 0)
+    return ok if threshold >= 0 else torch.ones_like(ok)
+
+
 def _gate(P, H, v, n_valid, noise_scale, chi_outlier_r, rmse_threshold):
     """(HP, HPH', rmse_ok, chi2_ok, chi2) of masked tracks over leading dims."""
     n = H.shape[-2]
+    lead = v.shape[:-1]
+    chi_outlier_r, rmse_threshold = _over(chi_outlier_r, lead), _over(rmse_threshold, lead)
     rmse2 = torch.sum(v * v, dim=-1) / torch.clamp(n_valid, min=1)
-    rmse_ok = (rmse2 <= rmse_threshold * rmse_threshold if rmse_threshold >= 0
-               else torch.ones_like(n_valid, dtype=torch.bool))
+    rmse_ok = _gated(rmse2 <= rmse_threshold * rmse_threshold, rmse_threshold)
     r_gate = abs((chi_outlier_r * chi_outlier_r) * noise_scale)
     HP = pdot(H, P)
     HPHt = pdot(HP, _t(H))
     eye = torch.eye(n, dtype=P.dtype, device=P.device)
-    Sv = solve_innovation(HPHt + r_gate * eye, v[..., None])[..., 0]
+    r_eye = r_gate[..., None, None] * eye if isinstance(r_gate, torch.Tensor) else r_gate * eye
+    Sv = solve_innovation(HPHt + r_eye, v[..., None])[..., 0]
     Sv = torch.where(torch.isfinite(Sv), Sv, torch.full_like(Sv, float("inf")))
     chi2 = noise_scale * torch.sum(Sv * v, dim=-1)
     table = constant(_CHI2INV95, P.dtype, P.device)
     thresh = table[torch.clamp(n_valid, max=len(CHI2INV95) - 1)]
-    chi2_ok = (chi2 <= thresh if chi_outlier_r >= 0
-               else torch.ones_like(n_valid, dtype=torch.bool))
+    chi2_ok = _gated(chi2 <= thresh, chi_outlier_r)
     return HP, HPHt, rmse_ok, chi2_ok, chi2
 
 
 def visual_track_update(m, P, H, f, y, mask, visual_r, noise_scale,
                         chi_outlier_r, rmse_threshold, apply_update):
     """Masked visual update with chi2/RMSE gating, per lane: ``H`` (B, n, d),
-    ``f``/``y``/``mask`` (B, n), ``apply_update`` (B,) bool. The gate
-    thresholds are Python floats (< 0 disables a gate)."""
+    ``f``/``y``/``mask`` (B, n), ``apply_update`` (B,) bool. A gate
+    threshold < 0 disables its gate: a Python float decides that for every
+    lane at once, a (B,) tensor lane by lane."""
     maskf = mask.to(m.dtype)
     H = H * maskf[..., None]
     v = (y - f) * maskf

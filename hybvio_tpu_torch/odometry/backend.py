@@ -4,10 +4,14 @@ IMU propagation and the per-frame estimator step, batch-first over B lanes.
     imu_scan(state, imu) -> state
     process_frame(state, tracker_input) -> (state, FrameOutput)
 
-The IMU samples of a frame run as a Python loop of batched EKF predicts;
-the visual update is the batched form (``batchVisualUpdate``). The
-sequential visual update, the hybrid map and the square-root filter are not
-ported and raise ``NotImplementedError`` when the module is built.
+The IMU samples of a frame run as a Python loop of batched EKF predicts.
+The visual update is the sequential form (the reference's default) or,
+with ``batchVisualUpdate``, the batched one; both carry the hybrid EKF-SLAM
+map (``hybridMapSize`` > 0) and every track sampling. With
+``visualUpdateForEveryNFrame`` N > 1 only every N-th frame may be a
+keyframe; with ``visualUpdateEnabled = false`` the frame skips the trail
+and the visual update. The square-root filter is not ported and raises
+``NotImplementedError`` when the module is built.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from torch import nn
 from .. import random as jr
 from ..ekf import (
     BGA, CAM, ORI, POS, POSE_DIM, SFT, VEL, EKFState, augment_pose, init_state,
-    initialize_orientation, make_predict, undo_augmentation, update_pseudo_velocity,
+    initialize_orientation, make_predict, state_dim, undo_augmentation, update_pseudo_velocity,
     update_zupt, update_zupt_initialization,
 )
 from ..ekf.update import normalize_current_quat
@@ -27,6 +31,7 @@ from ..geometry.cameras import normalize_pixel
 from ..lanes import tuple_where
 from . import trail as tr
 from .batched_update import make_batched_visual_update
+from .sequential_update import make_sequential_visual_update
 from .visual_update import make_prepare_track_update
 
 STATUS_INIT = 0
@@ -108,21 +113,15 @@ class Backend(nn.Module):
     def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
         super().__init__()
         po, pt = params.odometry, params.tracker
-        for name, bad in (("hybridMapSize > 0", po.hybridMapSize > 0),
-                          ("useSquareRootEkf", bool(getattr(po, "useSquareRootEkf", False))),
-                          ("batchVisualUpdate = false", not bool(getattr(po, "batchVisualUpdate", False))),
-                          ("visualUpdateForEveryNFrame > 1", po.visualUpdateForEveryNFrame > 1),
-                          ("visualUpdateEnabled = false", not po.visualUpdateEnabled),
-                          ("trackSampling != GAP", tr.SAMPLING[po.trackSampling] != tr.SAMPLING_GAP)):
-            if bad:
-                raise NotImplementedError(name)
+        if getattr(po, "useSquareRootEkf", False):
+            raise NotImplementedError("useSquareRootEkf")
         self.po = po
         self.stereo = bool(pt.useStereo)
         self.n_cams = 2 if self.stereo else 1
         self.cameras = tuple(cameras)
         self.T = max_tracks if max_tracks is not None else pt.maxTracks
         self.L = po.cameraTrailLength
-        self.d = CAM + POSE_DIM * self.L
+        self.d = state_dim(self.L, po.hybridMapSize)
         self.dtype = dtype
         self.noise_scale = po.noiseScale**2
         self.NV = min(self.T, (po.maxVisualUpdates if po.maxVisualUpdates > 0 else self.T) + 12)
@@ -137,14 +136,16 @@ class Backend(nn.Module):
         self.visual_r = po.visualR / f
         self.rmse_thr0 = po.trackRmseThreshold / f if po.trackRmseThreshold >= 0 else -1.0
         self.chi_r0 = po.trackChiTestOutlierR / f if po.trackChiTestOutlierR >= 0 else -1.0
+        self._visual_update()  # an option the port lacks raises here, not at the first step
 
     def _visual_update(self):
         # built per call so the closure sees the buffers on their current device
         prepare = make_prepare_track_update(
             self.po, self.imu_to_camera, self.second_imu_to_camera, self.stereo, self.d)
-        return make_batched_visual_update(
-            self.po, prepare, self.d, self.NV, self.n_cams,
-            self.visual_r, self.rmse_thr0, self.chi_r0)
+        make = (make_batched_visual_update if getattr(self.po, "batchVisualUpdate", False)
+                else make_sequential_visual_update)
+        return make(self.po, prepare, self.d, self.NV, self.n_cams,
+                    self.visual_r, self.rmse_thr0, self.chi_r0)
 
     def init_state(self, rng_keys) -> BackendState:
         """rng_keys: (B, 2) threefry keys."""
@@ -190,7 +191,7 @@ class Backend(nn.Module):
         return state
 
     def process_frame(self, state: BackendState, tin: TrackerInput):
-        po, L, T = self.po, self.L, self.T
+        po, L = self.po, self.L
         ekf = state.ekf
         B = ekf.m.shape[0]
         t_frame = ekf.prev_sample_t
@@ -204,7 +205,63 @@ class Backend(nn.Module):
                               update_zupt(ekf, po.visualZuptR, self.noise_scale), ekf)
         state = state._replace(ekf=ekf, frames_since_keyframe=frames_since_kf,
                                frame_number=frame_number)
+        if po.visualUpdateForEveryNFrame > 1:  # only every N-th frame may be a keyframe
+            keyframe_eff = keyframe & (frame_number % po.visualUpdateForEveryNFrame == 0)
+        else:
+            keyframe_eff = keyframe
+        if po.visualUpdateEnabled:
+            state, pc, good_frame = self._visual_frame(state, tin, keyframe_eff,
+                                                       stationary_visual, t_frame)
+        else:
+            dev, NV = ekf.m.device, self.NV
+            zeros = torch.zeros((B, NV), dtype=torch.int32, device=dev)
+            pc = (torch.zeros((B, NV, 3), dtype=ekf.m.dtype, device=dev), zeros,
+                  torch.full_like(zeros, -1), zeros, zeros)
+            good_frame = torch.zeros_like(keyframe)
+
+        ekf = state.ekf
+        m, P = ekf.m, ekf.P
         T_in = tin.track_ids.shape[1]
+        C_in = tin.pixels.shape[2]
+        dev = m.device
+        out = FrameOutput(
+            t=t_frame,
+            position=m[:, POS:POS + 3],
+            velocity=m[:, VEL:VEL + 3],
+            orientation=m[:, ORI:ORI + 4],
+            bias_gyro=m[:, BGA:BGA + 3],
+            bias_acc=m[:, 13:16],
+            position_cov=P[:, POS:POS + 3, POS:POS + 3],
+            velocity_cov=P[:, VEL:VEL + 3, VEL:VEL + 3],
+            bias_cov_diag=torch.diagonal(P, dim1=1, dim2=2)[:, BGA:BGA + 9],
+            tracking_status=state.tracking_status,
+            stationary_visual=stationary_visual,
+            point_cloud=pc[0], point_cloud_status=pc[1], point_cloud_ids=pc[2],
+            pose_trail=m[:, CAM:CAM + POSE_DIM * L].reshape(B, L, POSE_DIM),
+            pose_trail_times=ekf.pose_times,
+            good_frame=good_frame,
+            keyframe=keyframe,
+            track_ids=state.trail.kf_track_id[:, 1],
+            track_norm=state.trail.kf_norm[:, 1, :, 0, :],
+            track_depth=tin.stereo_depth,
+            track_status=(tin.track_status if tin.track_status is not None
+                          else torch.full((B, T_in), -1, dtype=torch.int32, device=dev)),
+            track_prev_pixels=(tin.prev_pixels if tin.prev_pixels is not None
+                               else torch.zeros((B, T_in, C_in, 2), dtype=tin.pixels.dtype,
+                                                device=dev)),
+            track_pixels=tin.viz_pixels if tin.viz_pixels is not None else tin.pixels,
+            vu_tri_status=pc[3],
+            vu_prepare_status=pc[4],
+            sft=m[:, SFT],
+        )
+        return state, out
+
+    def _visual_frame(self, state: BackendState, tin: TrackerInput, keyframe, stationary_visual,
+                      t_frame):
+        """The frame's trail and visual update: (state, point cloud tuple,
+        good_frame (B,))."""
+        po, L = self.po, self.L
+        frame_number = state.frame_number
         # non-keyframe: drop the head keyframe and undo its augmentation
         state = state._replace(
             trail=tuple_where(keyframe, state.trail, tr.pop_head_keyframe(state.trail)),
@@ -261,39 +318,4 @@ class Backend(nn.Module):
                                vu_window_pos=pos_.to(torch.int32),
                                vu_window_count=count.to(torch.int32),
                                tracking_status=status.to(torch.int32))
-
-        ekf = state.ekf
-        m, P = ekf.m, ekf.P
-        C_in = tin.pixels.shape[2]
-        dev = m.device
-        out = FrameOutput(
-            t=t_frame,
-            position=m[:, POS:POS + 3],
-            velocity=m[:, VEL:VEL + 3],
-            orientation=m[:, ORI:ORI + 4],
-            bias_gyro=m[:, BGA:BGA + 3],
-            bias_acc=m[:, 13:16],
-            position_cov=P[:, POS:POS + 3, POS:POS + 3],
-            velocity_cov=P[:, VEL:VEL + 3, VEL:VEL + 3],
-            bias_cov_diag=torch.diagonal(P, dim1=1, dim2=2)[:, BGA:BGA + 9],
-            tracking_status=state.tracking_status,
-            stationary_visual=stationary_visual,
-            point_cloud=pc[0], point_cloud_status=pc[1], point_cloud_ids=pc[2],
-            pose_trail=m[:, CAM:CAM + POSE_DIM * L].reshape(B, L, POSE_DIM),
-            pose_trail_times=ekf.pose_times,
-            good_frame=good_frame,
-            keyframe=keyframe,
-            track_ids=state.trail.kf_track_id[:, 1],
-            track_norm=state.trail.kf_norm[:, 1, :, 0, :],
-            track_depth=tin.stereo_depth,
-            track_status=(tin.track_status if tin.track_status is not None
-                          else torch.full((B, T_in), -1, dtype=torch.int32, device=dev)),
-            track_prev_pixels=(tin.prev_pixels if tin.prev_pixels is not None
-                               else torch.zeros((B, T_in, C_in, 2), dtype=tin.pixels.dtype,
-                                                device=dev)),
-            track_pixels=tin.viz_pixels if tin.viz_pixels is not None else tin.pixels,
-            vu_tri_status=pc[3],
-            vu_prepare_status=pc[4],
-            sft=m[:, SFT],
-        )
-        return state, out
+        return state, pc, good_frame

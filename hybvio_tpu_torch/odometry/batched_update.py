@@ -2,14 +2,25 @@
 ``visual_update_phase_batched``): all candidate tracks triangulate and gate
 in parallel against the same pre-update state, and the accepted ones apply
 as stacked EKF updates of at most ``d * batchVisualUpdateMaxSizeMultiplier``
-rows each. Batch-first over lanes; the hybrid map (M > 0) is not ported.
+rows each. Hybrid map-point tracks join the stack with their map columns;
+accepted tracks that claim a free map slot stay out of it and are inserted
+afterwards in one vectorized write. Batch-first over lanes.
+
+``select_candidates`` (scoring, pose selection, eligibility and the
+randomized order, map points first) is shared with the sequential form.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .. import random as jr
-from ..ekf import CAM, ORI, POS, POSE_DIM, visual_track_gate, visual_track_update
+from ..ekf import (
+    CAM, MAP_POINT_DIM, MAP_POINT_PRIOR_STD, ORI, POS, POSE_DIM, visual_track_gate,
+    visual_track_update,
+)
+from ..lanes import lane_where
 from . import trail as tr
 from .triangulation import TRI_OK
 
@@ -40,9 +51,117 @@ def _scatter_lanes(idx, values, T):
     return out.scatter(1, idx, values)
 
 
+class Candidates(NamedTuple):
+    """The visual-update candidates of a frame, per lane: the NV track slots
+    in update order and, gathered in that order, what the update needs."""
+    rng: torch.Tensor  # (B, 2) the key left after the draws
+    order: torch.Tensor  # (B, NV) track slots
+    active: torch.Tensor  # (B, NV) eligible
+    map_point: torch.Tensor  # (B, NV) the track is a hybrid map point
+    map_index: torch.Tensor  # (B, NV) its map slot, -1 if none
+    selected: torch.Tensor  # (B, NV, K) its trail poses
+    n_selected: torch.Tensor  # (B, NV)
+    ips: torch.Tensor  # (B, NV, C*K, 2) its normalized points, camera-major
+    vels: torch.Tensor  # (B, NV, C*K, 2) their velocities
+    selected_all: torch.Tensor  # (B, T, K) every slot's trail poses
+    was_blacklisted: torch.Tensor  # (B, T)
+    exists_head: torch.Tensor  # (B, K, T) feature_exists
+
+
+def select_candidates(po, state, track_ids, valid, rng, NV, n_cams) -> Candidates:
+    """Score the tracks, select each one's trail poses (GAP / ALL / RANDOM,
+    RANDOM with one key per track from ``split(sel_key, T)``), find the
+    hybrid map points, and order the eligible tracks randomly, map points
+    first; ``rng`` (B, 2) is each lane's key."""
+    trail = state.trail
+    B, T = track_ids.shape
+    dtype = state.ekf.m.dtype
+    sampling = tr.SAMPLING[po.trackSampling]
+    exists_head = tr.feature_exists(trail, track_ids)
+    scores = tr.track_scores(trail, track_ids, sampling)
+    keys = jr.split(rng)
+    rng = keys[:, 0]
+    sel_keys = jr.split(keys[:, 1], T) if sampling == tr.SAMPLING_RANDOM else None
+    selected_all, _ = tr.select_track_poses(trail, track_ids, sampling, sel_keys,
+                                            po.randomTrackSamplingRatio)  # (B, T, K)
+    n_sel = torch.sum(selected_all, dim=2)
+    was_blacklisted = state.blacklist_flags & (state.blacklist_ids == track_ids) & valid
+
+    if po.hybridMapSize > 0:
+        hits = ((track_ids[:, :, None] == trail.map_point_ids[:, None, :])
+                & (track_ids[:, :, None] >= 0))  # (B, T, M)
+        is_map_point = torch.any(hits, dim=2)
+        map_index = torch.where(is_map_point, torch.argmax(hits.to(torch.int8), dim=2),
+                                torch.full_like(track_ids, -1, dtype=torch.int64))
+    else:
+        is_map_point = torch.zeros_like(valid)
+        map_index = torch.full_like(track_ids, -1, dtype=torch.int64)
+
+    cand = valid & exists_head[:, 0]
+    if po.scoreVisualUpdateTracks:
+        cscores = torch.where(cand, scores, torch.full_like(scores, float("inf")))
+        n_cand = torch.sum(cand, dim=1)
+        sorted_scores = torch.sort(cscores, dim=1).values
+        mid = torch.gather(sorted_scores, 1, torch.clamp(n_cand // 2, 0, T - 1)[:, None])[:, 0]
+        min_score = torch.where(n_cand > 0, mid, torch.full_like(mid, -1.0))
+        ok_score = (scores >= min_score[:, None]) | is_map_point
+    else:
+        ok_score = torch.ones_like(cand)
+    ok_len = (n_sel >= po.trackMinFrames) | is_map_point
+    eligible = cand & ok_score & ok_len & ~was_blacklisted
+
+    keys = jr.split(rng)
+    rng, perm_key = keys[:, 0], keys[:, 1]
+    noise = jr.uniform(perm_key, (T,), dtype)
+    priority = ((torch.where(eligible, 0.0, 10.0) + torch.where(is_map_point, 0.0, 1.0)).to(dtype)
+                + noise * 0.5)
+    order = torch.argsort(priority, dim=1, stable=True)[:, :NV]  # (B, NV)
+
+    K = selected_all.shape[2]
+
+    def rows_of(a):  # (B, K, T, C, 2) -> (B, NV, C*K, 2)
+        a = _take(a.transpose(1, 2), order)  # (B, NV, K, C, 2)
+        return a.transpose(2, 3).reshape(B, NV, n_cams * K, 2)
+
+    return Candidates(
+        rng=rng, order=order, active=torch.gather(eligible, 1, order),
+        map_point=torch.gather(is_map_point, 1, order),
+        map_index=torch.gather(map_index, 1, order), selected=_take(selected_all, order),
+        n_selected=torch.gather(n_sel, 1, order), ips=rows_of(trail.kf_norm),
+        vels=rows_of(trail.kf_vel), selected_all=selected_all,
+        was_blacklisted=was_blacklisted, exists_head=exists_head)
+
+
+def map_point_of(m, is_map_point, map_index, M):
+    """(point (..., 3), state offset (...,)) of hybrid map-point tracks from
+    the mean ``m`` (B, d): their map block's mean and offset; zeros and the
+    offset d (dropped) for other tracks. ``is_map_point`` / ``map_index``
+    are (B,) or (B, NV)."""
+    d = m.shape[1]
+    off = torch.where(is_map_point, d - MAP_POINT_DIM * M + MAP_POINT_DIM
+                      * torch.clamp(map_index, min=0), torch.full_like(map_index, d))
+    at = torch.clamp(off, 0, d - MAP_POINT_DIM)
+    at = at.reshape(m.shape[0], -1, 1) + torch.arange(MAP_POINT_DIM, device=m.device)
+    point = torch.gather(m, 1, at.reshape(m.shape[0], -1)).reshape(off.shape + (MAP_POINT_DIM,))
+    return torch.where(is_map_point[..., None], point, torch.zeros_like(point)), off
+
+
+def prepare_candidates(prepare, pose_states, ips, vels, sel, m, is_map_point, map_index, M):
+    """prepare() of candidate tracks; with M > 0 run twice, in the hybrid
+    form (from the map point in ``m``) and triangulated, and keep the form
+    each track's ``is_map_point`` says."""
+    out = prepare(pose_states, ips, vels, sel)
+    if M == 0:
+        return out
+    point, off = map_point_of(m, is_map_point, map_index, M)
+    hyb = prepare(pose_states, ips, vels, sel, map_point=point, map_point_offset=off)
+    return type(out)(*(lane_where(is_map_point, a, b) for a, b in zip(hyb, out)))
+
+
 def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, chi_r0):
     L = po.cameraTrailLength
-    K = L + 1
+    M = po.hybridMapSize
+    sampling = tr.SAMPLING[po.trackSampling]
     noise_scale = po.noiseScale**2
     A_cap = po.maxSuccessfulVisualUpdates if po.maxSuccessfulVisualUpdates > 0 else NV
 
@@ -52,49 +171,20 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         ekf = state.ekf
         B, T = track_ids.shape
         dtype = ekf.m.dtype
-
-        exists_head = tr.feature_exists(trail, track_ids)
-        scores = tr.track_scores(trail, track_ids)
-        rng = jr.split(rng)[:, 0]  # the RANDOM-sampling key split (unused by GAP)
-        selected_all, _ = tr.select_track_poses(trail, track_ids)  # (B, T, K)
-        n_sel = torch.sum(selected_all, dim=2)
-        was_blacklisted = state.blacklist_flags & (state.blacklist_ids == track_ids) & valid
-
-        cand = valid & exists_head[:, 0]
-        if po.scoreVisualUpdateTracks:
-            cscores = torch.where(cand, scores, torch.full_like(scores, float("inf")))
-            n_cand = torch.sum(cand, dim=1)
-            sorted_scores = torch.sort(cscores, dim=1).values
-            mid = torch.gather(sorted_scores, 1, torch.clamp(n_cand // 2, 0, T - 1)[:, None])[:, 0]
-            min_score = torch.where(n_cand > 0, mid, torch.full_like(mid, -1.0))
-            ok_score = scores >= min_score[:, None]
-        else:
-            ok_score = torch.ones_like(cand)
-        ok_len = n_sel >= po.trackMinFrames
-        eligible = cand & ok_score & ok_len & ~was_blacklisted
-
-        keys = jr.split(rng)
-        rng, perm_key = keys[:, 0], keys[:, 1]
-        noise = jr.uniform(perm_key, (T,), dtype)
-        priority = (torch.where(eligible, 0.0, 10.0).to(dtype) + 1.0) + noise * 0.5
-        order = torch.argsort(priority, dim=1, stable=True)[:, :NV]  # (B, NV)
+        c = select_candidates(po, state, track_ids, valid, rng, NV, n_cams)
+        order, active, mp = c.order, c.active, c.map_point
 
         pose_states = gather_pose_states(ekf.m, L)
-        sel = _take(selected_all, order)  # (B, NV, K)
-        ps = torch.where(sel[..., None], pose_states[:, None], pose_states[:, None, :1])
-
-        def rows_of(a):  # (B, K, T, C, 2) -> (B, NV, C*K, 2)
-            a = _take(a.transpose(1, 2), order)  # (B, NV, K, C, 2)
-            return a.transpose(2, 3).reshape(B, NV, n_cams * K, 2)
-
-        outs = prepare(ps, rows_of(trail.kf_norm), rows_of(trail.kf_vel), sel)
-        active = torch.gather(eligible, 1, order)
-        tri_ok = outs.tri_status == TRI_OK
+        ps = torch.where(c.selected[..., None], pose_states[:, None], pose_states[:, None, :1])
+        outs = prepare_candidates(prepare, ps, c.ips, c.vels, c.selected, ekf.m, mp,
+                                  c.map_index, M)
+        tri_ok = (outs.tri_status == TRI_OK) | mp
         prep_ok = outs.prepare_status == 0
         gate_ok, _ = visual_track_gate(ekf.P[:, None], outs.H, outs.f, outs.y,
                                        outs.row_mask, noise_scale, chi_r0, rmse_thr0)
 
-        attempt = active
+        # map-point updates do not count against the attempt budget
+        attempt = active & ~mp
         attempts_before = torch.cumsum(attempt.to(torch.int64), 1) - attempt.to(torch.int64)
         inlier_raw = active & tri_ok & prep_ok & gate_ok
         successes_before = torch.cumsum(inlier_raw.to(torch.int64), 1) - inlier_raw.to(torch.int64)
@@ -106,8 +196,22 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         accepted = inlier_raw & need_more
         attempted = attempt & need_more
 
-        acc_idx = torch.argsort((~accepted).to(torch.uint8), dim=1, stable=True)[:, :A_cap]
-        acc_ok = torch.gather(accepted, 1, acc_idx)
+        # accepted non-map tracks claim the free map slots in order; they
+        # skip the stacked update and are inserted afterwards
+        can_promote = torch.zeros_like(accepted)
+        mp_ids = trail.map_point_ids
+        if M > 0:
+            free = mp_ids < 0
+            n_free = torch.sum(free, dim=1)
+            free_slots = torch.argsort((~free).to(torch.int8), dim=1, stable=True)
+            promote = accepted & ~mp
+            rank = torch.cumsum(promote.to(torch.int64), 1) - promote.to(torch.int64)
+            can_promote = promote & (rank < n_free[:, None])
+            slot_of = torch.gather(free_slots, 1, torch.clamp(rank, 0, M - 1))  # (B, NV)
+        accepted_stack = accepted & ~can_promote
+
+        acc_idx = torch.argsort((~accepted_stack).to(torch.uint8), dim=1, stable=True)[:, :A_cap]
+        acc_ok = torch.gather(accepted_stack, 1, acc_idx)
         rows = outs.H.shape[2]
         per_chunk = max(int(d * po.batchVisualUpdateMaxSizeMultiplier + 0.5) // max(rows, 1), 1)
         m, P = ekf.m, ekf.P
@@ -125,14 +229,41 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
                 visual_r, noise_scale, chi_outlier_r=-1.0, rmse_threshold=-1.0,
                 apply_update=torch.any(ok_c, dim=1))
             m, P = res.m, res.P
+
+        if M > 0:
+            # one masked covariance reset and mean write for every promoted
+            # track (the blocks are disjoint), then the slots are claimed
+            offs = d - MAP_POINT_DIM * M + MAP_POINT_DIM * slot_of  # (B, NV)
+            idx = torch.arange(d, device=m.device)
+            in_block = torch.any(can_promote[..., None] & (idx >= offs[..., None])
+                                 & (idx < offs[..., None] + MAP_POINT_DIM), dim=1)  # (B, d)
+            keep = (~in_block).to(dtype)
+            prior = torch.where(in_block, MAP_POINT_PRIOR_STD * MAP_POINT_PRIOR_STD, 0.0).to(dtype)
+            P_ins = P * (keep[:, :, None] * keep[:, None, :]) + torch.diag_embed(prior)
+            put = torch.zeros((B, d + 1), dtype=dtype, device=m.device)
+            for ci in range(MAP_POINT_DIM):
+                put = put.scatter_add(
+                    1, torch.where(can_promote, offs + ci, d),
+                    torch.where(can_promote, outs.pf[..., ci], torch.zeros_like(outs.pf[..., ci])))
+            m_ins = torch.where(in_block, torch.zeros_like(m), m) + put[:, :d]
+            do_ins = torch.any(can_promote, dim=1)
+            m, P = lane_where(do_ins, m_ins, m), lane_where(do_ins, P_ins, P)
+            ids = torch.where(can_promote, torch.gather(track_ids, 1, order).to(mp_ids.dtype),
+                              torch.full_like(mp_ids[:, :1], -1))
+            mp_ids = torch.cat([mp_ids, torch.full_like(mp_ids[:, :1], -1)], dim=1).scatter(
+                1, torch.where(can_promote, slot_of, M), ids)[:, :M]  # column M: dropped
         P = 0.5 * (P + P.transpose(-1, -2))
 
         accepted_per_slot = _scatter_lanes(order, accepted, T)
-        kf_used = trail.kf_used | (exists_head & accepted_per_slot[:, None, :])
+        kf_used = trail.kf_used
+        if sampling == tr.SAMPLING_GAP:
+            kf_used = kf_used | (c.exists_head & accepted_per_slot[:, None, :])
+        elif sampling == tr.SAMPLING_RANDOM:
+            kf_used = kf_used | (c.selected_all.transpose(1, 2) & accepted_per_slot[:, None, :])
         rejected = attempted & ~inlier_raw
         bl_flags = _scatter_lanes(order, rejected, T)
         if po.blacklistTracks:
-            bl_flags = bl_flags | was_blacklisted
+            bl_flags = bl_flags | c.was_blacklisted
         bl_ids = torch.where(bl_flags, track_ids, torch.full_like(track_ids, -1))
 
         n_attempts = torch.sum(attempted, dim=1)
@@ -141,8 +272,10 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         pc_points = torch.where(pc_valid[..., None], outs.pf, torch.zeros_like(outs.pf))
         pc_status = torch.where(
             ~active, PF_UNUSED,
-            torch.where(accepted, PF_POSE_TRAIL,
-                        torch.where(attempted & ~inlier_raw, PF_OUTLIER, PF_UNUSED))).to(torch.int32)
+            torch.where(mp, PF_HYBRID,
+                        torch.where(accepted, PF_POSE_TRAIL,
+                                    torch.where(attempted & ~inlier_raw, PF_OUTLIER,
+                                                PF_UNUSED)))).to(torch.int32)
         pc_ids = torch.where(pc_valid, torch.gather(track_ids, 1, order),
                              torch.full_like(order, -1, dtype=track_ids.dtype))
         too_many_failures = (n_attempts - n_success) > 5
@@ -152,8 +285,9 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         if po.maxVisualUpdates > 0:
             need_more_final = need_more_final & (n_attempts < po.maxVisualUpdates)
         state = state._replace(
-            ekf=ekf._replace(m=m, P=P), trail=trail._replace(kf_used=kf_used),
-            rng=rng, blacklist_flags=bl_flags, blacklist_ids=bl_ids)
+            ekf=ekf._replace(m=m, P=P),
+            trail=trail._replace(kf_used=kf_used, map_point_ids=mp_ids),
+            rng=c.rng, blacklist_flags=bl_flags, blacklist_ids=bl_ids)
         pc = (pc_points, pc_status, pc_ids, outs.tri_status.to(torch.int32),
               outs.prepare_status.to(torch.int32))
         return state, pc, need_more_final, too_many_failures

@@ -2,14 +2,16 @@
 reference's ``odometry/trail.py``), batch-first: (B, K, T) tables with
 K = cameraTrailLength + 1 keyframe slots (0 = head) and T track slots.
 
-Only GAP track sampling is ported (the preset's); the Hanoi retention
-scheme is ported as the reference has it.
+GAP, ALL and RANDOM track sampling and the Hanoi retention scheme are
+ported as the reference has them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from .. import random as jr
 
 SAMPLING_GAP = 0
 SAMPLING_ALL = 1
@@ -187,24 +189,77 @@ def prune(trail: TrailState, track_ids) -> TrailState:
     return trail._replace(kf_track_id=kf_track_id, map_point_ids=mp)
 
 
-def select_track_poses(trail: TrailState, track_ids):
-    """GAP selection of every track: (selected (B, T, K), exists (B, T, K))."""
-    exists = feature_exists(trail, track_ids)
-    K = exists.shape[1]
-    ks = torch.arange(K, device=exists.device)[None, :, None]
+def _gap_selection(trail: TrailState, exists):
+    """(B, K, T): the unused points of each track plus its oldest one."""
+    ks = torch.arange(exists.shape[1], device=exists.device)[None, :, None]
     start = torch.max(torch.where(exists, ks, torch.full_like(ks, -1)), dim=1, keepdim=True).values
-    sel = exists & (~trail.kf_used | (ks == start))
-    return sel.transpose(1, 2), exists.transpose(1, 2)
+    return exists & (~trail.kf_used | (ks == start))
 
 
-def track_scores(trail: TrailState, track_ids) -> torch.Tensor:
-    """(B, T) GAP score: L1 path length over the selected points."""
+def select_track_poses(trail: TrailState, track_ids, sampling=SAMPLING_GAP, keys=None,
+                       random_ratio=0.75):
+    """The trail poses each track's visual update uses: (selected (B, T, K),
+    exists (B, T, K)). GAP: the unused points and the oldest; ALL: every
+    point; RANDOM: ``round(random_ratio * n)`` of a track's n unused points,
+    drawn with its key of ``keys`` (B, T, 2) as uniforms of the filter
+    dtype (the reference draws in its default float type: float64 under
+    x64), plus its head point."""
+    dtype = trail.kf_norm.dtype
     exists = feature_exists(trail, track_ids)
-    K = exists.shape[1]
-    ks = torch.arange(K, device=exists.device)[None, :, None]
-    start = torch.max(torch.where(exists, ks, torch.full_like(ks, -1)), dim=1, keepdim=True).values
-    sel = exists & (~trail.kf_used | (ks == start))
+    if sampling == SAMPLING_ALL:
+        return exists.transpose(1, 2), exists.transpose(1, 2)
+    if sampling == SAMPLING_GAP:
+        return _gap_selection(trail, exists).transpose(1, 2), exists.transpose(1, 2)
+    exists_t = exists.transpose(1, 2)  # (B, T, K)
+    avail = exists_t & ~trail.kf_used.transpose(1, 2)
+    K = avail.shape[2]
+    n_take = torch.round(random_ratio * torch.sum(avail, dim=2).to(dtype))
+    u = jr.uniform(keys, (K,), dtype)  # (B, T, K)
+    scores = torch.where(avail, u, torch.full_like(u, -1.0))
+    order = torch.argsort(-scores, dim=2, stable=True)
+    ks = torch.arange(K, device=avail.device).expand_as(order)
+    rank = torch.empty_like(order).scatter_(2, order, ks)
+    sel = avail & (rank < n_take[..., None])
+    sel = torch.cat([exists_t[..., :1], sel[..., 1:]], dim=2)
+    return sel, exists_t
+
+
+def track_scores(trail: TrailState, track_ids, sampling=SAMPLING_GAP) -> torch.Tensor:
+    """(B, T) track score: the L1 path length over the selected points
+    (GAP, ALL), or the number of unused points (RANDOM)."""
+    exists = feature_exists(trail, track_ids)
+    if sampling == SAMPLING_RANDOM:
+        return torch.sum(exists & ~trail.kf_used, dim=1).to(trail.kf_norm.dtype)
+    sel = _gap_selection(trail, exists) if sampling == SAMPLING_GAP else exists
     p = trail.kf_pix
     step = torch.sum(torch.abs(p[:, :-1] - p[:, 1:]), dim=-1)
     contrib = sel[:, :-1] & exists[:, 1:]
     return torch.sum(torch.where(contrib, step, torch.zeros_like(step)), dim=1)
+
+
+def mark_track_used(trail: TrailState, slot, selected, sampling, track_ids) -> TrailState:
+    """Mark the points of track slot ``slot`` (B,) used, per lane: every
+    point of the track (GAP), the ``selected`` (B, K) ones (RANDOM), none
+    (ALL)."""
+    if sampling == SAMPLING_ALL:
+        return trail
+    T = track_ids.shape[1]
+    onehot = torch.arange(T, device=slot.device)[None, :] == slot[:, None]  # (B, T)
+    if sampling == SAMPLING_GAP:
+        col = torch.any(feature_exists(trail, track_ids) & onehot[:, None, :], dim=2)
+    else:
+        col = selected
+    return trail._replace(kf_used=trail.kf_used | (col[:, :, None] & onehot[:, None, :]))
+
+
+def offer_map_point(trail: TrailState, track_id):
+    """Claim the first free hybrid map slot of each lane for ``track_id``
+    (B,): (slot index (B,), -1 where none is free; the trail)."""
+    mp = trail.map_point_ids
+    free = mp < 0
+    idx = torch.argmax(free.to(torch.int8), dim=1)
+    available = torch.any(free, dim=1)
+    first = torch.arange(mp.shape[1], device=mp.device)[None, :] == idx[:, None]
+    new = torch.where(first & available[:, None], track_id.to(mp.dtype)[:, None], mp)
+    return (torch.where(available, idx, torch.full_like(idx, -1)).to(torch.int32),
+            trail._replace(map_point_ids=new))

@@ -172,6 +172,47 @@ def triangulate_gn(poses: CameraPoses, ips, mask, gn_iterations=10,
     return pf, status
 
 
+def _solve3_lu(A, b):
+    """x = A^-1 b for one 3x3 A by Gaussian elimination with partial
+    pivoting (an LU solve, as the reference's) in elementwise tensor ops.
+    ``torch.linalg.solve`` is avoided: its forward-mode derivative under
+    ``torch.func.vmap`` is wrong for all but the first batch element
+    (torch 2.13). A singular A gives inf/nan; nothing raises or syncs."""
+    Ab = torch.cat([A, b[:, None]], dim=1)  # (3, 4)
+    rows = torch.arange(3, device=A.device)
+    for k in range(2):
+        p = torch.argmax(torch.abs(Ab[k:, k])) + k
+        swap = torch.where(rows == k, p, torch.where(rows == p, k, rows))
+        Ab = torch.gather(Ab, 0, swap[:, None].expand(3, 4))
+        below = Ab[k + 1:, k:k + 1] * (1.0 / Ab[k, k])
+        Ab = torch.cat([Ab[:k + 1], Ab[k + 1:] - below * Ab[k:k + 1]], dim=0)
+    x2 = Ab[2, 3] / Ab[2, 2]
+    x1 = (Ab[1, 3] - Ab[1, 2] * x2) / Ab[1, 1]
+    x0 = (Ab[0, 3] - Ab[0, 2] * x2 - Ab[0, 1] * x1) / Ab[0, 0]
+    return torch.stack([x0, x1, x2])
+
+
+def triangulate_linear(poses: CameraPoses, ips, mask):
+    """Closed-form linear triangulation of ONE track: the point nearest to
+    its rays in the least-squares sense, poses (N,), ips (N, 2), mask (N,).
+    Returns (pf (3,), status () int64: TRI_BEHIND or TRI_OK).
+    Differentiable in poses and ips; the 3x3 solve neither raises nor syncs
+    (a singular system gives inf/nan, as the reference's LU solve)."""
+    dtype = ips.dtype
+    maskf = mask.to(dtype)
+    v = torch.cat([ips, torch.ones_like(ips[..., :1])], dim=-1)
+    vw = (poses.R.transpose(-1, -2) @ v[..., None])[..., 0]  # the ray in world
+    vn = vw / torch.linalg.norm(vw, dim=-1, keepdim=True)
+    eye = torch.eye(3, dtype=dtype, device=ips.device)
+    A = (eye[None] - vn[:, :, None] * vn[:, None, :]) * maskf[:, None, None]
+    S0 = torch.sum(A, dim=0)
+    S1 = torch.einsum("nij,nj->i", A, poses.p)
+    pf = _solve3_lu(S0 + 1e-300 * eye, S1)
+    z_all = (poses.R @ (pf[None, :] - poses.p)[..., None])[..., 2, 0]
+    behind = torch.any(mask & (z_all.detach() < 0))
+    return pf, torch.where(behind, TRI_BEHIND, TRI_OK)
+
+
 def triangulate_stereo_idp(ip_first, ip_second, second_to_first_camera, with_cov=True):
     """(w)Mid2 two-ray triangulation in inverse-depth coordinates of the
     first camera, over leading dims. Returns (idp, cov or None, ok); the

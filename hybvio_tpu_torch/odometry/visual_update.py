@@ -7,8 +7,10 @@ The measurement function
                     - sft * vels
 
 is written once per track and ``torch.func.vmap(torch.func.jacfwd(h))``
-gives the full Jacobian, including the chain through the GN triangulation
-and the IMU-camera time-shift column.
+gives the full Jacobian, including the chain through the triangulation (GN,
+or linear) and the IMU-camera time-shift column. A hybrid map-point track
+skips the triangulation: its point is a state block, so h takes the point
+as three more inputs and H gets their columns.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from ..ekf.state import CAM, ORI, POS, POSE_DIM, SFT
 from .triangulation import (
-    TRI_BAD_DEPTH, TRI_OK, CameraPoses, camera_poses_from_states, triangulate_gn,
+    TRI_BAD_DEPTH, TRI_HYBRID, TRI_OK, CameraPoses, camera_poses_from_states, triangulate_gn,
+    triangulate_linear,
 )
 
 PREPARE_VU_OK = 0
@@ -45,18 +48,21 @@ def _project(poses: CameraPoses, pf):
 
 def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stereo, d):
     """prepare(pose_states (..., N, 7), ips (..., C*N, 2), vels (..., C*N, 2),
-    mask (..., N)) -> TrackUpdateData, where row k of the poses is trail
-    index k (0 = current pose) and masked rows hold a finite stand-in pose.
+    mask (..., N), map_point=None, map_point_offset=None) -> TrackUpdateData,
+    where row k of the poses is trail index k (0 = current pose) and masked
+    rows hold a finite stand-in pose.
+
+    With ``map_point`` (..., 3) and ``map_point_offset`` (...,) given (the
+    hybrid form), the track's point is that hybrid map point: it is not
+    triangulated, its status is TRI_HYBRID and H gets d proj / d pf at the
+    three state columns from the offset (an offset of ``d`` drops them).
+    Otherwise the point is triangulated by Gauss-Newton, or in closed form
+    with ``useLinearTriangulation``.
 
     ``imu_to_camera`` / ``second_imu_to_camera`` are 4x4 tensors in the
-    filter dtype. The hybrid-map, independent-stereo and linear
-    triangulation variants are not ported."""
-    if po.hybridMapSize > 0:
-        raise NotImplementedError("hybrid map (hybridMapSize > 0)")
+    filter dtype. The independent-stereo variant is not ported."""
     if use_stereo and po.useIndependentStereoTriangulation:
         raise NotImplementedError("useIndependentStereoTriangulation")
-    if po.useLinearTriangulation:
-        raise NotImplementedError("useLinearTriangulation")
     est_sft = bool(po.estimateImuCameraTimeShift)
     n_cams = 2 if use_stereo else 1
     i2c = imu_to_camera
@@ -69,49 +75,70 @@ def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stere
         t1 = camera_poses_from_states(ps, i2c2)
         return CameraPoses(torch.cat([t0.p, t1.p], dim=-2), torch.cat([t0.R, t1.R], dim=-3))
 
-    def one_track(x, ips, vels, mask):
-        """h of one track and its triangulation outcome (as aux)."""
-        N = mask.shape[0]
-        ps = x[:N * 7].reshape(N, 7)
-        sft = x[N * 7]
-        feats = ips + sft * vels if est_sft else ips
-        trail = trail_from_states(ps)
+    def triangulate(trail, feats, mask):
+        if po.useLinearTriangulation:
+            return triangulate_linear(trail, feats, mask.repeat(n_cams))
         rcond_thr = po.triangulationRcondThreshold
-        if ips.dtype == torch.float32:
+        if feats.dtype == torch.float32:
             rcond_thr = max(rcond_thr, 1e-5)
-        pf, status = triangulate_gn(
+        return triangulate_gn(
             trail, feats, mask.repeat(n_cams),
             gn_iterations=int(po.triangulationGaussNewtonIterations),
             convergence_threshold=po.triangulationConvergenceThreshold,
             convergence_r=po.triangulationConvergenceR,
             rcond_threshold=rcond_thr, stereo=use_stereo)
-        proj, _ = _project(trail, pf)
-        out = proj.reshape(-1)
-        if est_sft:
-            out = out - sft * vels.reshape(-1)
+
+    def measure(trail, pf, sft, vels):
+        out = _project(trail, pf)[0].reshape(-1)
+        return out - sft * vels.reshape(-1) if est_sft else out
+
+    def one_track(x, ips, vels, mask):
+        """h of one track and its triangulation outcome (as aux)."""
+        N = mask.shape[0]
+        sft = x[N * 7]
+        trail = trail_from_states(x[:N * 7].reshape(N, 7))
+        pf, status = triangulate(trail, ips + sft * vels if est_sft else ips, mask)
+        out = measure(trail, pf, sft, vels)
         return out, (out, pf, status)
 
-    jac = torch.func.vmap(torch.func.jacfwd(one_track, has_aux=True))
+    def one_map_track(x, vels, pf_in):
+        """h of one hybrid map-point track: x = poses, time shift, map point
+        delta."""
+        N = (x.shape[0] - 4) // 7
+        trail = trail_from_states(x[:N * 7].reshape(N, 7))
+        out = measure(trail, pf_in + x[N * 7 + 1:N * 7 + 4], x[N * 7], vels)
+        return out, out
 
-    def prepare(pose_states, ips, vels, mask) -> TrackUpdateData:
+    jac = torch.func.vmap(torch.func.jacfwd(one_track, has_aux=True))
+    jac_map = torch.func.vmap(torch.func.jacfwd(one_map_track, has_aux=True))
+
+    def prepare(pose_states, ips, vels, mask, map_point=None,
+                map_point_offset=None) -> TrackUpdateData:
         lead = mask.shape[:-1]
         N = mask.shape[-1]
         rows = 2 * n_cams * N
         dtype = pose_states.dtype
+        hybrid = map_point_offset is not None
         flat = lambda a: a.reshape((-1,) + a.shape[len(lead):])
         ps_f, ips_f, vels_f, mask_f = flat(pose_states), flat(ips), flat(vels), flat(mask)
         NB = mask_f.shape[0]
         x0 = torch.cat([ps_f.reshape(NB, N * 7),
-                        torch.zeros((NB, 1), dtype=dtype, device=ps_f.device)], dim=1)
-        J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
-
+                        torch.zeros((NB, 4 if hybrid else 1), dtype=dtype, device=ps_f.device)],
+                       dim=1)
         trail = trail_from_states(ps_f)
-        depth = torch.linalg.norm(pf - trail.p[:, 0], dim=-1)
-        max_dist = po.triangulationMaxDist
-        if max_dist > torch.finfo(dtype).max:
-            max_dist = float("inf")
-        bad_depth = (depth < po.triangulationMinDist) | (depth > max_dist)
-        tri_status = torch.where((tri_status == TRI_OK) & bad_depth, TRI_BAD_DEPTH, tri_status)
+        if hybrid:
+            pf = flat(map_point)
+            J, f = jac_map(x0, vels_f, pf)
+            tri_status = torch.full((NB,), TRI_HYBRID, dtype=torch.int64, device=pf.device)
+        else:
+            J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
+            depth = torch.linalg.norm(pf - trail.p[:, 0], dim=-1)
+            max_dist = po.triangulationMaxDist
+            if max_dist > torch.finfo(dtype).max:
+                max_dist = float("inf")
+            bad_depth = (depth < po.triangulationMinDist) | (depth > max_dist)
+            tri_status = torch.where((tri_status == TRI_OK) & bad_depth, TRI_BAD_DEPTH,
+                                     tri_status)
 
         full_mask = mask_f.repeat(1, n_cams)
         z = (trail.R @ (pf[:, None, :] - trail.p)[..., None])[..., 2, 0]
@@ -130,6 +157,13 @@ def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stere
         H[:, :, CAM:CAM + POSE_DIM * (N - 1)] = Jp[:, :, 1:].reshape(NB, rows, -1)
         if est_sft:
             H[:, :, SFT] = J[:, :, N * 7]
+        if hybrid:  # the map point's three columns from its offset (d: none)
+            rel = (torch.arange(d, device=J.device)[None, :]
+                   - flat(map_point_offset).to(torch.int64)[:, None])
+            in_block = ((rel >= 0) & (rel < 3))[:, None, :]
+            J_map = torch.gather(J[:, :, N * 7 + 1:N * 7 + 4], 2,
+                                 torch.clamp(rel, 0, 2)[:, None, :].expand(NB, rows, d))
+            H = torch.where(in_block, J_map, H)
         row_mask = full_mask.repeat_interleave(2, dim=1)
         rmf = row_mask.to(dtype)
         H = H * rmf[:, :, None]

@@ -129,7 +129,8 @@ def imu_batches(seq, n_frames, B, S=10):
 def mismatches(port, ref, float_tol, path="", out=None):
     """[(field path, description)] where ``port`` and ``ref`` (NamedTuple
     trees of numpy arrays) differ: integers and bools exactly, floats by
-    ``float_tol`` (a number, or a callable path -> number)."""
+    ``float_tol`` (a number, or a callable path -> number or an array of
+    per-element tolerances that broadcasts against the field)."""
     out = [] if out is None else out
     if port is None and ref is None:
         return out
@@ -151,6 +152,12 @@ def mismatches(port, ref, float_tol, path="", out=None):
         tol = float_tol(path) if callable(float_tol) else float_tol
         if not np.array_equal(np.isfinite(a), np.isfinite(b)):
             out.append((path, "finite masks differ"))
+        elif np.ndim(tol):
+            fin = np.isfinite(b)
+            over = (np.abs(a - b) > np.broadcast_to(tol, b.shape)) & fin
+            if over.any():
+                out.append((path, f"{int(over.sum())} entries over their tolerance, max abs diff "
+                                  f"{float(np.max(np.abs(a - b)[over])):.3g}"))
         else:
             fin = np.isfinite(b)
             d = float(np.max(np.abs(a[fin] - b[fin]))) if fin.any() else 0.0
@@ -224,7 +231,7 @@ def _tensors(frame, make):
 
 
 def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
-                        shared_frames=True, on_step=None, imus=None):
+                        shared_frames=True, on_step=None, imus=None, after_step=None):
     """Run the reference's make_batched_vio and the port's (CPU, float64
     filter) over ``frames`` (each an (H, W) array or a stereo pair of them,
     or with ``shared_frames=False`` (B, H, W) arrays, one image per lane):
@@ -233,8 +240,9 @@ def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
     tolerance), integers and bools exactly. ``imus`` (per frame, (t, gyro,
     acc, valid) arrays) defaults to ``imu_batches(seq, ...)``;
     ``on_step(vio, state, imu)``, when given, sees the port's state and IMU
-    batch before each step. Returns the number of tracked slots over all frames; raises on the
-    first field that parts."""
+    batch before each step, ``after_step(state, out)`` the port's state and
+    output after it. Returns the number of tracked slots over all frames;
+    raises on the first field that parts."""
     derived = DerivedParameters.from_parameters(p)
     n = len(frames) - 1
     rinit, rstep = r_make_batched_vio(p, derived, rcams, batch_size=B, max_tracks=max_tracks,
@@ -263,6 +271,8 @@ def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
                 + mismatches(convert.to_numpy(out), jax.tree.map(np.asarray, rout), tol,
                              f"frame {fi} output"))
         assert not diff, f"first parting: {diff[0]} (all: {diff})"
+        if after_step is not None:
+            after_step(state, out)
         tracked += int((np.asarray(rout.track_ids) >= 0).sum())
         assert np.isfinite(out.position.numpy()).all()
     return tracked
