@@ -27,7 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      level sizes; the corner response at 480x752 and 512x512; and at the
      per-lane shapes: the fused pyramid of 16 lanes x 2 cameras, the corner
      response of 16 lanes, the gather of per-lane images at every window
-     shape and level, greedy with a per-lane d2;
+     shape and level, greedy with a per-lane d2; and at the host entry
+     point's shapes (phase 7, one lane, the reference's defaults): the fused
+     pyramid of 3 levels of one frame and of a stereo pair, the gather of
+     200 windows at every window shape and level (API_GATHER_ROWS), greedy
+     at K = 400;
   4. five paths through make_batched_vio, each B=16 lanes, a float32
      filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
      frames (io.synthetic, the benchmark's worlds; mono and
@@ -48,19 +52,32 @@ Phases (any failure exits non-zero and prints no result line):
      launch one of the four kernels every path runs, a non-finite lane, an
      ATE median over 0.05 m, or a map that claimed no slot or updated no
      map point;
-  5. the kernels ranked, per path and over the five, by the time the paths
-     lose in them: the sum over input shapes of launches x (device time -
-     bound); fails on a shape launched in phase 4 and not timed in phase 3;
+  5. (after phase 7) the kernels ranked, per path and over all of them, by
+     the time the paths lose in them: the sum over input shapes of launches
+     x (device time - bound); fails on a shape launched on a path and not
+     timed in phase 3;
   6. the estimator options, each on top of stereo_sequential_hybrid, 5
      steps of the per-lane stereo input at B=16: RANDOM and ALL track
      sampling, linear triangulation, the visual update every 2nd frame, the
      visual update disabled, the batched update with the map, shared
      frames; and 20 steps of a float32 filter. Each reports its ATE; fails
-     on a non-finite lane or a host sync in a step.
+     on a non-finite lane or a host sync in a step;
+  7. the host entry point: for mono and stereo, a dataset in the
+     reference's JSONL format written with the port's io.synthetic and
+     io.jsonl.Recorder (752x480, the EuRoC-like cameras, the stereo path's
+     world), the port's CLI run() in-process over API_FRAMES frames at the
+     reference's defaults (stereo with -useStereo) with -maxFrames and
+     -outputJsonExtras, then a -timer run over API_TIMER_FRAMES frames: frames
+     in, outputs out, per-frame wall time at B=1, frames/s, ATE against the
+     dataset's ground truth, launches, the host syncs of one step and the
+     -timer stage table. Fails on a non-finite output, fewer outputs than
+     frames - 3, an ATE over 0.05 m, a path kernel not launched or a host
+     sync in a step.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -119,6 +136,23 @@ GATHER_ROWS = {
     (512, 512): ((3, 18, 0), (3, 18, 1), (3, 18, 2), (1, 50, 2), (1, 34, 1), (1, 34, 0),
                  (2, 33, 0)),
 }
+# the host entry point (phase 7): the CLI at the reference's defaults, one
+# lane (B = 1), maxTracks T = 200 windows a gather, pyrLKWindowSize 31 over a
+# 4-level pyramid (pyrLKMaxLevel 3). The gathers it launches on a 480x752
+# frame: (images, window, pyramid level). The LK template (level, Ix, Iy) at
+# 34x34 on levels 0-3; the temporal LK's search at 60x60 on its top level
+# (level 3: its 16-pixel margin is clamped to 13 on the 60x94 level) and
+# 50x50 below; the stereo LK's (two levels) at 66x66 on level 1 and 50x50
+# on level 0; the subpixel refinement's Ix and Iy at 33x33 on level 0.
+API_T = 200
+API_LEVELS = 3
+API_GATHER_ROWS = ((3, 34, 0), (3, 34, 1), (3, 34, 2), (3, 34, 3), (1, 60, 3), (1, 50, 2),
+                   (1, 50, 1), (1, 50, 0), (1, 66, 1), (2, 33, 0))
+API_GREEDY_K = 2 * API_T  # the detector's candidates, max(2 T, 128)
+API_CONFIGS = ("mono", "stereo")
+API_FRAMES = 20  # frames each CLI run reads
+API_TIMER_FRAMES = 8  # frames of each -timer run
+API_SYNC_STEP = 3  # the step whose host syncs are counted
 ATE_LIMIT_M = 0.05
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
@@ -583,6 +617,7 @@ def check_kernels(dev):
     row["shapes"][shape_key((B, K, "per-lane"))] = shape_row(srow)
 
     check_per_lane(dev, g, results, timed, shape_row)
+    check_api_shapes(dev, g, results, timed, shape_row)
 
     say(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
         f"/ pyramid-and-gradients cases equal their plain versions")
@@ -657,6 +692,84 @@ def check_per_lane(dev, g, results, timed, shape_row):
             f"({100 * read_px / (B * h * w):.1f}%)")
         results["patch_gather"]["shapes"][shape_key((k, B, n, ps, h, w, "per-lane"))] = \
             shape_row(srow)
+
+
+def check_api_shapes(dev, g, results, timed, shape_row):
+    """Phase 3 at the shapes the host entry point (phase 7) gives the
+    kernels at the reference's defaults, one lane: the fused pyramid of a
+    480x752 frame (mono) and of a stereo pair at API_LEVELS levels in one
+    launch, the gather of API_T windows at every row of API_GATHER_ROWS on
+    the levels and gradients of that pyramid, greedy over API_GREEDY_K
+    candidates; each against its plain version exactly. (The corner response
+    of one 480x752 lane is the main-path row.) Rows join the kernels' shape
+    tables under the keys the wrappers count launches by."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    H, W = FRAME_HW["stereo"]
+    L = API_LEVELS
+    frames = torch.rand((1, 2, H, W), generator=g).to(dev)  # one lane, two cameras
+    cams = (frames[:, 0], frames[:, 1])
+    lhw = [(H, W)]
+    for _ in range(L):
+        lhw.append(((lhw[-1][0] + 1) // 2, (lhw[-1][1] + 1) // 2))
+    blur = sum(9 * lhw[l - 1][0] * w + 9 * h * w for l, (h, w) in enumerate(lhw) if l > 0)
+    grad = sum(2 * 10 * h * w for h, w in lhw)
+    for n in (1, 2):
+        images = cams[:n]
+        # bytes: read the n frames, write their levels 1..L and both
+        # gradients of the first frame's levels 0..L
+        nbytes = 4 * (n * H * W + n * sum(h * w for h, w in lhw[1:])
+                      + 2 * sum(h * w for h, w in lhw))
+        srow = timed(f"pyramid_scharr ({n} camera{'s' if n > 1 else ''}, one lane, {H}x{W}, "
+                     f"{L} levels, gradients of levels 0-{L}, one launch)", fused_err(images, L),
+                     0.0, lambda: ops.pyramid_with_gradients(images, L), None, nbytes,
+                     n * blur + grad, plain=lambda: ops.pyramid_with_gradients_plain(images, L))
+        results["pyramid_scharr"]["shapes"][shape_key((n, 1, H, W, L))] = shape_row(srow)
+
+    (lv, _), grads = ops.pyramid_with_gradients(cams, L)
+    left = cams[0]
+    for k, ps, level in API_GATHER_ROWS:
+        base = (left, *lv)[level]
+        planes = {3: (base, *grads[level]), 1: (base,), 2: grads[level]}[k]
+        h, w = base.shape[-2:]
+        y0 = torch.randint(0, h - ps + 1, (1, API_T), generator=g, dtype=torch.int32).to(dev)
+        x0 = torch.randint(0, w - ps + 1, (1, API_T), generator=g, dtype=torch.int32).to(dev)
+        r = torch.arange(ps, device=dev)
+        idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+               + (x0.long()[..., None] + r)[..., None, :]).reshape(1, -1).expand(k, 1, -1)
+        flat = torch.stack([p.reshape(1, h * w) for p in planes])
+        covered = torch.zeros((1, h * w), dtype=torch.bool, device=dev)
+        covered.scatter_(1, idx[0], True)
+        read_px = int(covered.sum())
+        got = ops.gather_patches(planes, y0, x0, ps)
+        err = max(max_err(a, ops.gather_patches_plain(im, y0, x0, ps)) for a, im in zip(got, planes))
+        if not torch.equal(torch.gather(flat, 2, idx).reshape(k, 1, API_T, ps, ps),
+                           torch.stack(got)):
+            raise AssertionError(f"patch_gather one lane {ps}x{ps} on {h}x{w}: the torch.gather "
+                                 f"yardstick disagrees")
+        srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, one lane, {API_T} windows "
+                     f"of {ps}x{ps} on {h}x{w})", err, 0.0,
+                     lambda: ops.gather_patches(planes, y0, x0, ps),
+                     lambda: torch.gather(flat, 2, idx),
+                     4 * (k * API_T * ps * ps + k * read_px + 2 * API_T), 0,
+                     plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in planes])
+        say(f"  the windows cover {read_px} of the level's {h * w} pixels "
+            f"({100 * read_px / (h * w):.1f}%)")
+        results["patch_gather"]["shapes"][shape_key((k, 1, API_T, ps, h, w, "shared"))] = \
+            shape_row(srow)
+
+    K = API_GREEDY_K
+    d2, ok, min_d2 = greedy_inputs(g, 2, K, False, False, dev)
+    d2, ok = d2[1:].contiguous(), ok[1:].contiguous()  # the lane with eligible candidates
+    srow = timed(f"greedy_nms, one lane, K={K}",
+                 float((ops.greedy_min_distance(d2, ok, min_d2)
+                        != ops.greedy_min_distance_plain(d2, ok, min_d2)).sum()), 0.0,
+                 lambda: ops.greedy_min_distance(d2, ok, min_d2), None, 4 * K * K + 2 * K,
+                 K * (K - 1) // 2, plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
+                 plain_reps=10)
+    results["greedy_nms"]["shapes"][shape_key((1, K, "shared"))] = shape_row(srow)
 
 
 def rank(rows, path=None):
@@ -816,7 +929,6 @@ def host_syncs(step):
     """Run ``step()`` under torch.cuda.set_sync_debug_mode("warn"): (its
     result, the host syncs it made, counted by the Python line that made
     each)."""
-    import collections
     import warnings
 
     import torch
@@ -995,6 +1107,191 @@ def run_options(dev):
     return syncs_by_option
 
 
+def write_api_dataset(out_dir, config, frames):
+    """A dataset in the reference's JSONL format (data.jsonl with the
+    cameras' imuToCamera lines, gyroscope and accelerometer samples, frames
+    with their cameraParameters, ground truth; frame_*_cam*.npy) of
+    ``frames`` frames: the world and seed of the stereo path (path_inputs:
+    200 Hz IMU, 20 frames/s, 500 landmarks 6 m out), seen at 752x480 by the
+    cameras of the EuRoC-like presets (models.euroc_mono / euroc_stereo:
+    f = 458, the principal point at the centre; the second camera 0.11 m
+    along -x), and the parameters.txt of tools/make_synthetic_dataset.py."""
+    import os
+
+    from hybvio_tpu_torch.io.jsonl import Recorder
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence, render_view
+    from hybvio_tpu_torch.models import euroc_mono, euroc_stereo
+
+    H, W = FRAME_HW[config]
+    _, _, cams = (euroc_stereo if config == "stereo" else euroc_mono)(W, H)
+    second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
+    second[0, 3] = -0.11
+    exts = (SYNTH_IMU_TO_CAMERA, second)[:len(cams)]
+    seq = generate_sequence(duration=frames / 20.0, imu_rate=200.0, frame_rate=20.0,
+                            n_landmarks=500, landmark_radius=6.0, gyro_noise=5e-4,
+                            acc_noise=5e-3, seed=0)
+    rec = Recorder(out_dir)
+    for ci, ext in enumerate(exts):
+        rec.f.write(json.dumps({"imuToCamera": [list(r) for r in np.asarray(ext)],
+                                "cameraInd": ci}) + "\n")
+    with open(os.path.join(out_dir, "parameters.txt"), "w") as pf:
+        pf.write("ransac2Threshold 8.0;\nransac5Threshold 4.0;\nvisualR 0.5;\n")
+    frame_set = set(seq.frame_sample_idx.tolist())
+    for k in range(len(seq.times)):
+        t = float(seq.times[k])
+        rec.gyro(t, seq.gyro[k])
+        rec.acc(t, seq.acc[k])
+        if k in frame_set:
+            views = [render_view(seq.landmarks, seq.pos[k], seq.quat[k], ext, c.fx, c.fy, c.cx,
+                                 c.cy, W, H, blob_sigma=1.4) for ext, c in zip(exts, cams)]
+            rec.frame(t, views, [{"focalLengthX": c.fx, "focalLengthY": c.fy,
+                                  "principalPointX": c.cx, "principalPointY": c.cy}
+                                 for c in cams])
+            rec.ground_truth(t, seq.pos[k], seq.quat[k])
+    rec.close()
+    return rec.frame_count
+
+
+def run_cli(dev, config, dataset, out_path, frames, timer=False):
+    """Phase 7, one run of the port's CLI ``run()`` in-process on the card
+    at the reference's defaults (stereo with -useStereo), with -maxFrames
+    and -outputJsonExtras (and -timer): (launches, launches by input shape,
+    host syncs of step API_SYNC_STEP by line (None with -timer), wall
+    seconds of each frame step, its standard error). A frame's wall time is that of the API's
+    ``_process_frame``: queueing its step and retiring the frame before it
+    (which waits for that frame's work on the card); the host syncs are
+    those of ``_step_frame`` (the step without the retirement)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.cli.main import run
+
+    argv = [f"-i={dataset}", f"-o={out_path}", f"-maxFrames={frames}", "-outputJsonExtras"]
+    argv += (["-useStereo"] if config == "stereo" else []) + (["-timer"] if timer else [])
+    process, step = VioApi._process_frame, VioApi._step_frame
+    wall, counted = [], {}
+
+    def timed_process(self, synced):
+        stepped = self._state is not None
+        t0 = time.perf_counter()
+        process(self, synced)
+        if stepped:
+            wall.append(time.perf_counter() - t0)
+
+    def counted_step(self, *args):
+        if not timer and len(wall) == API_SYNC_STEP and "syncs" not in counted:
+            counted["syncs"] = host_syncs(lambda: step(self, *args))[1]
+        else:
+            step(self, *args)
+
+    err = io.StringIO()
+    VioApi._process_frame, VioApi._step_frame = timed_process, counted_step
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stderr(err):
+            rc = run(argv, device=dev)
+        torch.cuda.synchronize()
+        launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    finally:
+        VioApi._process_frame, VioApi._step_frame = process, step
+    if rc != 0:
+        raise RuntimeError(f"the CLI exited with {rc}: {err.getvalue()[-2000:]}")
+    if not timer and "syncs" not in counted:
+        raise AssertionError(f"cli {config}: step {API_SYNC_STEP} was never run")
+    return launches, by_shape, counted.get("syncs"), wall, err.getvalue()
+
+
+def run_api_paths(dev):
+    """Phase 7, the host entry point: for mono and stereo, a dataset in the
+    reference's format (write_api_dataset), the port's CLI over its
+    API_FRAMES frames and then over API_TIMER_FRAMES with -timer (run_cli).
+    Prints frames in, outputs out, per-frame wall time (median, p90 and the
+    first step), frames/s, ATE against the dataset's ground truth (the
+    outputs' positions against the ground truth at their times, aligned),
+    launches, the host syncs of one step and the -timer stage table. Fails
+    on a non-finite output, fewer outputs than frames - 3 (the first frame
+    initializes, and the synchronizer holds the last two back at the end of
+    the input, as the reference's does), an ATE over ATE_LIMIT_M, a path
+    kernel not launched or a host sync in a step. Returns {path: (launches,
+    launches by shape, host syncs)}."""
+    import os
+    import shutil
+    import tempfile
+
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+
+    runs = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")  # the kernels' too
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_", dir=build)
+    try:
+        for config in API_CONFIGS:
+            t0 = time.perf_counter()
+            ds = f"{tmp}/{config}"
+            n_written = write_api_dataset(ds, config, API_FRAMES)
+            gt = [json.loads(l) for l in open(f"{ds}/data.jsonl") if "groundTruth" in l]
+            gt_t = np.array([j["time"] for j in gt])
+            gt_p = np.array([[j["groundTruth"]["position"][a] for a in "xyz"] for j in gt])
+            H, W = FRAME_HW[config]
+            say(f"cli {config}: wrote a {n_written}-frame dataset ({W}x{H}, "
+                f"{2 if config == 'stereo' else 1} camera(s)) in {time.perf_counter() - t0:.1f} s")
+            for timer in (False, True):
+                frames = API_TIMER_FRAMES if timer else API_FRAMES
+                name = f"api_{config}{'_timer' if timer else ''}"
+                out_path = f"{tmp}/{name}.jsonl"
+                t0 = time.perf_counter()
+                launches, by_shape, syncs, wall, err = run_cli(dev, config, ds, out_path, frames,
+                                                               timer)
+                secs = time.perf_counter() - t0
+                lines = [json.loads(l) for l in open(out_path)]
+                est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
+                t_out = np.array([j["time"] for j in lines])
+                floats = np.array([[*j["position"].values(), *j["orientation"].values(),
+                                    *j["velocity"].values(),
+                                    *np.ravel(j["positionCovariance"])] for j in lines])
+                finite = bool(len(lines)) and bool(np.isfinite(floats).all())
+                gt_i = np.stack([np.interp(t_out, gt_t, gt_p[:, a]) for a in range(3)], axis=1)
+                ate = float(ate_rmse(est, gt_i)) if finite and len(lines) >= 3 else float("nan")
+                # the first step is the warm-up; the counted step runs under the sync check
+                steady = [w for i, w in enumerate(wall) if i not in (0, API_SYNC_STEP)]
+                med = 1e3 * statistics.median(steady)
+                p90 = 1e3 * float(np.percentile(steady, 90))
+                statuses = [j["status"] for j in lines]
+                say(f"cli {name}: {frames} frames in, {len(lines)} outputs out in {secs:.1f} s; "
+                    f"per-frame wall time at B=1: median {med:.2f} ms, p90 {p90:.2f} ms, first "
+                    f"step {1e3 * wall[0]:.1f} ms, {len(steady) / sum(steady):.2f} frames/s over "
+                    f"{len(steady)} steps; ATE {ate:.4f} m over {len(lines)} outputs; statuses "
+                    f"{dict(sorted(collections.Counter(statuses).items()))}")
+                say(f"cli {name}: host syncs in step {API_SYNC_STEP} (the retirement excluded): "
+                    + ("not counted: the -timer stages wait on the card by design" if timer else
+                       f"{sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
+                    + f"; kernel launches {json.dumps(launches)}")
+                say(f"cli {name}: kernel launches by input shape " + json.dumps(
+                    {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+                if timer:
+                    table = err[err.index("--- per-frame timings"):].strip().splitlines()
+                    for line in table:
+                        say(f"cli {name} -timer: {line.strip()}")
+                if not finite:
+                    raise AssertionError(f"cli {name}: a non-finite output")
+                if len(lines) < frames - 3:
+                    raise AssertionError(f"cli {name}: {len(lines)} outputs for {frames} frames")
+                if not ate <= ATE_LIMIT_M:
+                    raise AssertionError(f"cli {name}: ATE {ate} m > {ATE_LIMIT_M} m")
+                missing = [k for k in PATH_KERNELS if not launches[k]]
+                if missing:
+                    raise AssertionError(f"cli {name}: kernels not launched: {missing}")
+                runs[name] = (launches, by_shape, 0 if timer else sum(syncs.values()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -1026,28 +1323,30 @@ def main() -> int:
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
         runs = {config: run_path(dev, config) for config in PATHS}
+        option_syncs = run_options(dev)
+        runs.update(run_api_paths(dev))
         torch.cuda.synchronize()
+        paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": sum(runs[c][0][name] for c in PATHS),
-                 "launches_by_path": {c: runs[c][0][name] for c in PATHS}, **kern[name]}
+                 "launches": sum(runs[c][0][name] for c in paths),
+                 "launches_by_path": {c: runs[c][0][name] for c in paths}, **kern[name]}
                 for name, (src, rep) in KERNELS.items()]
-        for r in rows:  # each input shape timed in phase 3 or launched in phase 4, by path
+        for r in rows:  # each input shape timed in phase 3 or launched on a path, by path
             counts = {c: {shape_key(sh): v for (k, sh), v in runs[c][1].items() if k == r["name"]}
-                      for c in PATHS}
+                      for c in paths}
             keys = set(r["shapes"]).union(*counts.values())
             r["shapes"] = {key: {**r["shapes"].get(key, {}),
-                                 "launches": {c: counts[c].get(key, 0) for c in PATHS}}
+                                 "launches": {c: counts[c].get(key, 0) for c in paths}}
                            for key in sorted(keys)}
-        rankings = {c: rank(rows, c) for c in PATHS}
-        rankings[f"the {len(PATHS)} paths"] = rank(rows)
-        option_syncs = run_options(dev)
-    except (AssertionError, RuntimeError, ValueError, TypeError) as e:
+        rankings = {c: rank(rows, c) for c in paths}
+        rankings[f"the {len(paths)} paths"] = rank(rows)
+    except (AssertionError, RuntimeError, ValueError, TypeError, NotImplementedError) as e:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in PATHS)
+    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in paths)
         + "; options: " + ", ".join(f"{o} {n}" for o, n in option_syncs.items()))
-    synced = [c for c in PATHS if runs[c][2]] + [o for o, n in option_syncs.items() if n]
+    synced = [c for c in paths if runs[c][2]] + [o for o, n in option_syncs.items() if n]
     if synced:
         return fail(f"host syncs in the step of {synced}")
     for which, ranking in rankings.items():

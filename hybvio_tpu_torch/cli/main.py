@@ -1,0 +1,470 @@
+"""Offline CLI runner (port of the reference package's ``cli/main.py``, the
+reference `main` binary equivalent), on the card unless asked for the CPU.
+
+Usage:
+    python -m hybvio_tpu_torch.cli.main -i=<dataset_dir> [-o=<output.jsonl>]
+        [-parametersPath=<parameters.txt>] [-calibrationPath=<calibration.json>]
+        [any -paramName=value]   (-help lists the full flag surface)
+    HYBVIO_PLATFORM=cpu python -m hybvio_tpu_torch.cli.main ...   (on the CPU)
+
+Flag surface = the reference `main` binary's cmd parameters
+(config/cmd_params_generated); short aliases follow the reference (-c =
+displayVideo, -p = displayPose).
+
+Dataset directory layout (reference: src/commandline/main.cpp:259-397):
+    data.jsonl                 sensor + frame metadata (+ embedded calibration)
+    parameters.txt / vio_config.yaml   optional parameters
+    calibration.json           optional calibration
+    frame_*.npy or an image directory for frames
+
+Configuration precedence mirrors the reference (main.cpp:298-327):
+    data.jsonl-embedded -> parameters.txt/vio_config.yaml -> calibration.json
+    -> command line (last, highest).
+
+Not ported (raise NotImplementedError naming the module): EuRoC ASL input
+(io/euroc.py), CSV input (io/jsonl.py read_csv_events), video containers
+(io/video.py VideoFileSource), the display and visualization flags
+(api/visualizations.py), SLAM (-useSlam, its viewers and -slamMapPosesPath),
+per-frame varying intrinsics.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+
+PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def find_frame_source_path(dataset_dir: str) -> Optional[str]:
+    for ext in (".mp4", ".mov", ".avi"):
+        p = os.path.join(dataset_dir, "data" + ext)
+        if os.path.exists(p):
+            return p
+    if os.path.exists(os.path.join(dataset_dir, "frame_000000_cam0.npy")):
+        return dataset_dir
+    for sub in ("frames", "cam0/data", "mav0/cam0/data"):
+        p = os.path.join(dataset_dir, sub)
+        if os.path.isdir(p):
+            return p
+    return None
+
+
+def _platform_device(device):
+    """The device to run on: ``device`` if given, else HYBVIO_PLATFORM
+    (cpu | cuda | gpu), else the card."""
+    if device is not None:
+        return device
+    platform = os.environ.get("HYBVIO_PLATFORM")
+    if not platform:
+        return None
+    if platform.lower() not in PLATFORMS:
+        raise ValueError(f"HYBVIO_PLATFORM={platform}: the port runs on "
+                         f"{' or '.join(sorted(PLATFORMS))}")
+    return PLATFORMS[platform.lower()]
+
+
+def run(argv=None, device=None) -> int:
+    """The offline runner; ``device`` ("cpu" or "cuda") takes precedence over
+    HYBVIO_PLATFORM (same name and meaning as the reference's), and the card
+    is the default."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = _platform_device(device)
+
+    from ..config import Parameters
+    from ..config.loader import apply_argv, apply_calibration_json, apply_parameters_text, apply_yaml
+    from ..io import jsonl as jio
+    from ..io.video import open_frame_source
+
+    # the full reference CLI surface (groups main/viewer/slam); keys are
+    # flat (long name or short alias) and normalize to long names here.
+    # NOTE reference short semantics: -c = displayVideo, -p = displayPose
+    # (NOT calibration/parameters paths).
+    from ..config.cmd_params_generated import (CMD_PARAMS, SHORT_TO_NAME,
+                                               flat_keys, help_text)
+
+    _SHORTS = {short: name for short, (_g, name) in SHORT_TO_NAME.items()}
+    _LONG_KEYS = flat_keys() | {"visualizationPath", "interactive"}
+    # display flags render visualizations (api/visualizations.py), which are
+    # not ported; viewer-group params (the 3D viewer's settings in the
+    # reference) are accepted for command-line compatibility and unused
+    _DISPLAY_KEYS = {n for n in CMD_PARAMS["main"]
+                     if n.startswith("display")} | {"visualUpdateViewer", "visualizationPath"}
+    _SLAM_KEYS = {"displayKeyframe", "visualizeOrbMatching", "visualizeLoopOrbMatching",
+                  "visualizeOrbPyramid", "visualizeOrbs", "visualizeMapPointSearch",
+                  "slamMapPosesPath"}
+    main_flags = {}
+    rest = []
+    for a in argv:
+        body = a.lstrip("-")
+        k, _, v = body.partition("=")
+        k = _SHORTS.get(k, k)
+        if k in ("help", "h"):
+            print(__doc__)
+            print(help_text())
+            return 0
+        if k in _LONG_KEYS:
+            main_flags[k] = v if v else "true"
+        else:
+            rest.append(a)
+    if "inputPath" not in main_flags:
+        print(__doc__)
+        return 2
+    shown = sorted(k for k in _DISPLAY_KEYS | _SLAM_KEYS
+                   if main_flags.get(k) not in (None, "false", "NONE"))
+    if shown:
+        raise NotImplementedError(f"-{', -'.join(shown)}: the visualizations "
+                                  "(api/visualizations.py) and SLAM are not ported")
+
+    from ..utils.logging import setup_logging
+
+    setup_logging(int(main_flags.get("logLevel", "0") if main_flags.get("logLevel", "0") != "true" else 1))
+
+    dataset = main_flags["inputPath"]
+    data_jsonl = os.path.join(dataset, "data.jsonl")
+    if dataset.endswith((".mp4", ".mov")) and os.path.exists(
+            os.path.splitext(dataset)[0] + ".csv"):
+        raise NotImplementedError(f"{dataset}: CSV input (io/jsonl.py read_csv_events) is not "
+                                  "ported")
+    if not os.path.exists(data_jsonl):
+        for cand in (dataset, os.path.join(dataset, "mav0")):
+            if os.path.isdir(os.path.join(cand, "cam0")):
+                raise NotImplementedError(f"{cand}: EuRoC ASL input (io/euroc.py) is not ported")
+        if os.path.exists(os.path.join(dataset, "data.csv")):
+            raise NotImplementedError(f"{dataset}: CSV input (io/jsonl.py read_csv_events) is "
+                                      "not ported")
+        print(f"error: no data.jsonl in {dataset}", file=sys.stderr)
+        return 1
+    params = Parameters()
+
+    # precedence: data.jsonl-embedded -> parameters/yaml -> calibration -> argv
+    jio.set_parameters_from_data(params, data_jsonl)
+    ppath = main_flags.get("parametersPath")
+    if not ppath:
+        for cand in ("vio_config.yaml", "parameters.txt"):
+            c = os.path.join(dataset, cand)
+            if os.path.exists(c):
+                ppath = c
+                break
+    if ppath and os.path.exists(ppath):
+        text = open(ppath).read()
+        if ppath.endswith((".yaml", ".yml")):
+            apply_yaml(params, text)
+        else:
+            apply_parameters_text(params, text)
+    cpath = main_flags.get("calibrationPath") or os.path.join(dataset, "calibration.json")
+    if os.path.exists(cpath):
+        apply_calibration_json(params, open(cpath).read())
+    unparsed = apply_argv(params, rest)
+    if unparsed:
+        # unused-key error parity (reference: ParameterParser unused-key
+        # checking, src/util/parameter_parser.hpp:14-28)
+        print(f"error: unrecognized arguments: {unparsed}", file=sys.stderr)
+        return 2
+
+    src_path = find_frame_source_path(dataset)
+    if src_path is None:
+        print(f"error: no frame source found in {dataset}", file=sys.stderr)
+        return 1
+    frames = open_frame_source(
+        src_path,
+        reader_threads=bool(params.tracker.videoReaderThreads),
+        convert_to_gray=bool(params.tracker.convertVideoToGray))
+    H, W = frames.shape
+
+    # per-frame intrinsics embedded in the input (reference: the first
+    # frame's cameraParameters configure the camera, api.cpp:528-628 via
+    # input_jsonl.cpp:119-199) — applied only when not set by other sources
+    if params.tracker.focalLength < 0 and params.tracker.focalLengthX < 0:
+        for ev in jio.read_jsonl_events(data_jsonl):
+            if ev.kind == jio.FRAME and ev.frames:
+                fr = ev.frames[0]
+                if fr.focal_length_x > 0:
+                    params.tracker.focalLengthX = fr.focal_length_x
+                    params.tracker.focalLengthY = (
+                        fr.focal_length_y if fr.focal_length_y > 0
+                        else fr.focal_length_x)
+                    if fr.principal_point_x >= 0:
+                        params.tracker.principalPointX = fr.principal_point_x
+                        params.tracker.principalPointY = fr.principal_point_y
+                break
+
+    # videoRotation: rotate incoming frames (the imuToCamera adjustment was
+    # applied during parameter parsing; reference: parameters_base.cpp:38-66)
+    rot_steps = getattr(params, "videoRotationSteps", 0) % 4
+
+    def maybe_rotate(img):
+        return np.rot90(img, k=-rot_steps) if rot_steps else img
+
+    if rot_steps % 2 == 1:
+        W, H = H, W
+
+    # targetFrameWidth: scale the longer side down to the target (the
+    # -Upsample variant also allows scaling up) and scale intrinsics with it
+    # (reference: main.cpp:334-394 resolution probe + scaling)
+    tfw = int(main_flags.get("targetFrameWidth", "0") or 0)
+    tfw_up = int(main_flags.get("targetFrameWidthUpsample", "0") or 0)
+    target = tfw_up if tfw_up > 0 else tfw
+    frame_scale = 1.0
+    if target > 0:
+        frame_scale = target / float(max(W, H))
+        if tfw_up <= 0:
+            frame_scale = min(frame_scale, 1.0)
+    intr_scale = (1.0, 1.0)  # per-frame intrinsics follow the frame scaling
+    if frame_scale != 1.0:
+        from ..frontend.image_utils import resize_bilinear_np
+
+        newW, newH = round(W * frame_scale), round(H * frame_scale)
+        sx, sy = newW / W, newH / H
+        intr_scale = (sx, sy)
+        for name, s in (("focalLength", sx), ("focalLengthX", sx),
+                        ("focalLengthY", sy), ("principalPointX", sx),
+                        ("principalPointY", sy),
+                        ("secondFocalLengthX", sx), ("secondFocalLengthY", sy),
+                        ("secondPrincipalPointX", sx),
+                        ("secondPrincipalPointY", sy)):
+            v = getattr(params.tracker, name, -1.0)
+            if v is not None and v > 0:
+                setattr(params.tracker, name, v * s)
+        W, H = newW, newH
+        _rot0 = maybe_rotate
+
+        def maybe_rotate(img):  # noqa: F811
+            # rotate first: newH/newW are post-rotation dimensions
+            return resize_bilinear_np(_rot0(img), newH, newW)
+
+    from ..api.vio import VioApi
+
+    max_frames = int(main_flags.get("maxFrames", "0") or 0)
+    out_file = open(main_flags["outputPath"], "w") if main_flags.get("outputPath") else None
+    with_trail = main_flags.get("outputType") == "tail" or params.odometry.outputJsonPoseTrail
+
+    api = VioApi(params, W, H, device=device)
+    if main_flags.get("timer"):
+        api.time_stats.enabled = True
+    n_out = [0]
+    t_start = time.time()
+
+    # session recording (reference: -recordingPath / -videoRecordingPath via
+    # jsonl-recorder, api.cpp:97-101,631-710)
+    recorder = None
+    if main_flags.get("recordingPath") or main_flags.get("videoRecordingPath"):
+        from ..io.jsonl import Recorder
+
+        rpath = main_flags.get("recordingPath") or main_flags.get("videoRecordingPath")
+        recorder = Recorder(rpath, save_frames=bool(main_flags.get("videoRecordingPath")))
+        if main_flags.get("videoRecordingPath") and main_flags.get("recordingPath") is None:
+            recorder.dir = main_flags["videoRecordingPath"] if not main_flags["videoRecordingPath"].endswith(
+                ".jsonl") else os.path.dirname(main_flags["videoRecordingPath"]) or "."
+
+    # point cloud CSV (reference: writePointCloudToCsv, main.cpp:399-408)
+    pc_file = open(main_flags["pointCloudOutputPath"], "w") if main_flags.get("pointCloudOutputPath") else None
+    prev_gray = [None]
+    varying_intrinsics = [False]  # latches once a frame's lens differs
+
+    def as_f32_tensor(a):
+        # normalized [0,1] view for host-side preprocessing (uint8 frame
+        # sources are raw 0-255; see io/video.py load_image_file)
+        import torch
+
+        arr = torch.as_tensor(np.ascontiguousarray(a))
+        if not arr.is_floating_point():
+            return arr.to(torch.float32) / 255.0
+        return arr.to(torch.float32)
+
+    def on_output(out):
+        n_out[0] += 1
+        if out_file:
+            extras = None
+            if params.odometry.outputJsonExtras:
+                # reference extras shape (api.cpp:817-860); BAT here is the
+                # 3-dim diagonal accelerometer-transform part of our state
+                bcd = out.bias_covariance_diagonal
+                extras = {
+                    "status": out.status,
+                    "positionCovariance": [
+                        list(map(float, r)) for r in out.position_covariance],
+                    "velocityCovariance": [
+                        list(map(float, r)) for r in out.velocity_covariance],
+                    "focalLength": float(
+                        params.tracker.focalLength
+                        if params.tracker.focalLength > 0
+                        else params.tracker.focalLengthX),
+                    "biasMean": {
+                        "gyroscopeAdditive": list(map(float, out.bias_gyro)),
+                        "accelerometerAdditive": list(map(float, out.bias_acc)),
+                    },
+                    "biasCovarianceDiagonal": {
+                        "gyroscopeAdditive": list(map(float, bcd[0:3])),
+                        "accelerometerAdditive": list(map(float, bcd[3:6])),
+                        "accelerometerTransform": list(map(float, bcd[6:9])),
+                    },
+                    "stationaryVisual": out.stationary_visual,
+                }
+            out_file.write(out.as_json(with_trail, extras) + "\n")
+        if pc_file is not None and len(out.point_cloud):
+            for row in out.point_cloud:
+                pc_file.write(
+                    f"{out.t},{int(row[0])},{row[1]},{row[2]},{row[3]}\n")
+
+    api.on_output = on_output
+
+    # interactive command queue (reference: commandline/command_queue.cpp +
+    # main.cpp key handling; headless here: keys read from stdin). -stepMode
+    # pauses before every frame until a key/newline arrives.
+    cq = None
+    if main_flags.get("stepMode") or main_flags.get("interactive"):
+        import threading
+
+        from .command_queue import CommandQueue
+
+        cq = CommandQueue()
+        cq.step_mode = bool(main_flags.get("stepMode"))
+
+        def read_keys():
+            while True:
+                line = sys.stdin.readline()
+                if not line:  # EOF: leave step mode so the run can finish
+                    cq.step_mode = False
+                    cq._step_event.set()
+                    return
+                cq.push_key(line.strip()[:1] if line.strip() else " ")
+
+        threading.Thread(target=read_keys, daemon=True).start()
+
+    def handle_commands() -> bool:
+        """Dispatch queued commands; returns False on QUIT."""
+        from .command_queue import Command
+
+        while True:
+            cmd = cq.poll()
+            if cmd == Command.NONE:
+                return True
+            if cmd == Command.QUIT:
+                return False
+            if cmd == Command.POSE and api.last_frame_output is not None:
+                o = api.last_frame_output
+                print(f"pose: p={np.asarray(o.position)} "
+                      f"q={np.asarray(o.orientation)}", file=sys.stderr)
+            elif cmd == Command.LOCK_BIASES:
+                api.lock_biases()
+                print("biases locked", file=sys.stderr)
+            elif cmd == Command.CONDITION_ON_LAST_POSE:
+                api.condition_on_last_pose()
+                print("conditioned on last pose", file=sys.stderr)
+
+    n_frames = 0
+    for ev in jio.read_jsonl_events(data_jsonl):
+        if cq is not None:
+            if ev.kind == jio.FRAME:
+                cq.wait_for_step(timeout=300.0)
+            if not handle_commands():
+                break
+        if ev.kind == jio.GYROSCOPE:
+            if recorder is not None:
+                recorder.gyro(ev.t, ev.values)
+            api.add_gyro(ev.t, ev.values)
+        elif ev.kind == jio.ACCELEROMETER:
+            if recorder is not None:
+                recorder.acc(ev.t, ev.values)
+            api.add_acc(ev.t, ev.values)
+        elif ev.kind == jio.ECHO:
+            if ev.raw:
+                if recorder is not None:
+                    recorder.f.write(json.dumps(ev.raw) + "\n")
+                api.add_echo(ev.raw)
+        elif ev.kind == jio.FRAME:
+            num = ev.frames_index if ev.frames_index >= 0 else n_frames
+            # camera index selection (reference: main.cpp:251-253
+            # tracker.leftCameraId/rightCameraId)
+            cam_l = int(params.tracker.leftCameraId)
+            cam_r = int(params.tracker.rightCameraId)
+            img = frames.frame(num, cam_l)
+            img2 = (frames.frame(num, cam_r)
+                    if len(ev.frames) > 1 and params.tracker.useStereo else None)
+            img = maybe_rotate(img)
+            img2 = maybe_rotate(img2) if img2 is not None else None
+            # intensity equalization preprocessing (reference:
+            # main.cpp:763-777 matchIntensities on successive frames and on
+            # the stereo pair)
+            if params.tracker.matchSuccessiveIntensities > 0.0 and prev_gray[0] is not None:
+                from ..frontend.image_utils import match_intensities
+
+                img = match_intensities(
+                    as_f32_tensor(prev_gray[0]), as_f32_tensor(img),
+                    params.tracker.matchSuccessiveIntensities).numpy()
+            if img2 is not None and params.tracker.matchStereoIntensities:
+                from ..frontend.image_utils import match_intensities
+
+                img2 = match_intensities(as_f32_tensor(img), as_f32_tensor(img2)).numpy()
+            prev_gray[0] = img
+            if recorder is not None:
+                recorder.frame(
+                    ev.t, [img] if img2 is None else [img, img2])
+            if img2 is not None:
+                api.add_frame_stereo(ev.t, img, img2)
+            else:
+                # per-frame VARYING intrinsics (reference: the JSONL reader
+                # updates the camera from every frame's cameraParameters,
+                # input_jsonl.cpp:119-199 -> addFrameMonoVarying,
+                # internal.hpp:216-230), from the first frame whose lens
+                # differs from the session camera; not ported, so such an
+                # input raises rather than running with the wrong lens
+                fr0 = ev.frames[0] if ev.frames else None
+                if fr0 is not None and fr0.focal_length_x > 0:
+                    fx = fr0.focal_length_x * intr_scale[0]
+                    fy = (fr0.focal_length_y if fr0.focal_length_y > 0
+                          else fr0.focal_length_x) * intr_scale[1]
+                    cx = (fr0.principal_point_x * intr_scale[0]
+                          if fr0.principal_point_x >= 0 else -1.0)
+                    base = api.cameras[0]
+                    if not varying_intrinsics[0]:
+                        varying_intrinsics[0] = (
+                            abs(fx - base.fx) > 1e-6 * fx
+                            or abs(fy - base.fy) > 1e-6 * fy
+                            or (cx >= 0 and abs(cx - base.cx) > 1e-6 * max(cx, 1.0)))
+                    if varying_intrinsics[0]:
+                        api.add_frame_mono_varying(ev.t, img, None)
+                    else:
+                        api.add_frame_mono(ev.t, img)
+                else:
+                    api.add_frame_mono(ev.t, img)
+            n_frames += 1
+            if max_frames and n_frames >= max_frames:
+                break
+
+    api.finish()
+    elapsed = time.time() - t_start
+    if out_file:
+        out_file.close()
+    if pc_file is not None:
+        pc_file.close()
+    if recorder is not None:
+        recorder.close()
+    print(f"processed {n_frames} frames, {n_out[0]} outputs in {elapsed:.1f}s "
+          f"({n_frames / max(elapsed, 1e-9):.1f} fps)", file=sys.stderr)
+    if main_flags.get("timer"):
+        # per-stage attribution on the session's own last frame (pyramids /
+        # LK / stereo match / detection / RANSAC variants) so the report
+        # carries the reference's per-label table (main.cpp:1008-1016)
+        api.attribute_stages()
+        print(api.time_stats.report(), file=sys.stderr)
+    if api.output_buffer is not None:
+        # buffered-output statistics (reference: OutputBuffer FPS / latency
+        # +/- / skips per second report, output_buffer.hpp:33-46)
+        ob = api.output_buffer
+        print(f"output buffer: {ob.fps:.1f} fps, mean latency "
+              f"{1000 * ob.mean_latency:.1f} ms, {ob.skips_total} skips",
+              file=sys.stderr)
+    if api.vu_stats.enabled:
+        # totals at exit (reference: printVisualUpdateStats final report)
+        print(api.vu_stats.report(), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())

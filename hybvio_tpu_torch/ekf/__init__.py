@@ -9,5 +9,8 @@ from .update import (  # noqa: F401
     update_zupt, update_zupt_initialization, visual_track_gate, visual_track_update,
 )
 from .augment import augment_pose, undo_augmentation  # noqa: F401
-from .transforms import MAP_POINT_PRIOR_STD, initialize_orientation, insert_map_point  # noqa: F401
+from .transforms import (  # noqa: F401
+    MAP_POINT_PRIOR_STD, condition_on_last_pose, initialize_orientation, insert_map_point,
+    lock_biases, transform_to, translate_to,
+)
 from .chi2 import CHI2INV95  # noqa: F401

@@ -1,7 +1,7 @@
 """Quaternion / rotation utilities (wxyz, Hamilton), over leading dims.
 
-Port of the reference's ``geometry/quaternion.py`` pieces the stereo step
-uses.
+Port of the reference's ``geometry/quaternion.py`` pieces the step and the
+host API (``ekf/transforms.py``, ``api/vio.py``) use.
 """
 from __future__ import annotations
 
@@ -60,3 +60,47 @@ def gyro_update_matrix(w: torch.Tensor, dt) -> torch.Tensor:
     cos = torch.where(small, 1.0 - h2n2 / 2.0, torch.cos(nh))
     eye = torch.eye(4, dtype=w.dtype, device=w.device)
     return cos[..., None, None] * eye - sinc[..., None, None] * S
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
+
+
+def quat_right_mul_matrix(p: torch.Tensor) -> torch.Tensor:
+    """Matrix M such that M @ q == quat_mul(q, p) (right multiplication by
+    p), used to rotate the whole pose trail."""
+    p1, p2, p3, p4 = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    return torch.stack([
+        p1, -p2, -p3, -p4,
+        p2, p1, p4, -p3,
+        p3, -p4, p1, p2,
+        p4, p3, -p2, p1,
+    ], dim=-1).reshape(p.shape[:-1] + (4, 4))
+
+
+def rmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Quaternion [w,x,y,z] from a rotation matrix; w >= 0, branch-free
+    Shepperd as the reference."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1 + tr, min=0.0)) / 2
+    qx = torch.sqrt(torch.clamp(1 + m00 - m11 - m22, min=0.0)) / 2
+    qy = torch.sqrt(torch.clamp(1 - m00 + m11 - m22, min=0.0)) / 2
+    qz = torch.sqrt(torch.clamp(1 - m00 - m11 + m22, min=0.0)) / 2
+    sign = lambda d: torch.where(d < 0, -1.0, 1.0).to(R.dtype)
+    q = torch.stack([qw, qx * sign(m21 - m12), qy * sign(m02 - m20), qz * sign(m10 - m01)],
+                    dim=-1)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

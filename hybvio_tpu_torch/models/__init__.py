@@ -1,5 +1,8 @@
-"""Benchmark presets of the port (the reference's
-``models.synthetic_bench_params`` and ``_finalize``)."""
+"""Presets of the port (the reference's ``models``): the EuRoC-like
+``euroc_mono`` and ``euroc_stereo`` at the reference's defaults (BASELINE
+configs 1 and 2, as the CLI runs them), the benchmark preset
+``synthetic_bench_params`` and ``_finalize``. The SLAM and TUM-VI presets
+are not ported."""
 from __future__ import annotations
 
 from typing import Optional
@@ -20,6 +23,38 @@ def _finalize(p: Parameters, width: int, height: int):
     if p.tracker.useStereo:
         cams.append(build_camera_from_params(p.tracker, width, height, second=True))
     return p, DerivedParameters.from_parameters(p), tuple(cams)
+
+
+def _override(p: Parameters, overrides) -> None:
+    for k, v in overrides.items():
+        g, n = k.split(".")
+        p.set_parameter(g, n, v)
+
+
+def euroc_mono(width: int = 752, height: int = 480, **overrides):
+    """Monocular VIO, EuRoC-like intrinsics (BASELINE config 1): (params,
+    derived, cameras); ``overrides`` as ``{"group.name": value}``."""
+    p = Parameters()
+    p.tracker.focalLength = 458.0
+    p.tracker.principalPointX = width / 2
+    p.tracker.principalPointY = height / 2
+    p.odometry.visualR = 0.3
+    _override(p, overrides)
+    return _finalize(p, width, height)
+
+
+def euroc_stereo(width: int = 752, height: int = 480, baseline: float = 0.11, **overrides):
+    """Stereo VIO (-useStereo; BASELINE config 2), the second camera
+    ``baseline`` m along -x of the first."""
+    p = Parameters()
+    p.tracker.useStereo = True
+    p.tracker.focalLength = 458.0
+    p.tracker.principalPointX = width / 2
+    p.tracker.principalPointY = height / 2
+    p.odometry.stereoCameraTranslation = (-baseline, 0.0, 0.0)
+    p.odometry.visualR = 0.3
+    _override(p, overrides)
+    return _finalize(p, width, height)
 
 
 def synthetic_bench_params(config: str = "stereo", lk_levels: Optional[int] = None,

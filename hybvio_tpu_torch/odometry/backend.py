@@ -4,7 +4,9 @@ IMU propagation and the per-frame estimator step, batch-first over B lanes.
     imu_scan(state, imu) -> state
     process_frame(state, tracker_input) -> (state, FrameOutput)
 
-The IMU samples of a frame run as a Python loop of batched EKF predicts.
+The IMU samples of a frame run as a Python loop of batched EKF predicts,
+over every column of the batch or, given the count of valid columns, over
+those alone.
 The visual update is the sequential form (the reference's default) or,
 with ``batchVisualUpdate``, the batched one; both carry the hybrid EKF-SLAM
 map (``hybridMapSize`` > 0) and every track sampling. With
@@ -169,9 +171,15 @@ class Backend(nn.Module):
             frame_number=torch.zeros((B,), **i32),
         )
 
-    def imu_scan(self, state: BackendState, batch: ImuBatch) -> BackendState:
+    def imu_scan(self, state: BackendState, batch: ImuBatch,
+                 n_valid: Optional[int] = None) -> BackendState:
+        """Propagate through the batch's samples in order; an invalid column
+        leaves a lane's state as it was. ``n_valid``, a host int where the
+        caller knows that no column from there on is valid in any lane,
+        ends the loop there: the same function in fewer launches."""
         po, ns = self.po, self.noise_scale
-        for s in range(batch.t.shape[1]):
+        S = batch.t.shape[1]
+        for s in range(S if n_valid is None else min(n_valid, S)):
             t, g, a = batch.t[:, s], batch.gyro[:, s], batch.acc[:, s]
             ekf = state.ekf
             ekf = tuple_where(state.orientation_initialized, ekf,

@@ -123,8 +123,9 @@ class Vio(nn.Module):
             guess2 = torch.where((ok0 & ok2)[..., None], pix2, guess).to(IMAGE_DTYPE)
         return guess.to(IMAGE_DTYPE), guess2, has_baseline
 
-    def imu_only(self, state: VioState, imu: ImuBatch) -> VioState:
-        return state._replace(backend=self.backend.imu_scan(state.backend, imu))
+    def imu_only(self, state: VioState, imu: ImuBatch, n_valid=None) -> VioState:
+        """IMU propagation with no frame; ``n_valid`` as ``Backend.imu_scan``."""
+        return state._replace(backend=self.backend.imu_scan(state.backend, imu, n_valid))
 
     def track_stage(self, state: VioState, t, image, second_image=None):
         image = normalize_input(image)
@@ -150,10 +151,12 @@ class Vio(nn.Module):
         return state._replace(backend=bstate), out
 
     @scoped_precision
-    def step(self, state: VioState, imu: ImuBatch, image, second_image=None):
+    def step(self, state: VioState, imu: ImuBatch, image, second_image=None, n_valid=None):
         """IMU propagation first, so the flow prediction uses the pose at
         the frame time. Its products run at "highest" with TF32 off,
-        whatever the caller set (restored on return)."""
-        state = self.imu_only(state, imu)
+        whatever the caller set (restored on return). ``n_valid``: the
+        count of valid IMU columns, where the caller knows it (the rest are
+        then skipped, as ``Backend.imu_scan``)."""
+        state = self.imu_only(state, imu, n_valid)
         state, tin = self.track_stage(state, imu.t[:, -1], image, second_image)
         return self.backend_stage(state, tin)

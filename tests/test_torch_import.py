@@ -113,3 +113,29 @@ def test_convert_round_trips_vio_state():
     assert len(flat_a) == len(flat_b)
     for a, b in zip(flat_a, flat_b):
         np.testing.assert_array_equal(np.asarray(a).astype(b.dtype), b)
+
+
+def test_host_entry_points_take_the_card(tmp_path, monkeypatch):
+    """VioApi, build_vio and the CLI run on the card unless asked for the
+    CPU (device="cpu" or HYBVIO_PLATFORM=cpu): without one they raise."""
+    from hybvio_tpu_torch.api.vio import VioApi, build_vio
+    from hybvio_tpu_torch.cli import main as cli
+    from hybvio_tpu_torch.io.jsonl import Recorder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("HYBVIO_PLATFORM", raising=False)
+    p = port_config.Parameters()
+    for make in (lambda: VioApi(p, 64, 48), lambda: VioApi(p, 64, 48, recording_only=True),
+                 lambda: build_vio(width=64, height=48)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert VioApi(p, 64, 48, recording_only=True, device="cpu").device.type == "cpu"
+    rec = Recorder(str(tmp_path))
+    rec.frame(0.0, [np.zeros((48, 64), np.float32)])
+    rec.close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run([f"-i={tmp_path}", "-focalLength=50"])
+    assert cli._platform_device(None) is None
+    monkeypatch.setenv("HYBVIO_PLATFORM", "cpu")
+    assert cli._platform_device(None) == "cpu"
+    assert cli._platform_device("cuda") == "cuda"

@@ -1,7 +1,10 @@
 """Shared set-up for the parity tests of the PyTorch port against the JAX
 reference: tiny stereo, mono and fisheye configurations, a rendered
 synthetic sequence, a field-by-field comparison that names the first field
-that parts, and the whole batched step run through both packages."""
+that parts, the whole batched step run through both packages, and the
+datasets and lockstep harness of the host API and CLI tests."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -276,3 +279,166 @@ def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
         tracked += int((np.asarray(rout.track_ids) >= 0).sum())
         assert np.isfinite(out.position.numpy()).all()
     return tracked
+
+
+# ------------------------------------------------- the host API and the CLI
+
+API_W, API_H, API_FX = 320, 240, 260.0
+# tests/test_api_cli.py's reduced tracker sizes at 320x240, as CLI flags
+API_FLAGS = ("-focalLength=260", "-principalPointX=160", "-principalPointY=120",
+             "-maxTracks=32", "-cameraTrailLength=6", "-pyrLKWindowSize=13",
+             "-pyrLKMaxLevel=2", "-gfttMinDistance=30")
+# float32 rounding of a pixel coordinate scales with its magnitude: the
+# pixel fields of a 320x240 frame are held to step_tol's bounds (set on the
+# 96x64 frames) times the ratio of the frame sizes, the same few ulp
+API_PIXEL_SCALE = API_W / W
+
+
+def api_tol(base):
+    """``base`` (step_tol or mono_step_tol) with the pixel fields' bounds
+    scaled by API_PIXEL_SCALE."""
+    def tol(path):
+        t = base(path)
+        return t * API_PIXEL_SCALE if _field(path) in PIXEL_FIELDS + VIZ_FIELDS else t
+    return tol
+
+
+def quantize_frames(dataset):
+    """Re-save every frame_*.npy of ``dataset`` as uint8 levels / 255 in
+    float32 (the step's own normalization of a uint8 frame), so a uint8 run
+    of the same frames must give the same outputs."""
+    for name in sorted(os.listdir(dataset)):
+        if name.startswith("frame_") and name.endswith(".npy"):
+            path = os.path.join(dataset, name)
+            np.save(path, to_uint8(np.load(path)).astype(np.float32) * np.float32(1.0 / 255.0))
+
+
+def to_uint8(frame):
+    return np.clip(np.round(np.asarray(frame) * 255.0), 0, 255).astype(np.uint8)
+
+
+def make_api_dataset(out_dir, duration, stereo=False):
+    """A blobs dataset at 320x240 for the API and CLI tests: mono is
+    tools/make_synthetic_dataset.make_dataset(world="blobs"); stereo the same
+    sequence, recorder and parameters.txt with a second camera 0.11 m along
+    -x (frame_*_cam1.npy and its imuToCamera line). Frames quantized
+    (quantize_frames)."""
+    import json
+    import sys
+
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    from make_synthetic_dataset import make_dataset
+
+    if not stereo:
+        make_dataset(out_dir, duration=duration, world="blobs")
+        quantize_frames(out_dir)
+        return out_dir
+    from hybvio_tpu.io.jsonl import Recorder
+
+    seq = generate_sequence(duration=duration, imu_rate=100.0, frame_rate=10.0, n_landmarks=300,
+                            gyro_noise=5e-4, acc_noise=5e-3, seed=0)
+    rec = Recorder(out_dir)
+    for ci, ext in enumerate((SYNTH_IMU_TO_CAMERA, SECOND_IMU_TO_CAMERA)):
+        rec.f.write(json.dumps({"imuToCamera": [list(r) for r in np.asarray(ext)],
+                                "cameraInd": ci}) + "\n")
+    with open(os.path.join(out_dir, "parameters.txt"), "w") as pf:
+        pf.write("ransac2Threshold 8.0;\nransac5Threshold 4.0;\nvisualR 0.5;\n")
+    cx, cy = API_W / 2, API_H / 2
+    frame_set = set(seq.frame_sample_idx.tolist())
+    for k in range(len(seq.times)):
+        t = float(seq.times[k])
+        rec.gyro(t, seq.gyro[k])
+        rec.acc(t, seq.acc[k])
+        if k in frame_set:
+            imgs = [render_view(seq.landmarks, seq.pos[k], seq.quat[k], ext, API_FX, API_FX, cx,
+                                cy, API_W, API_H, blob_sigma=1.2)
+                    for ext in (SYNTH_IMU_TO_CAMERA, SECOND_IMU_TO_CAMERA)]
+            cp = {"focalLengthX": API_FX, "focalLengthY": API_FX, "principalPointX": cx,
+                  "principalPointY": cy}
+            rec.frame(t, imgs, [cp, cp])
+            rec.ground_truth(t, seq.pos[k], seq.quat[k])
+    rec.close()
+    quantize_frames(out_dir)
+    return out_dir
+
+
+def api_params(P, loader, jsonl, dataset, stereo=False):
+    """Parameters of one package (its ``Parameters`` class, ``config.loader``
+    and ``io.jsonl`` modules) as its CLI loads them from ``dataset`` with
+    API_FLAGS (and -useStereo)."""
+    p = P()
+    jsonl.set_parameters_from_data(p, os.path.join(dataset, "data.jsonl"))
+    loader.apply_parameters_text(p, open(os.path.join(dataset, "parameters.txt")).read())
+    rest = loader.apply_argv(p, list(API_FLAGS) + (["-useStereo"] if stereo else []))
+    assert not rest, rest
+    return p
+
+
+def drive_api(api, dataset, n_frames, stereo=False, frame=None):
+    """Feed ``dataset``'s events to a VioApi (either package) up to
+    ``n_frames`` frames, as the CLI does, then finish(); ``frame(img)``
+    maps each frame first. Returns (retired FrameOutputs, VioOutputs)."""
+    from hybvio_tpu.io import jsonl as rj
+    from hybvio_tpu_torch.io.video import open_frame_source
+
+    outs, vos = [], []
+    retire = api._retire
+
+    def _retire(out, aux):
+        outs.append(type(out)(*(np.asarray(x) for x in out)))
+        retire(out, aux)
+
+    api._retire = _retire
+    api.on_output = vos.append
+    frames = open_frame_source(dataset)
+    frame = frame or (lambda img: img)
+    n = 0
+    for ev in rj.read_jsonl_events(os.path.join(dataset, "data.jsonl")):
+        if ev.kind == rj.GYROSCOPE:
+            api.add_gyro(ev.t, ev.values)
+        elif ev.kind == rj.ACCELEROMETER:
+            api.add_acc(ev.t, ev.values)
+        elif ev.kind == rj.FRAME:
+            if stereo:
+                api.add_frame_stereo(ev.t, frame(frames.frame(n, 0)), frame(frames.frame(n, 1)))
+            else:
+                api.add_frame_mono(ev.t, frame(frames.frame(n, 0)))
+            n += 1
+            if n >= n_frames:
+                break
+    api.finish()
+    return outs, vos
+
+
+def lockstep(mp, tol, diffs):
+    """Patch (through the MonkeyPatch ``mp``) the reference's VioApi to
+    record its state (numpy, with a lane axis) before each of its frame
+    steps, and the port's to compare its own state before each frame step
+    with the reference's at the same point (mismatches appended to
+    ``diffs``) and continue from the reference's: every step of the port
+    then starts where the reference's did. Run the reference first; each
+    new port VioApi replays the recorded states from the first. Returns the
+    recorded states."""
+    from hybvio_tpu.api.vio import VioApi as RVioApi
+    from hybvio_tpu_torch.api.vio import VioApi
+
+    states = []
+    process, step = RVioApi._process_frame, VioApi._step_frame
+
+    def _process(self, synced):
+        if self._state is not None:
+            states.append(jax.tree.map(lambda a: np.asarray(a)[None], self._state))
+        process(self, synced)
+
+    def _step(self, *args):
+        k = getattr(self, "_lockstep_k", 0)
+        diffs.extend(mismatches(convert.to_numpy(self._state), states[k], tol, f"step {k} state"))
+        self._state = convert.from_jax(states[k], device="cpu")
+        self._lockstep_k = k + 1
+        step(self, *args)
+
+    mp.setattr(RVioApi, "_process_frame", _process)
+    mp.setattr(VioApi, "_step_frame", _step)
+    return states
