@@ -31,11 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
      point's shapes (phase 7, one lane, the reference's defaults): the fused
      pyramid of 3 levels of one frame and of a stereo pair, the gather of
      200 windows at every window shape and level (API_GATHER_ROWS), greedy
-     at K = 400;
+     at K = 400; and at the vislam preset's (phase 8b, the stereo preset at
+     one lane): the gather of 96 windows at every row of GATHER_ROWS,
+     greedy at K = 192;
   4. five paths through make_batched_vio, each B=16 lanes, a float32
      filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
-     frames (io.synthetic, the benchmark's worlds; mono and
-     fisheye over 40): the stereo preset at 752x480, the mono preset at
+     frames (io.synthetic, the benchmark's worlds; mono, fisheye and
+     stereo_sequential_hybrid over 40): the stereo preset at 752x480, the mono preset at
      752x480 and the fisheye (KB4) preset at 512x512, each lane sharing
      each frame (shared_frames=True); the stereo preset over 16 distinct
      worlds, one per lane (shared_frames=False; bench.py's seed-diverse
@@ -52,11 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
      launch one of the four kernels every path runs, a non-finite lane, an
      ATE median over 0.05 m, or a map that claimed no slot or updated no
      map point;
-  5. (after phase 7) the kernels ranked, per path and over all of them, by
+  5. (after phase 8) the kernels ranked, per path and over all of them, by
      the time the paths lose in them: the sum over input shapes of launches
      x (device time - bound); fails on a shape launched on a path and not
      timed in phase 3;
-  6. the estimator options, each on top of stereo_sequential_hybrid, 5
+  6. the estimator options, each on top of stereo_sequential_hybrid, 3
      steps of the per-lane stereo input at B=16: RANDOM and ALL track
      sampling, linear triangulation, the visual update every 2nd frame, the
      visual update disabled, the batched update with the map, shared
@@ -72,7 +74,26 @@ Phases (any failure exits non-zero and prints no result line):
      dataset's ground truth, launches, the host syncs of one step and the
      -timer stage table. Fails on a non-finite output, fewer outputs than
      frames - 3, an ATE over 0.05 m, a path kernel not launched or a host
-     sync in a step.
+     sync in a step;
+  8. VISLAM on the card (BASELINE config 3): (a) the SLAM session alone,
+     on the card and on the CPU in this process, over tests/test_slam.py's
+     keyframe/BA scenarios and its revisit (240x320 frames, the multi-scale
+     keypoints on) and tests/test_slam_global.py's revisit with applied loop
+     closures, the pose graph and the end-of-run global adjustment: the same
+     keyframe ids, map-point ids and loop events, poses and points within
+     SLAM_POSE_TOL, a loop event on the card; (b) vislam: VioApi on
+     synthetic_bench_params("vislam") (stereo, 752x480, B=1, the SLAM worker
+     thread on) over VISLAM_FRAMES frames rendered on the card beforehand:
+     per-frame wall time, frames/s, finish() teardown, SLAM keyframes, map
+     points, loop events, dropped candidates, ATE of the SLAM-corrected
+     outputs, the SLAM stage table per keyframe, host syncs of one step (the
+     SLAM worker drained first), launches by shape; (c) the CLI with
+     -useSlam and -slamMapPosesPath at the reference's defaults (the vislam()
+     preset, mono) over phase 7's mono dataset. Fails on a mismatch in (a),
+     a non-finite output, an ATE over 0.05 m, fewer than 2 SLAM keyframes, no
+     local BA, no map point, a host sync in a step, a path kernel not
+     launched, fewer CLI outputs than frames - 3 or a map file without a
+     keyframe line.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -90,8 +111,9 @@ B = 16
 FRAMES = 60
 # mono and fisheye are cut to 40 frames to keep the run near half its time
 # limit with the sequential path (the paths that share their code with
-# stereo_per_lane and stereo_sequential_hybrid keep 60)
-PATH_FRAMES = {"mono": 40, "fisheye": 40}
+# stereo_per_lane and stereo_sequential_hybrid keep 60), and
+# stereo_sequential_hybrid (~2 s a step) to 40 to make room for phase 8
+PATH_FRAMES = {"mono": 40, "fisheye": 40, "stereo_sequential_hybrid": 40}
 PATHS = ("stereo", "mono", "fisheye", "stereo_per_lane", "stereo_sequential_hybrid")
 FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512),
             "stereo_per_lane": (480, 752), "stereo_sequential_hybrid": (480, 752)}
@@ -110,7 +132,8 @@ PF_HYBRID = 2  # point_cloud_status of a map-point update
 # steps of the per-lane stereo input (shared frames: lane 0's frames and
 # IMU for all): (name, odometry parameters, shared frames, filter dtype,
 # steps). The float32 filter runs longer, to show its map drift per lane.
-OPTION_STEPS = 5
+# 3 steps each (5 before phase 8 was added): step 2 counts the host syncs.
+OPTION_STEPS = 3
 OPTIONS = (("RANDOM sampling", {"trackSampling": "RANDOM"}, False, "float64", OPTION_STEPS),
            ("ALL sampling", {"trackSampling": "ALL"}, False, "float64", OPTION_STEPS),
            ("linear triangulation", {"useLinearTriangulation": True}, False, "float64",
@@ -154,6 +177,14 @@ API_FRAMES = 20  # frames each CLI run reads
 API_TIMER_FRAMES = 8  # frames of each -timer run
 API_SYNC_STEP = 3  # the step whose host syncs are counted
 ATE_LIMIT_M = 0.05
+# phase 8: the SLAM session's CPU parity tolerance for poses and points (m;
+# tests/test_torch_slam_session.py), the vislam run's frames, the step whose
+# host syncs are counted (the SLAM worker drained first) and the preset's
+# maxTracks (the windows of each gather)
+SLAM_POSE_TOL = 1e-8
+VISLAM_FRAMES = 60
+VISLAM_SYNC_STEP = 10
+VISLAM_T = 96
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
@@ -618,6 +649,7 @@ def check_kernels(dev):
 
     check_per_lane(dev, g, results, timed, shape_row)
     check_api_shapes(dev, g, results, timed, shape_row)
+    check_vislam_shapes(dev, g, results, timed, shape_row)
 
     say(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
         f"/ pyramid-and-gradients cases equal their plain versions")
@@ -772,6 +804,64 @@ def check_api_shapes(dev, g, results, timed, shape_row):
     results["greedy_nms"]["shapes"][shape_key((1, K, "shared"))] = shape_row(srow)
 
 
+def check_vislam_shapes(dev, g, results, timed, shape_row):
+    """Phase 3 at the shapes the vislam preset (phase 8b: the stereo preset
+    at one lane) gives the kernels: the gather of VISLAM_T windows at every
+    row of GATHER_ROWS on the levels and gradients of a 480x752 stereo
+    pyramid, and greedy over the preset's 192 candidates, one lane; each
+    against its plain version exactly. (The fused pyramid of one stereo
+    frame and the corner response of one 480x752 image are main-path
+    rows.)"""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    H, W = FRAME_HW["stereo"]
+    frames = torch.rand((1, 2, H, W), generator=g).to(dev)
+    cams = (frames[:, 0], frames[:, 1])
+    (lv, _), grads = ops.pyramid_with_gradients(cams, 2)
+    left, n = cams[0], VISLAM_T
+    for k, ps, level in GATHER_ROWS[(H, W)]:
+        base = (left, *lv)[level]
+        planes = {3: (base, *grads[level]), 1: (base,), 2: grads[level]}[k]
+        h, w = base.shape[-2:]
+        y0 = torch.randint(0, h - ps + 1, (1, n), generator=g, dtype=torch.int32).to(dev)
+        x0 = torch.randint(0, w - ps + 1, (1, n), generator=g, dtype=torch.int32).to(dev)
+        r = torch.arange(ps, device=dev)
+        idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+               + (x0.long()[..., None] + r)[..., None, :]).reshape(1, -1).expand(k, 1, -1)
+        flat = torch.stack([p.reshape(1, h * w) for p in planes])
+        covered = torch.zeros((1, h * w), dtype=torch.bool, device=dev)
+        covered.scatter_(1, idx[0], True)
+        read_px = int(covered.sum())
+        got = ops.gather_patches(planes, y0, x0, ps)
+        err = max(max_err(a, ops.gather_patches_plain(im, y0, x0, ps)) for a, im in zip(got, planes))
+        if not torch.equal(torch.gather(flat, 2, idx).reshape(k, 1, n, ps, ps), torch.stack(got)):
+            raise AssertionError(f"patch_gather one lane {ps}x{ps} on {h}x{w}: the torch.gather "
+                                 f"yardstick disagrees")
+        srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, one lane, {n} windows "
+                     f"of {ps}x{ps} on {h}x{w})", err, 0.0,
+                     lambda: ops.gather_patches(planes, y0, x0, ps),
+                     lambda: torch.gather(flat, 2, idx),
+                     4 * (k * n * ps * ps + k * read_px + 2 * n), 0,
+                     plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in planes])
+        say(f"  the windows cover {read_px} of the level's {h * w} pixels "
+            f"({100 * read_px / (h * w):.1f}%)")
+        results["patch_gather"]["shapes"][shape_key((k, 1, n, ps, h, w, "shared"))] = \
+            shape_row(srow)
+
+    K = 2 * VISLAM_T
+    d2, ok, min_d2 = greedy_inputs(g, 2, K, False, False, dev)
+    d2, ok = d2[1:].contiguous(), ok[1:].contiguous()  # the lane with eligible candidates
+    srow = timed(f"greedy_nms, one lane, K={K}",
+                 float((ops.greedy_min_distance(d2, ok, min_d2)
+                        != ops.greedy_min_distance_plain(d2, ok, min_d2)).sum()), 0.0,
+                 lambda: ops.greedy_min_distance(d2, ok, min_d2), None, 4 * K * K + 2 * K,
+                 K * (K - 1) // 2, plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
+                 plain_reps=10)
+    results["greedy_nms"]["shapes"][shape_key((1, K, "shared"))] = shape_row(srow)
+
+
 def rank(rows, path=None):
     """The order in which the kernels lose ``path`` (or, with None, all the
     paths together) the most time: first any kernel slower than its library
@@ -862,7 +952,7 @@ def path_inputs(config, dev):
     return params, derived, cams, seq, frames, batches
 
 
-def per_lane_inputs(dev, dtype=None):
+def per_lane_inputs(dev, dtype=None, frames=FRAMES):
     """(params, derived, cameras, start time, ground truth (B, F - 1, 3),
     frame(fi) -> (left, right) (B, H, W) views of frames rendered on the
     card, IMU batches) of the stereo preset over B distinct worlds, built as
@@ -886,12 +976,12 @@ def per_lane_inputs(dev, dtype=None):
     for b in range(B):
         lane_rng = np.random.RandomState(7000 + b)
         seqs.append(generate_sequence(
-            duration=FRAMES / 20.0 + 0.25, imu_rate=200.0, frame_rate=20.0,
+            duration=frames / 20.0 + 0.25, imu_rate=200.0, frame_rate=20.0,
             radius=float(lane_rng.uniform(1.7, 2.3)),
             angular_speed=float(lane_rng.uniform(0.34, 0.46)),
             z_wobble=float(lane_rng.uniform(0.10, 0.20)), n_landmarks=500,
             landmark_radius=6.0, gyro_noise=5e-4, acc_noise=5e-3, seed=1000 + b))
-    idx, times = seqs[0].frame_sample_idx[:FRAMES], seqs[0].times  # one time grid for all
+    idx, times = seqs[0].frame_sample_idx[:frames], seqs[0].times  # one time grid for all
     second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
     second[0, 3] = -0.11
     f, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
@@ -962,7 +1052,8 @@ def run_path(dev, config):
     dtype = getattr(torch, FILTER_DTYPE[config]) if config in FILTER_DTYPE else None
     if config in PER_LANE_PATHS:
         t0 = time.perf_counter()
-        params, derived, cams, start, gt, frame, batches = per_lane_inputs(dev, dtype)
+        params, derived, cams, start, gt, frame, batches = per_lane_inputs(
+            dev, dtype, PATH_FRAMES.get(config, FRAMES))
         if config == "stereo_sequential_hybrid":
             for k, v in SEQUENTIAL_HYBRID.items():
                 setattr(params.odometry, k, v)
@@ -1152,7 +1243,7 @@ def write_api_dataset(out_dir, config, frames):
     return rec.frame_count
 
 
-def run_cli(dev, config, dataset, out_path, frames, timer=False):
+def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
     """Phase 7, one run of the port's CLI ``run()`` in-process on the card
     at the reference's defaults (stereo with -useStereo), with -maxFrames
     and -outputJsonExtras (and -timer): (launches, launches by input shape,
@@ -1160,7 +1251,9 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False):
     seconds of each frame step, its standard error). A frame's wall time is that of the API's
     ``_process_frame``: queueing its step and retiring the frame before it
     (which waits for that frame's work on the card); the host syncs are
-    those of ``_step_frame`` (the step without the retirement)."""
+    those of ``_step_frame`` (the step without the retirement), with the
+    SLAM worker (``extra`` -useSlam) drained first: its own syncs are off
+    the step."""
     import contextlib
     import io
 
@@ -1172,6 +1265,7 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False):
 
     argv = [f"-i={dataset}", f"-o={out_path}", f"-maxFrames={frames}", "-outputJsonExtras"]
     argv += (["-useStereo"] if config == "stereo" else []) + (["-timer"] if timer else [])
+    argv += list(extra)
     process, step = VioApi._process_frame, VioApi._step_frame
     wall, counted = [], {}
 
@@ -1184,6 +1278,8 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False):
 
     def counted_step(self, *args):
         if not timer and len(wall) == API_SYNC_STEP and "syncs" not in counted:
+            if self.slam is not None:
+                self.slam.wait_idle()
             counted["syncs"] = host_syncs(lambda: step(self, *args))[1]
         else:
             step(self, *args)
@@ -1292,6 +1388,385 @@ def run_api_paths(dev):
     return runs
 
 
+def _cam_pose_cw(pos, yaw):
+    """tests/test_slam.py's camera-to-world pose: the camera at pos looking
+    along (cos yaw, sin yaw, 0), its y axis along world +z."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    T = np.eye(4)
+    T[:3, :3] = np.array([[-s, 0.0, c], [c, 0.0, s], [0.0, 1.0, 0.0]])
+    T[:3, 3] = pos
+    return T
+
+
+def _project_to_norm(T, pts):
+    pc = (pts - T[:3, 3]) @ T[:3, :3]
+    ok = pc[:, 2] > 0.3
+    return pc[:, :2] / np.where(ok, pc[:, 2], 1.0)[:, None], ok
+
+
+def _box_frame(T, landmarks):
+    """tests/test_slam.py's 240x320 frame: flat 0.3 with a 5x5 box (+0.5 or
+    -0.2) at each visible landmark."""
+    ip, ok = _project_to_norm(T, landmarks)
+    px = ip * 260.0 + np.array([160.0, 120.0])
+    img = np.zeros((240, 320), np.float32) + 0.3
+    for i in np.where(ok)[0]:
+        u, v = px[i]
+        if 8 <= u < 312 and 8 <= v < 232:
+            iu, iv = int(u), int(v)
+            img[max(iv - 2, 0):iv + 3, max(iu - 2, 0):iu + 3] += 0.5 if i % 2 == 0 else -0.2
+    return ip, ok, np.clip(img, 0, 1)
+
+
+def slam_scenarios():
+    """Phase 8a's inputs: [(name, parameter settings, Slam keywords, frames
+    (image, T_cw, track ids, normalized points, t, frame number), run
+    end())], tests/test_slam.py's and tests/test_slam_global.py's."""
+    every = {"keyframeDecisionMinIntervalSeconds": 0.0, "keyframeDecisionDistanceThreshold": 0.01}
+
+    def straight(n, n_lm, seed, step, noise=0.0):
+        rng = np.random.RandomState(seed)
+        lm = np.stack([4.0 + rng.rand(n_lm) * 2, rng.randn(n_lm) * 2, rng.randn(n_lm)], axis=1)
+        out = []
+        for k in range(n):
+            T = _cam_pose_cw(np.array([0.0, k * step, 0.0]), 0.0)
+            ip, ok = _project_to_norm(T, lm)
+            T_odo = T.copy()
+            if noise:
+                T_odo[:3, 3] += rng.randn(3) * noise
+                ip = ip + rng.randn(*ip.shape) * 5e-4
+            ids = np.where(ok, np.arange(n_lm), -1).astype(np.int32)
+            out.append((None, T_odo, ids[ok], ip[ok], float(k), k))
+        return out
+
+    def revisit():
+        rng = np.random.RandomState(2)
+        lm = np.stack([5.0 + rng.rand(50), rng.randn(50) * 2, rng.randn(50)], axis=1)
+        out = []
+        for k, y in enumerate((0.0, 0.4, 0.8, 1.2, 0.8, 0.4, 0.02)):
+            T = _cam_pose_cw(np.array([0.0, y, 0.0]), 0.0)
+            ip, ok, img = _box_frame(T, lm)
+            ids = np.where(ok, np.arange(50) + (1000 * k if k >= 4 else 0), -1).astype(np.int32)
+            out.append((img, T, ids[ok], ip[ok], float(k), k))
+        return out
+
+    def global_revisit():
+        rng = np.random.RandomState(11)
+        lm = np.stack([6.0 + rng.rand(60), rng.randn(60) * 2.5, rng.randn(60)], axis=1)
+        out, k = [], 0
+        for lap in range(2):
+            for y in (0.0, 0.35, 0.7, 1.05, 1.4, 1.05, 0.7, 0.35):
+                T = _cam_pose_cw(np.array([0.0, y, 0.0]), 0.0)
+                ip, ok, img = _box_frame(T, lm)
+                T_drift = T.copy()
+                T_drift[0, 3] += 0.05 * k
+                ids = np.where(ok, np.arange(60) + 10000 * lap, -1).astype(np.int32)
+                out.append((img, T_drift, ids[ok], ip[ok], float(k), k))
+                k += 1
+        return out
+
+    loops = {**every, "adjacentSpaceSize": 3, "minLoopClosureFeatureMatches": 4}
+    applied = {**every, "adjacentSpaceSize": 4, "minLoopClosureFeatureMatches": 4,
+               "loopClosureRansacMinInliers": 4, "applyLoopClosures": True,
+               "applyLocalBundleAdjustment": False, "maximumDriftMetersPerSecond": 1.0,
+               "maximumDriftMetersPerTraveled": 1.0, "keyframeCullEnabled": False}
+    return [("keyframes and map", every, dict(max_ba_keyframes=8, compute_descriptors=False),
+             straight(6, 60, 0, 0.3), False),
+            ("BA on noisy odometry", every, dict(max_ba_keyframes=10, compute_descriptors=False),
+             straight(8, 80, 1, 0.25, noise=0.01), False),
+            ("revisit", loops, dict(max_ba_keyframes=8), revisit(), False),
+            ("applied loops", applied, {}, global_revisit(), True)]
+
+
+def run_slam_sessions(dev):
+    """Phase 8a: each scenario of slam_scenarios through a Slam session on
+    the card and one on the CPU in this process, frame by frame: the same
+    keyframe ids, map-point ids, track aliases and loop events, keyframe
+    poses and map points within SLAM_POSE_TOL. Fails on a mismatch or on no
+    loop event on the card in the revisits."""
+    import torch
+
+    from hybvio_tpu_torch.config import Parameters
+    from hybvio_tpu_torch.slam.session import Slam
+
+    for name, settings, kw, frames, end in slam_scenarios():
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            p = Parameters()
+            for k, v in settings.items():
+                setattr(p.slam, k, v)
+            s, per_frame = Slam(p, device=d, **kw), []
+            for img, T, ids, ip, t, k in frames:
+                t0 = time.perf_counter()
+                s.add_frame(img, T, ids, ip, t=t, frame_num=k)
+                per_frame.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if end:
+                s.end()
+            runs.append((s, per_frame, time.perf_counter() - t0))
+        (card, card_s, card_end), (cpu, cpu_s, cpu_end) = runs
+        events = lambda s: [(e.kf_id, e.matched_kf_id, e.n_matches, e.applied)
+                            for e in s.loop_events]
+        same = (card.kf_order == cpu.kf_order and sorted(card.points) == sorted(cpu.points)
+                and card.track_to_point == cpu.track_to_point and events(card) == events(cpu))
+        pose_err = max(float(np.abs(card.keyframes[k].pose - cpu.keyframes[k].pose).max())
+                       for k in cpu.kf_order) if same else float("nan")
+        point_err = max([float(np.abs(card.points[i].position - cpu.points[i].position).max())
+                         for i in cpu.points] or [0.0]) if same else float("nan")
+        say(f"slam session {name}: {len(frames)} frames, card {1e3 * sum(card_s):.1f} ms "
+            f"(per frame median {1e3 * statistics.median(card_s):.1f} ms, first "
+            f"{1e3 * card_s[0]:.1f} ms), CPU {1e3 * sum(cpu_s):.1f} ms"
+            + (f"; end() card {card_end:.3f} s, CPU {cpu_end:.3f} s" if end else "")
+            + f"; keyframes {card.kf_order}, {len(card.points)} map points, loop events "
+            f"{events(card)}, loop edges {len(card.loop_edges)}; card vs CPU: ids "
+            f"{'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point diff "
+            f"{point_err:.3g} (tol {SLAM_POSE_TOL})")
+        if not same:
+            raise AssertionError(f"slam session {name}: the card's ids or loop events differ "
+                                 f"from the CPU's: keyframes {card.kf_order} / {cpu.kf_order}, "
+                                 f"{len(card.points)} / {len(cpu.points)} points, loop events "
+                                 f"{events(card)} / {events(cpu)}")
+        if not (pose_err <= SLAM_POSE_TOL and point_err <= SLAM_POSE_TOL):
+            raise AssertionError(f"slam session {name}: poses part by {pose_err}, points by "
+                                 f"{point_err} > {SLAM_POSE_TOL}")
+        if frames[0][0] is not None and not card.loop_events:
+            raise AssertionError(f"slam session {name}: no loop event on the card")
+
+
+def _slam_table():
+    """The SLAM worker's per-keyframe stage table (utils.timer
+    SLAM_TIME_STATS), in the session's order: [(label, ms per keyframe,
+    calls)]."""
+    from hybvio_tpu_torch.utils import timer
+
+    ts = timer.SLAM_TIME_STATS
+    ms = ts.per_frame_timings()
+    return [(k, ms[k], ts.counts[k]) for k in timer.SLAM_STAGES if k in ms]
+
+
+def run_vislam(dev):
+    """Phase 8b: VioApi on synthetic_bench_params("vislam") (bench.py's
+    run_vislam on the port): stereo 752x480 at one lane with the SLAM
+    session on its worker thread, fed the stereo path's world (path_inputs'
+    sequence) rendered on the card beforehand, IMU sample by sample. Prints
+    per-frame wall time, frames/s after the first two frames, the finish()
+    teardown, the SLAM session's keyframes, map points, loop events, dropped
+    candidates and BA runs, the ATE of the SLAM-corrected outputs, the SLAM
+    stage table per keyframe, the host syncs of step VISLAM_SYNC_STEP (the
+    SLAM worker drained first) and the launches by shape. Returns (launches,
+    launches by shape, host syncs)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence
+    from hybvio_tpu_torch.io.synthetic_device import make_blob_renderer
+    from hybvio_tpu_torch.models import synthetic_bench_params
+    from hybvio_tpu_torch.slam import session
+    from hybvio_tpu_torch.utils import timer
+
+    params = synthetic_bench_params("vislam")
+    pt = params.tracker
+    W, H = int(2 * pt.principalPointX), int(2 * pt.principalPointY)
+    seq = generate_sequence(duration=VISLAM_FRAMES / 20.0, imu_rate=200.0, frame_rate=20.0,
+                            n_landmarks=500, landmark_radius=6.0, gyro_noise=5e-4,
+                            acc_noise=5e-3, seed=0)
+    F = min(VISLAM_FRAMES, len(seq.frame_sample_idx))
+    second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
+    second[0, 3] = -0.11
+    f, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
+    t0 = time.perf_counter()
+    render = make_blob_renderer([SYNTH_IMU_TO_CAMERA, second], f, f, cx, cy, W, H,
+                                blob_sigma=1.4, device=dev)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    frames = [render(f32(seq.landmarks[None]), f32(seq.pos[k][None]), f32(seq.quat[k][None]))[0]
+              for k in seq.frame_sample_idx[:F]]  # each (2, H, W) on the card
+    torch.cuda.synchronize()
+    say(f"vislam: rendered {F} stereo frames of {W}x{H} on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    ba_runs = [0]
+    ba_iterate = session.ba_iterate
+
+    def counted_ba(*a, **k):
+        ba_runs[0] += 1
+        return ba_iterate(*a, **k)
+
+    api = VioApi(params, W, H, device=dev)
+    outputs, wall, counted = [], [], {}
+    api.on_output = outputs.append
+    process, step = api._process_frame, api._step_frame
+
+    def timed_process(synced):
+        stepped = api._state is not None
+        ts = time.perf_counter()
+        process(synced)
+        if stepped:
+            wall.append(time.perf_counter() - ts)
+
+    def counted_step(*args):
+        if len(wall) == VISLAM_SYNC_STEP and "syncs" not in counted:
+            api.slam.wait_idle()  # the SLAM worker's own syncs are off the step
+            counted["syncs"] = host_syncs(lambda: step(*args))[1]
+        else:
+            step(*args)
+
+    api._process_frame, api._step_frame = timed_process, counted_step
+    session.ba_iterate = counted_ba
+    timer.SLAM_TIME_STATS.reset()
+    timer.SLAM_TIME_STATS.enabled = True
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        frame_of = {int(k): fi for fi, k in enumerate(seq.frame_sample_idx[:F])}
+        t_start = time.perf_counter()
+        for k in range(int(seq.frame_sample_idx[F - 1]) + 1):
+            api.add_gyro(float(seq.times[k]), seq.gyro[k])
+            api.add_acc(float(seq.times[k]), seq.acc[k])
+            fi = frame_of.get(k)
+            if fi is not None:
+                api.add_frame_stereo(float(seq.times[k]), frames[fi][0], frames[fi][1])
+        t_end = time.perf_counter()
+        api.finish()
+        teardown = time.perf_counter() - t_end
+        torch.cuda.synchronize()
+        launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+        table = _slam_table()
+    finally:
+        session.ba_iterate = ba_iterate
+        timer.SLAM_TIME_STATS.enabled = False
+    slam, coupling = api.slam.slam, api.slam
+    est = np.stack([o.position for o in outputs]) if outputs else np.zeros((0, 3))
+    est_t = np.array([o.t for o in outputs])
+    gt = np.stack([np.interp(est_t, seq.times, seq.pos[:, a] - seq.pos[0, a]) for a in range(3)],
+                  axis=1)
+    finite = bool(len(outputs)) and all(np.isfinite(np.concatenate(
+        [o.position, o.orientation, o.velocity, o.point_cloud.ravel()])).all() for o in outputs)
+    ate = float(ate_rmse(est, gt)) if finite and len(outputs) >= 3 else float("nan")
+    steady = wall[2:]  # after the first two frames (the first step is the warm-up)
+    steady_wo = [w for i, w in enumerate(wall) if i >= 2 and i != VISLAM_SYNC_STEP]
+    slam_pts = sum(1 for mp in slam.points.values() if mp.triangulated)
+    merged = int(sum((o.point_cloud[:, 0] < 0).sum() for o in outputs))
+    syncs = counted.get("syncs")
+    say(f"vislam: {F} frames in, {len(outputs)} outputs out; per-frame wall time at B=1: median "
+        f"{1e3 * statistics.median(steady_wo):.2f} ms, p90 "
+        f"{1e3 * float(np.percentile(steady_wo, 90)):.2f} ms, first step {1e3 * wall[0]:.1f} ms; "
+        f"{len(steady) / sum(steady):.2f} frames/s after the first two frames "
+        f"({len(steady)} frames in {sum(steady):.2f} s; feeding took {t_end - t_start:.2f} s); "
+        f"finish() teardown {teardown:.3f} s")
+    say(f"vislam: SLAM keyframes {len(slam.kf_order)} (submitted {coupling.frame_counter} "
+        f"keyframe candidates, every {coupling.interval}th SLAM frame), map points "
+        f"{len(slam.points)} ({slam_pts} triangulated), loop events "
+        f"{[(e.kf_id, e.matched_kf_id, e.n_matches, e.applied) for e in slam.loop_events]}, "
+        f"loop edges {len(slam.loop_edges)}, dropped candidates {coupling.dropped}, local BA "
+        f"runs {ba_runs[0]}; outputs carrying SLAM map points: "
+        f"{sum(1 for o in outputs if (o.point_cloud[:, 0] < 0).any())} ({merged} points)")
+    say(f"vislam: ATE of the SLAM-corrected outputs {ate:.4f} m over {len(outputs)} outputs; "
+        f"the odometry-to-SLAM transform moves the last output by "
+        f"{float(np.linalg.norm(coupling.coord.T[:3, 3])):.4g} m")
+    for label, ms, calls in table:
+        say(f"vislam SLAM stage (per keyframe, {timer.SLAM_TIME_STATS.frames} keyframes): "
+            f"{ms:10.3f} ms  {label} (x{calls})")
+    say(f"vislam: host syncs in step {VISLAM_SYNC_STEP} (the SLAM worker drained): "
+        f"{sum(syncs.values()) if syncs is not None else 'not counted'} "
+        f"{json.dumps(dict(sorted((syncs or {}).items())))}; kernel launches {json.dumps(launches)}")
+    say("vislam: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    if not finite:
+        raise AssertionError("vislam: a non-finite output")
+    if len(outputs) < F - 3:
+        raise AssertionError(f"vislam: {len(outputs)} outputs for {F} frames")
+    if not ate <= ATE_LIMIT_M:
+        raise AssertionError(f"vislam: ATE {ate} m > {ATE_LIMIT_M} m")
+    if len(slam.kf_order) < 2 or not ba_runs[0] or not slam.points:
+        raise AssertionError(f"vislam: {len(slam.kf_order)} SLAM keyframes, {ba_runs[0]} local "
+                             f"BA runs, {len(slam.points)} map points")
+    if syncs is None:
+        raise AssertionError(f"vislam: step {VISLAM_SYNC_STEP} was never run")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"vislam: kernels not launched: {missing}")
+    return launches, by_shape, sum(syncs.values())
+
+
+def run_cli_vislam(dev):
+    """Phase 8c: the port's CLI with -useSlam and -slamMapPosesPath at the
+    reference's defaults (the vislam() preset: mono, a SLAM candidate every
+    8th keyframe, the worker thread on) over phase 7's mono dataset
+    (API_FRAMES frames), the SLAM stage table per keyframe beside it. Fails
+    on a non-finite output, fewer outputs than frames - 3, an ATE over
+    ATE_LIMIT_M, a map file without a keyframe line, a path kernel not
+    launched or a host sync in a step. Returns (launches, launches by shape,
+    host syncs)."""
+    import os
+    import shutil
+    import tempfile
+
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.utils import timer
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vislam_", dir=build)
+    try:
+        ds, out_path, map_path = f"{tmp}/mono", f"{tmp}/out.jsonl", f"{tmp}/map.jsonl"
+        write_api_dataset(ds, "mono", API_FRAMES)
+        gt = [json.loads(l) for l in open(f"{ds}/data.jsonl") if "groundTruth" in l]
+        gt_t = np.array([j["time"] for j in gt])
+        gt_p = np.array([[j["groundTruth"]["position"][a] for a in "xyz"] for j in gt])
+        timer.SLAM_TIME_STATS.reset()
+        timer.SLAM_TIME_STATS.enabled = True
+        t0 = time.perf_counter()
+        try:
+            launches, by_shape, syncs, wall, err = run_cli(
+                dev, "mono", ds, out_path, API_FRAMES,
+                extra=("-useSlam", f"-slamMapPosesPath={map_path}"))
+            table = _slam_table()
+        finally:
+            timer.SLAM_TIME_STATS.enabled = False
+        secs = time.perf_counter() - t0
+        lines = [json.loads(l) for l in open(out_path)]
+        map_lines = [json.loads(l) for l in open(map_path)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
+    t_out = np.array([j["time"] for j in lines])
+    floats = np.array([[*j["position"].values(), *j["orientation"].values(),
+                        *j["velocity"].values()] for j in lines])
+    finite = bool(len(lines)) and bool(np.isfinite(floats).all())
+    gt_i = np.stack([np.interp(t_out, gt_t, gt_p[:, a]) for a in range(3)], axis=1)
+    ate = float(ate_rmse(est, gt_i)) if finite and len(lines) >= 3 else float("nan")
+    steady = [w for i, w in enumerate(wall) if i not in (0, API_SYNC_STEP)]
+    kf_lines = sum(1 for d in map_lines if "time" in d)
+    say(f"cli vislam (-useSlam, the vislam() preset, mono): {API_FRAMES} frames in, {len(lines)} "
+        f"outputs out in {secs:.1f} s; per-frame wall time at B=1: median "
+        f"{1e3 * statistics.median(steady):.2f} ms, p90 "
+        f"{1e3 * float(np.percentile(steady, 90)):.2f} ms, first step {1e3 * wall[0]:.1f} ms; "
+        f"ATE {ate:.4f} m; the map file: {kf_lines} keyframe lines, "
+        f"{len(map_lines) - kf_lines} map points")
+    for label, ms, calls in table:
+        say(f"cli vislam SLAM stage (per keyframe, {timer.SLAM_TIME_STATS.frames} keyframes): "
+            f"{ms:10.3f} ms  {label} (x{calls})")
+    say(f"cli vislam: host syncs in step {API_SYNC_STEP} (the SLAM worker drained): "
+        f"{sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}; kernel launches "
+        f"{json.dumps(launches)}")
+    say("cli vislam: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    if not finite:
+        raise AssertionError("cli vislam: a non-finite output")
+    if len(lines) < API_FRAMES - 3:
+        raise AssertionError(f"cli vislam: {len(lines)} outputs for {API_FRAMES} frames")
+    if not ate <= ATE_LIMIT_M:
+        raise AssertionError(f"cli vislam: ATE {ate} m > {ATE_LIMIT_M} m")
+    if kf_lines < 1:
+        raise AssertionError("cli vislam: the map file has no keyframe line")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"cli vislam: kernels not launched: {missing}")
+    return launches, by_shape, sum(syncs.values())
+
+
 def main() -> int:
     try:
         import torch
@@ -1325,6 +1800,9 @@ def main() -> int:
         runs = {config: run_path(dev, config) for config in PATHS}
         option_syncs = run_options(dev)
         runs.update(run_api_paths(dev))
+        run_slam_sessions(dev)
+        runs["vislam"] = run_vislam(dev)
+        runs["cli_vislam"] = run_cli_vislam(dev)
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -19,7 +19,9 @@ Layout:
   geometry/    quaternions, poses, pinhole camera
   ekf/         filter state, predict, updates, augmentation
   odometry/    trail, triangulation, visual update, backend, VIO step
-  frontend/    pyramid, LK, GFTT, stereo check, RANSAC, tracker
+  frontend/    pyramid, LK, GFTT, FAST, stereo check, RANSAC, tracker
+  slam/        the SLAM session: keyframes, ORB, vocabulary, BA, pose graph,
+               loop closure (coupled to the VIO by odometry/slam_coupling.py)
   ops/         CUDA kernels (csrc/) with their plain PyTorch versions
   parallel/    the batched shared-frame step
   convert.py   state exchange with the reference package

@@ -16,9 +16,15 @@ each frame's output comes back in one packed copy into pinned memory,
 retired one frame late (after the next frame's step is queued), so the host
 never waits on the card inside a step.
 
+With ``slam.useSlam`` the SLAM session (``odometry/slam_coupling.py``,
+``slam/``) runs on the API's device beside the step: every keyframe's
+output submits its frame, quantized to uint8 on the card, and every
+output is corrected by the SLAM map's transform, with the map's points
+merged into its cloud (negative ids); ``finish`` runs the final global
+adjustment and saves the map.
+
 Not ported (each raises ``NotImplementedError`` naming its module when asked
-for): SLAM (``slam.useSlam``, ``odometry/slam_coupling.py``), the
-visualizations (``api/visualizations.py``), the debug publisher
+for): the visualizations (``api/visualizations.py``), the debug publisher
 (``odometry/debug.py``), per-frame intrinsics (``add_frame_mono_varying``),
 the stereo point cloud (``frontend/rectify.py``, ``frontend/disparity.py``),
 the native synchronizer (``io/native_sync.py``) and GPS echoes
@@ -44,7 +50,8 @@ from ..geometry.cameras import build_camera_from_params
 from ..io.jsonl import Recorder, output_to_json
 from ..odometry.backend import FrameOutput, ImuBatch
 from ..odometry.sample_sync import SampleSync, SyncedSample
-from ..runtime import IMAGE_DTYPE, constant, default_device, filter_dtype, full_precision
+from ..runtime import (IMAGE_DTYPE, constant, default_device, filter_dtype, full_precision,
+                       hold_precision, release_precision)
 from ..utils.allocator import Allocator
 from ..utils.timer import TimeStats, wait_for
 
@@ -81,7 +88,8 @@ class VioOutput:
 class _Fetch(collections.namedtuple("_Fetch", "host event layout aux")):
     """One frame's output on its way to the host: the pinned byte buffer,
     the CUDA event recorded after its copy (None on the CPU), the fields'
-    (numpy dtype, shape, byte offset, byte count), the frame's images."""
+    (numpy dtype, shape, byte offset, byte count), the frame's images (as
+    given, and the first as the step took it, (1, H, W) on the device)."""
 
 
 def _pack(out: FrameOutput):
@@ -135,9 +143,6 @@ class VioApi:
 
         self._vio = None
         if not self.recording_only:
-            if params.slam.useSlam:
-                raise NotImplementedError("slam.useSlam: odometry/slam_coupling.py and slam/ "
-                                          "are not ported")
             if params.tracker.computeStereoPointCloud:
                 raise NotImplementedError("tracker.computeStereoPointCloud: frontend/rectify.py "
                                           "and frontend/disparity.py are not ported")
@@ -214,6 +219,19 @@ class VioApi:
         self._worker = None
         if params.odometry.processingQueueSize > 0:
             self._start_worker(params.odometry.processingQueueSize)
+
+        # optional async SLAM backend (reference: slam.useSlam + applySlam),
+        # on the API's device; the precision policy holds for its worker
+        # thread until finish()
+        self.slam = None
+        self._slam_running = False
+        if params.slam.useSlam and not self.recording_only:
+            from ..odometry.slam_coupling import SlamCoupling
+
+            self.slam = SlamCoupling(params, self.derived.imu_to_camera,
+                                     camera=self.cameras[0], device=self.device)
+            self._slam_running = True
+            hold_precision()
 
     @property
     def debug_api(self):
@@ -312,9 +330,12 @@ class VioApi:
             if isinstance(d, dict) and "latitude" in d:
                 raise NotImplementedError(f"{name} input: utils/gps.py is not ported")
 
-    def finish(self) -> None:
+    def finish(self, slam_map_poses_path=None) -> None:
         """Drain the worker, retire every output in flight, flush the output
-        buffer and close the recorder."""
+        buffer, flush the SLAM session and run its final global adjustment
+        (reference: slam::Slam::end() via main.cpp teardown;
+        ``slam_map_poses_path`` saves the keyframe map), and close the
+        recorder."""
         if self._queue is not None:
             self._queue.join()
             self._queue.put(None)
@@ -325,6 +346,12 @@ class VioApi:
             # drain outputs still held for their scheduled emit time
             while self.output_buffer.buf:
                 self.on_output(self.output_buffer.buf.popleft())
+        if self.slam is not None and self._slam_running:
+            self._slam_running = False
+            try:
+                self.slam.finish(map_save_path=slam_map_poses_path)
+            finally:
+                release_precision()
         if self.recorder is not None:
             self.recorder.close()
 
@@ -492,7 +519,7 @@ class VioApi:
                 event.record()
             else:
                 host, event = raw, None
-        self._inflight.append(_Fetch(host, event, layout, (image, second)))
+        self._inflight.append(_Fetch(host, event, layout, (image, second, img)))
 
     def _staged_step(self, batch, n, img, img2):
         """The step in its three stages, each scope waiting on the card
@@ -546,9 +573,9 @@ class VioApi:
 
     def _retire(self, out, aux) -> None:
         """Host-side consumption of one fetched FrameOutput (numpy, no lane
-        axis): time-shift feedback, stats, status machine/auto-reset, output
-        conversion + delivery."""
-        image, second = aux
+        axis): time-shift feedback, stats, SLAM submit, status
+        machine/auto-reset, output conversion + delivery."""
+        image, second, frame = aux
 
         # time-shift feedback into sample sync (reference: control.cpp:97-106;
         # the estimate rides the output, no extra state fetch). Clamped: a
@@ -571,6 +598,12 @@ class VioApi:
                 from ..utils.logging import log_info
 
                 log_info("visual updates: %s", line)
+        if self.slam is not None and bool(out.keyframe):
+            with self.time_stats.scope("slam submit"):
+                # the frame as the step took it, on the device: the coupling
+                # quantizes it there, after its every-Nth-interval check
+                self.slam.maybe_submit(frame[0], out.position, out.orientation, out.track_ids,
+                                       out.track_norm, float(out.t), self._frame_count)
 
         self._handle_status_and_reset(out)
         if self.on_output:
@@ -719,6 +752,20 @@ class VioApi:
                                      as64(self.derived.imu_to_output)).numpy()
             position = c2w[:3, 3]
             orientation = rmat_to_quat(as64(c2w[:3, :3].T)).numpy()
+        if self.slam is not None and self.slam.coord.ready:
+            # SLAM-corrected outputs (reference: computePose, backend.cpp:1364-1381)
+            T = self.slam.coord.T
+            position, orientation = self.slam.coord.transform_position_orientation(
+                position, orientation)
+            velocity = T[:3, :3] @ velocity
+            if len(cloud):
+                cloud = cloud.copy()
+                cloud[:, 1:4] = (T[:3, :3] @ cloud[:, 1:4].T).T + T[:3, 3]
+            # merge SLAM map points (reference: getPointCloud, backend.cpp:255-280)
+            if self.slam.point_cloud:
+                slam_pts = np.array([[-pid, p[0], p[1], p[2]]
+                                     for pid, tid, p in self.slam.point_cloud])
+                cloud = np.concatenate([cloud, slam_pts]) if len(cloud) else slam_pts
         return VioOutput(
             status=int(out.tracking_status),
             t=float(out.t),

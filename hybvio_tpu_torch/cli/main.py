@@ -21,11 +21,14 @@ Configuration precedence mirrors the reference (main.cpp:298-327):
     data.jsonl-embedded -> parameters.txt/vio_config.yaml -> calibration.json
     -> command line (last, highest).
 
+SLAM: -useSlam runs the SLAM session beside the VIO (on the same device);
+-slamMapPosesPath=<file> saves its keyframe map at the end; with -timer the
+SLAM worker's per-keyframe stage table follows the VIO's.
+
 Not ported (raise NotImplementedError naming the module): EuRoC ASL input
 (io/euroc.py), CSV input (io/jsonl.py read_csv_events), video containers
-(io/video.py VideoFileSource), the display and visualization flags
-(api/visualizations.py), SLAM (-useSlam, its viewers and -slamMapPosesPath),
-per-frame varying intrinsics.
+(io/video.py VideoFileSource), the display and visualization flags and the
+SLAM viewers (api/visualizations.py), per-frame varying intrinsics.
 """
 from __future__ import annotations
 
@@ -94,9 +97,10 @@ def run(argv=None, device=None) -> int:
     # reference) are accepted for command-line compatibility and unused
     _DISPLAY_KEYS = {n for n in CMD_PARAMS["main"]
                      if n.startswith("display")} | {"visualUpdateViewer", "visualizationPath"}
-    _SLAM_KEYS = {"displayKeyframe", "visualizeOrbMatching", "visualizeLoopOrbMatching",
-                  "visualizeOrbPyramid", "visualizeOrbs", "visualizeMapPointSearch",
-                  "slamMapPosesPath"}
+    # the SLAM viewers (Pangolin windows in the reference) render through
+    # api/visualizations.py too
+    _SLAM_VIEWER_KEYS = {"displayKeyframe", "visualizeOrbMatching", "visualizeLoopOrbMatching",
+                         "visualizeOrbPyramid", "visualizeOrbs", "visualizeMapPointSearch"}
     main_flags = {}
     rest = []
     for a in argv:
@@ -114,11 +118,11 @@ def run(argv=None, device=None) -> int:
     if "inputPath" not in main_flags:
         print(__doc__)
         return 2
-    shown = sorted(k for k in _DISPLAY_KEYS | _SLAM_KEYS
+    shown = sorted(k for k in _DISPLAY_KEYS | _SLAM_VIEWER_KEYS
                    if main_flags.get(k) not in (None, "false", "NONE"))
     if shown:
         raise NotImplementedError(f"-{', -'.join(shown)}: the visualizations "
-                                  "(api/visualizations.py) and SLAM are not ported")
+                                  "(api/visualizations.py) are not ported")
 
     from ..utils.logging import setup_logging
 
@@ -246,6 +250,11 @@ def run(argv=None, device=None) -> int:
     api = VioApi(params, W, H, device=device)
     if main_flags.get("timer"):
         api.time_stats.enabled = True
+        # SLAM worker per-keyframe stage timers (reference: slam::TIME_STATS
+        # singleton, util/timer.cpp:8-11)
+        from ..utils.timer import SLAM_TIME_STATS
+
+        SLAM_TIME_STATS.enabled = True
     n_out = [0]
     t_start = time.time()
 
@@ -437,7 +446,7 @@ def run(argv=None, device=None) -> int:
             if max_frames and n_frames >= max_frames:
                 break
 
-    api.finish()
+    api.finish(slam_map_poses_path=main_flags.get("slamMapPosesPath"))
     elapsed = time.time() - t_start
     if out_file:
         out_file.close()
@@ -453,6 +462,11 @@ def run(argv=None, device=None) -> int:
         # carries the reference's per-label table (main.cpp:1008-1016)
         api.attribute_stages()
         print(api.time_stats.report(), file=sys.stderr)
+        from ..utils.timer import SLAM_TIME_STATS
+
+        if SLAM_TIME_STATS.frames:
+            print("--- SLAM worker (per keyframe) ---", file=sys.stderr)
+            print(SLAM_TIME_STATS.report(), file=sys.stderr)
     if api.output_buffer is not None:
         # buffered-output statistics (reference: OutputBuffer FPS / latency
         # +/- / skips per second report, output_buffer.hpp:33-46)

@@ -31,6 +31,31 @@ def block_max_candidates(response, cell: int):
     return scores.reshape(lead + (-1,)), torch.stack([xs, ys], dim=-1).reshape(lead + (-1, 2))
 
 
+def block_max_packed(response, cell: int):
+    """``block_max_candidates`` of one (H, W) response as one packed
+    reduction, as the reference's SLAM keyframe detector does: scores in
+    [0, 1] quantized to 16 bits (granularity 1.5e-5, which only perturbs
+    tie-breaking) and packed with the in-cell pixel index into one int32,
+    so one max gives both (on ties the larger in-cell index wins). Returns
+    (scores (NC,), xy (NC, 2)) with NC = (H // cell) * (W // cell)."""
+    H, W = response.shape
+    Hc, Wc = H // cell, W // cell
+    r = response[:Hc * cell, :Wc * cell].reshape(Hc, cell, Wc, cell)
+    r = r.transpose(1, 2).reshape(Hc, Wc, cell * cell)
+    nidx = cell * cell
+    shift = 1
+    while shift < nidx:
+        shift *= 2
+    q = torch.round(torch.clamp(r, 0.0, 1.0) * 65535.0).to(torch.int32)
+    packed = q * shift + torch.arange(nidx, dtype=torch.int32, device=r.device)
+    best = torch.amax(packed, dim=-1)
+    idx = best % shift
+    scores = (best // shift).to(response.dtype) / 65535.0
+    ys = torch.arange(Hc, device=r.device)[:, None] * cell + idx // cell
+    xs = torch.arange(Wc, device=r.device)[None, :] * cell + idx % cell
+    return scores.reshape(-1), torch.stack([xs, ys], dim=-1).reshape(-1, 2)
+
+
 def detect_corners(img, n_out: int, existing_xy, existing_valid, mask_radius,
                    min_distance: float, block_size: int = 3, min_response: float = 1e-3,
                    n_candidates: int = 256, margin: int = 5, crop_fraction: float = 1.0,

@@ -1,7 +1,8 @@
 """Quaternion / rotation utilities (wxyz, Hamilton), over leading dims.
 
-Port of the reference's ``geometry/quaternion.py`` pieces the step and the
-host API (``ekf/transforms.py``, ``api/vio.py``) use.
+Port of the reference's ``geometry/quaternion.py`` pieces the step, the
+host API (``ekf/transforms.py``, ``api/vio.py``) and the SLAM solves
+(``slam/ba.py``) use.
 """
 from __future__ import annotations
 
@@ -87,6 +88,13 @@ def quat_right_mul_matrix(p: torch.Tensor) -> torch.Tensor:
         p3, -p4, p1, p2,
         p4, p3, -p2, p1,
     ], dim=-1).reshape(p.shape[:-1] + (4, 4))
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    """Normalize; an all-zero quaternion stays all-zero (the reference's
+    ``quat_normalize`` with eps = 0)."""
+    n = torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(n > 0, q / torch.where(n > 0, n, torch.ones_like(n)), q)
 
 
 def rmat_to_quat(R: torch.Tensor) -> torch.Tensor:

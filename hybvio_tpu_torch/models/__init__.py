@@ -1,8 +1,8 @@
 """Presets of the port (the reference's ``models``): the EuRoC-like
 ``euroc_mono`` and ``euroc_stereo`` at the reference's defaults (BASELINE
-configs 1 and 2, as the CLI runs them), the benchmark preset
-``synthetic_bench_params`` and ``_finalize``. The SLAM and TUM-VI presets
-are not ported."""
+configs 1 and 2, as the CLI runs them), full VISLAM ``vislam`` (BASELINE
+config 3), the benchmark preset ``synthetic_bench_params`` and
+``_finalize``. The TUM-VI preset is not ported."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,7 +13,7 @@ from ..config import DerivedParameters, Parameters
 from ..geometry.cameras import build_camera_from_params
 from ..io.synthetic import SYNTH_IMU_TO_CAMERA
 
-CONFIGS = ("stereo", "mono", "fisheye")
+CONFIGS = ("stereo", "mono", "fisheye", "vislam")
 
 
 def _finalize(p: Parameters, width: int, height: int):
@@ -57,12 +57,22 @@ def euroc_stereo(width: int = 752, height: int = 480, baseline: float = 0.11, **
     return _finalize(p, width, height)
 
 
+def vislam(width: int = 752, height: int = 480, **overrides):
+    """Full VISLAM (-useSlam; BASELINE config 3): ``euroc_mono`` with the
+    SLAM session on."""
+    p, derived, cams = euroc_mono(width, height, **overrides)
+    p.slam.useSlam = True
+    return p, derived, cams
+
+
 def synthetic_bench_params(config: str = "stereo", lk_levels: Optional[int] = None,
                            lk_iters: Optional[int] = None,
                            rcond: Optional[float] = None) -> Parameters:
     """The benchmark preset for the synthetic EuRoC-like world: "stereo"
     and "mono" at 752x480 (BASELINE configs 2 and 1), "fisheye" (KB4,
-    512x512, BASELINE config 4). The SLAM preset ("vislam") is not ported.
+    512x512, BASELINE config 4), and "vislam" (BASELINE config 3): stereo
+    with the SLAM session, loop closures applied, a SLAM candidate every
+    4th keyframe.
     ``lk_levels``, ``lk_iters`` and ``rcond``, where given, replace the
     preset's pyrLKMaxLevel (2), pyrLKMaxIter (8) and
     triangulationRcondThreshold (1e-5), as the reference's keywords do."""
@@ -96,9 +106,13 @@ def synthetic_bench_params(config: str = "stereo", lk_levels: Optional[int] = No
     p.tracker.focalLength = 458.0
     p.tracker.principalPointX = W / 2
     p.tracker.principalPointY = H / 2
-    if config == "stereo":
+    if config in ("stereo", "vislam"):
         second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
         second[0, 3] = -0.11  # EuRoC-like baseline
         p.tracker.useStereo = True
         p.odometry.secondImuToCameraMatrix = tuple(second.T.flatten())
+    if config == "vislam":
+        p.slam.useSlam = True
+        p.slam.applyLoopClosures = True
+        p.slam.keyframeCandidateInterval = 4
     return p

@@ -9,6 +9,9 @@
   products (README numerics note), and PyTorch turns TF32 on for cuDNN by
   default. The step scopes this policy (``full_precision``) whatever the
   caller set, as the reference forces "highest" inside its visual updates.
+* The SLAM session's worker thread needs the policy too while the step
+  runs beside it: a VioApi with SLAM holds it (``hold_precision``) from
+  its construction to its ``finish``.
 * The step makes no host sync: every constant it needs goes to the device
   once (``constant``), since a copy from the host waits for the card.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -29,17 +33,56 @@ def configure_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+# The policy is process-global: a thread that restores the caller's setting
+# would drop TF32-off under another thread's products. While a hold is taken
+# (``hold_precision``, e.g. by a VioApi whose SLAM worker runs beside its
+# step) every ``full_precision`` block keeps the policy when it ends, and
+# the last release restores the setting from before the first hold.
+_POLICY_LOCK = threading.Lock()
+_holds = [0, None]  # count, the setting saved by the first hold
+
+
+def _current_policy():
+    return torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+
+
+def _restore_policy(saved) -> None:
+    torch.set_float32_matmul_precision(saved[0])
+    torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def hold_precision() -> None:
+    """Keep ``configure_precision`` in force in every thread until the
+    matching ``release_precision``."""
+    with _POLICY_LOCK:
+        if _holds[0] == 0:
+            _holds[1] = _current_policy()
+        _holds[0] += 1
+        configure_precision()
+
+
+def release_precision() -> None:
+    """End one hold; the last restores the setting from before the first."""
+    with _POLICY_LOCK:
+        _holds[0] -= 1
+        if _holds[0] == 0:
+            _restore_policy(_holds[1])
+
+
 @contextlib.contextmanager
 def full_precision():
     """``configure_precision`` inside the block; the caller's matmul
-    precision and cuDNN TF32 flag are restored after it."""
-    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
-    configure_precision()
+    precision and cuDNN TF32 flag are restored after it, unless a hold
+    (``hold_precision``) keeps the policy for another thread."""
+    with _POLICY_LOCK:
+        saved = _current_policy()
+        configure_precision()
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(saved[0])
-        torch.backends.cudnn.allow_tf32 = saved[1]
+        with _POLICY_LOCK:
+            if not _holds[0]:
+                _restore_policy(saved)
 
 
 def scoped_precision(fn):

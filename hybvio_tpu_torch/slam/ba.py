@@ -1,0 +1,245 @@
+"""Bundle adjustment: Gauss-Newton with the Schur complement (port of the
+reference package's ``slam/ba.py``).
+
+The problem is fixed-shape arrays:
+
+  poses:   (NK, 7)  keyframe camera-to-world [pos(3), quat(4) wxyz]
+  points:  (MP, 3)  map points (world)
+  obs:     (NK, MP) observation mask + (NK, MP, 2) normalized image points
+
+Each GN iteration builds the reprojection Jacobian blocks per observation by
+autodiff (``torch.func.vmap(jacrev(...))``; the reference takes
+``jax.vmap(jax.jacfwd(...))``, the same derivatives to rounding; no solve
+sits inside the differentiated function). Reverse mode, because PyTorch's
+forward mode keeps its dual level in a process-global, and the SLAM worker
+thread's Jacobians would race with the VIO step's own ``jacfwd`` on the
+caller's thread. It then reduces them into the camera system with the point (3x3) blocks
+eliminated by the Schur complement, solves the reduced (NK*6) system (first
+pose gauge-fixed), and back-substitutes points. Masked observations
+contribute zero. The solves take the ``_ex`` forms, which do not wait for
+the card to report a singular matrix.
+
+``make_sharded_ba`` (the reference's multi-chip BA over a mesh) is not
+ported: it raises.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import jacrev, vmap
+
+from ..geometry.quaternion import quat_mul, quat_normalize, quat_to_rmat
+from ..runtime import constant
+
+POSE_DOF = 6  # se3 delta: [translation(3), rotation(3)]
+
+
+def _conj_sign(q):
+    return constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
+
+
+def _apply_pose_delta(pose, delta):
+    """pose (..., 7) [p, q(wxyz)] with local delta (..., 6) [dt(3), dw(3)]
+    (q' = q * exp(dw) to second order, p' = p + dt)."""
+    p = pose[..., :3] + delta[..., :3]
+    dw = delta[..., 3:]
+    angle2 = torch.sum(dw * dw, dim=-1, keepdim=True)
+    w = 1.0 - angle2 / 8.0
+    xyz = dw * (0.5 - angle2 / 48.0)
+    q = quat_normalize(quat_mul(pose[..., 3:], torch.cat([w, xyz], dim=-1)))
+    return torch.cat([p, q], dim=-1)
+
+
+def _project(pose, point):
+    """Normalized-plane projection of world points from camera-to-world
+    poses (leading dims broadcast): (xy (..., 2), depth (...))."""
+    Rcw = quat_to_rmat(pose[..., 3:])  # camera-to-world rotation
+    pc = torch.einsum("...ji,...j->...i", Rcw, point - pose[..., :3])
+    z = pc[..., 2]
+    safe = torch.where(torch.abs(z) > 1e-9, z, torch.ones_like(z))
+    return pc[..., :2] / safe[..., None], z
+
+
+def _residual(pose, point, ip):
+    proj, z = _project(pose, point)
+    return proj - ip, z
+
+
+class BAProblem(NamedTuple):
+    poses: torch.Tensor  # (NK, 7) camera-to-world
+    points: torch.Tensor  # (MP, 3)
+    obs_ip: torch.Tensor  # (NK, MP, 2) normalized image points
+    obs_mask: torch.Tensor  # (NK, MP) bool
+    pose_valid: torch.Tensor  # (NK,) bool
+    point_valid: torch.Tensor  # (MP,) bool
+    # odometry relative-pose priors between consecutive keyframes
+    # (reference: odometryPriorStrengthPosition/Rotation)
+    prior_rel: torch.Tensor  # (NK-1, 7) measured relative pose k -> k+1 (cam-to-cam)
+    prior_mask: torch.Tensor  # (NK-1,) bool
+    prior_w_pos: torch.Tensor  # () weight
+    prior_w_rot: torch.Tensor  # ()
+
+
+def _relative_pose(pose_a, pose_b):
+    """Relative pose a->b in a's frame: (Ra^T (pb - pa), qa^-1 * qb)."""
+    qa = pose_a[..., 3:]
+    Ra = quat_to_rmat(qa)
+    dp = torch.einsum("...ji,...j->...i", Ra, pose_b[..., :3] - pose_a[..., :3])
+    qab = quat_mul(qa * _conj_sign(qa), pose_b[..., 3:])
+    return torch.cat([dp, qab], dim=-1)
+
+
+def _prior_residual(pose_a, pose_b, rel_meas, w_pos, w_rot):
+    rel = _relative_pose(pose_a, pose_b)
+    dp = (rel[..., :3] - rel_meas[..., :3]) * w_pos[..., None]
+    # quaternion difference (vector part of q_meas^-1 * q)
+    qd = quat_mul(rel_meas[..., 3:] * _conj_sign(rel), rel[..., 3:])
+    dr = qd[..., 1:] * torch.sign(qd[..., :1]) * 2.0 * w_rot[..., None]
+    return torch.cat([dp, dr], dim=-1)  # (..., 6)
+
+
+def _obs_residual(x, pose, point, ip):
+    """One observation's residual at the local delta x (9,) = [dpose(6),
+    dpoint(3)]."""
+    return _residual(_apply_pose_delta(pose, x[:6]), point + x[6:], ip)[0]
+
+
+def _pair_residual(x, pose_a, pose_b, rel, w_pos, w_rot):
+    """One relative-pose edge's residual at the deltas x (12,) of its two
+    poses."""
+    return _prior_residual(_apply_pose_delta(pose_a, x[:6]), _apply_pose_delta(pose_b, x[6:]),
+                           rel, w_pos, w_rot)
+
+
+_obs_jacobians = vmap(jacrev(_obs_residual))
+_pair_jacobians = vmap(jacrev(_pair_residual))
+
+
+def pair_jacobians(pose_a, pose_b, rel, w_pos, w_rot):
+    """(residuals (E, 6), Jacobians (E, 6, 12)) of E relative-pose edges
+    (weights (E,))."""
+    r0 = _prior_residual(pose_a, pose_b, rel, w_pos, w_rot)
+    x0 = pose_a.new_zeros((pose_a.shape[0], 12))
+    return r0, _pair_jacobians(x0, pose_a, pose_b, rel, w_pos, w_rot)
+
+
+def _solve(A, b):
+    return torch.linalg.solve_ex(A, b)[0]
+
+
+def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
+               huber_delta: float = 0.01, fix_first_pose: bool = True):
+    """Run GN iterations; returns (poses, points, final_cost).
+
+    Gauge: the first valid pose is held fixed (the odometry priors otherwise
+    leave a global 6-DOF + scale-ish gauge freedom in mono).
+    """
+    NK = problem.poses.shape[0]
+    MP = problem.points.shape[0]
+    dtype, dev = problem.poses.dtype, problem.poses.device
+    obs_w = problem.obs_mask & problem.pose_valid[:, None] & problem.point_valid[None, :]
+    wmask = obs_w.to(dtype)[..., None]
+    w_pos = problem.prior_w_pos.expand(NK - 1)
+    w_rot = problem.prior_w_rot.expand(NK - 1)
+    prior_m = problem.prior_mask.to(dtype)
+    ar = torch.arange(NK, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    pin = ~problem.pose_valid
+    if fix_first_pose:
+        pin = pin.clone()
+        pin[torch.argmax(problem.pose_valid.to(torch.int32))] = True
+    pin6 = torch.repeat_interleave(pin, 6)
+    pin_mat = pin6[:, None] | pin6[None, :]
+    pin_diag = torch.diag(pin6.to(dtype))
+    S_eps = 1e-12 * torch.eye(NK * 6, dtype=dtype, device=dev)
+
+    poses, points = problem.poses, problem.points
+    cost = None
+    for _ in range(iterations):
+        # --- per-observation residuals & Jacobians ---
+        P = poses[:, None].expand(NK, MP, 7).reshape(-1, 7)
+        X = points[None].expand(NK, MP, 3).reshape(-1, 3)
+        ip = problem.obs_ip.reshape(-1, 2)
+        r0, z = _residual(P, X, ip)
+        J = _obs_jacobians(P.new_zeros((NK * MP, 9)), P, X, ip)  # (NK*MP, 2, 9)
+        # Huber weights + behind-camera rejection
+        rn = torch.linalg.norm(r0, dim=-1)
+        w = torch.sqrt(torch.where(rn > huber_delta, huber_delta / torch.clamp(rn, min=1e-12),
+                                   torch.ones_like(rn)))
+        w = torch.where(z > 0.01, w, torch.zeros_like(w))
+        r_all = (r0 * w[:, None]).reshape(NK, MP, 2) * wmask
+        J_all = (J * w[:, None, None]).reshape(NK, MP, 2, 9) * wmask[..., None]
+        Jc = J_all[..., :6]  # (NK,MP,2,6) camera blocks
+        Jp = J_all[..., 6:]  # (NK,MP,2,3) point blocks
+
+        U = torch.einsum("kmri,kmrj->kij", Jc, Jc)  # (NK,6,6)
+        V = torch.einsum("kmri,kmrj->mij", Jp, Jp)  # (MP,3,3)
+        Wkm = torch.einsum("kmri,kmrj->kmij", Jc, Jp)  # (NK,MP,6,3)
+        bc = -torch.einsum("kmri,kmr->ki", Jc, r_all)  # (NK,6)
+        bp = -torch.einsum("kmri,kmr->mi", Jp, r_all)  # (MP,3)
+
+        # --- odometry relative-pose priors between consecutive keyframes ---
+        rp, Jp2 = pair_jacobians(poses[:-1], poses[1:], problem.prior_rel, w_pos, w_rot)
+        rp = rp * prior_m[:, None]
+        Jp2 = Jp2 * prior_m[:, None, None]
+        Ja, Jb = Jp2[..., :6], Jp2[..., 6:]
+        U = U.clone()
+        U[:-1] += torch.einsum("kri,krj->kij", Ja, Ja)
+        U[1:] += torch.einsum("kri,krj->kij", Jb, Jb)
+        W_prior = torch.einsum("kri,krj->kij", Ja, Jb)  # coupling k,k+1 (6,6)
+        bc = bc.clone()
+        bc[:-1] += -torch.einsum("kri,kr->ki", Ja, rp)
+        bc[1:] += -torch.einsum("kri,kr->ki", Jb, rp)
+
+        U = U + damping * eye6[None]
+        V = V + damping * torch.eye(3, dtype=dtype, device=dev)[None]
+
+        # --- Schur complement: eliminate points ---
+        Vinv = torch.linalg.inv_ex(V)[0]  # (MP,3,3); damped, invertible
+        WVinv = torch.einsum("kmij,mjl->kmil", Wkm, Vinv)  # (NK,MP,6,3)
+        S_full = -torch.einsum("kmil,qmjl->kqij", WVinv, Wkm)
+        S_full[ar, ar] += U
+        S_full[ar[:-1], ar[1:]] += W_prior
+        S_full[ar[1:], ar[:-1]] += W_prior.transpose(-1, -2)
+        b_red = bc - torch.einsum("kmil,ml->ki", WVinv, bp)  # (NK,6)
+
+        S = S_full.permute(0, 2, 1, 3).reshape(NK * 6, NK * 6)
+        b = b_red.reshape(NK * 6)
+        # gauge fixing + invalid poses: pin their deltas to zero
+        S = torch.where(pin_mat, torch.zeros_like(S), S) + pin_diag
+        b = torch.where(pin6, torch.zeros_like(b), b)
+
+        dc = _solve(S + S_eps, b).reshape(NK, 6)
+        dp_pts = torch.einsum("mij,mj->mi", Vinv, bp - torch.einsum("kmij,ki->mj", Wkm, dc))
+
+        cost = torch.sum(r_all * r_all)
+        poses = _apply_pose_delta(poses, dc)
+        points = points + dp_pts * problem.point_valid[:, None].to(dtype)
+    return poses, points, cost
+
+
+def make_sharded_ba(*args, **kwargs):
+    """The reference's multi-chip bundle adjustment (map points sharded over
+    a mesh): not ported."""
+    raise NotImplementedError("slam/ba.py make_sharded_ba: the multi-device bundle adjustment "
+                              "is not ported")
+
+
+def triangulate_points_linear(poses, obs_ip, obs_mask):
+    """Linear multi-view triangulation of all map points from keyframe
+    observations (initialization for BA). poses: (NK,7) cam-to-world."""
+    dtype = poses.dtype
+    Rcw = quat_to_rmat(poses[:, 3:])  # (NK,3,3) cam-to-world
+    # world ray of each observation
+    v = torch.cat([obs_ip, torch.ones_like(obs_ip[..., :1])], dim=-1)  # (NK,MP,3)
+    vw = torch.einsum("kij,kmj->kmi", Rcw, v)
+    vn = vw / torch.linalg.norm(vw, dim=-1, keepdim=True)
+    eye = torch.eye(3, dtype=dtype, device=poses.device)
+    A = eye[None, None] - vn[..., :, None] * vn[..., None, :]
+    A = A * obs_mask.to(dtype)[..., None, None]
+    S0 = torch.sum(A, dim=0)  # (MP,3,3)
+    S1 = torch.einsum("kmij,kj->mi", A, poses[:, :3])
+    pts = _solve(S0 + 1e-9 * eye[None], S1[..., None]).squeeze(-1)
+    ok = torch.sum(obs_mask, dim=0) >= 2
+    return pts, ok

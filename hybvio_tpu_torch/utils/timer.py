@@ -101,3 +101,11 @@ class TimeStats:
         self._attrib = {}
         self.frames = 0
 
+
+
+# the SLAM worker's per-keyframe stage timers (reference: the slam::TIME_STATS
+# singleton, util/timer.cpp:8-11); off until the CLI's -timer turns them on.
+# One frame per keyframe; the stages Slam.add_frame times, in its order:
+SLAM_STAGES = ("orb descriptors", "multi-scale keypoints", "bow vocabulary", "map points",
+               "loop closure", "local BA", "culling")
+SLAM_TIME_STATS = TimeStats(enabled=False)

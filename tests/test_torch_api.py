@@ -361,8 +361,9 @@ def test_recording_only_records_without_running(tmp_path):
     assert api.sample_sync.poll_synced_sample() is None
     lines = open(tmp_path / "data.jsonl").read().splitlines()
     assert len(lines) == 22 and sum("sensor" in json.loads(l) for l in lines) == 20
-    with pytest.raises(NotImplementedError, match="slam_coupling"):
-        VioApi(p, 64, 48, device="cpu")
+    slam_api = VioApi(p, 64, 48, device="cpu")  # the SLAM session is ported
+    assert slam_api.slam is not None and slam_api.slam.device.type == "cpu"
+    slam_api.finish()
     with pytest.raises(NotImplementedError, match="utils/gps.py"):
         api.add_echo({"time": 0.0, "gps": {"latitude": 60.0, "longitude": 24.0}})
     with pytest.raises(NotImplementedError, match="odometry/debug.py"):

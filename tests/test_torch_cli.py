@@ -121,12 +121,12 @@ def test_cli_honours_hybvio_platform(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["-useSlam"], "slam_coupling"),
+    (["-useSlam", "-displayKeyframe"], "visualizations"),
     (["-displayVideo"], "visualizations"),
     (["-c"], "visualizations"),
     (["-p"], "visualizations"),
     (["-visualizationPath=/nonexistent"], "visualizations"),
-    (["-slamMapPosesPath=x.csv"], "SLAM"),
+    (["-useSlam", "-visualizeOrbMatching"], "visualizations"),
     (["-computeStereoPointCloud", "-useStereo"], "rectify"),
 ])
 def test_cli_unported_flags_raise(runs, tmp_path, flags, match):

@@ -139,3 +139,77 @@ def test_host_entry_points_take_the_card(tmp_path, monkeypatch):
     monkeypatch.setenv("HYBVIO_PLATFORM", "cpu")
     assert cli._platform_device(None) == "cpu"
     assert cli._platform_device("cuda") == "cuda"
+
+
+def test_slam_modules_are_scanned():
+    """The SLAM slice's modules are among those imported and scanned above."""
+    for m in ("slam.host", "slam.orb", "slam.keypoints", "slam.vocabulary", "slam.ba",
+              "slam.posegraph", "slam.loopclosure", "slam.session", "frontend.fast",
+              "odometry.slam_coupling"):
+        assert f"hybvio_tpu_torch.{m}" in PORT_MODULES, m
+
+
+def test_slam_entry_points_take_the_card(monkeypatch):
+    """VioApi with slam.useSlam, the SLAM coupling and the session run on the
+    card unless asked for the CPU: without one they raise."""
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.odometry.slam_coupling import SlamCoupling
+    from hybvio_tpu_torch.slam.session import Slam
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = port_config.Parameters()
+    p.slam.useSlam = True
+    for make in (lambda: VioApi(p, 64, 48), lambda: Slam(p),
+                 lambda: SlamCoupling(p, np.eye(4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    api = VioApi(p, 64, 48, device="cpu")
+    assert api.slam.device.type == api.slam.slam.device.type == "cpu"
+    api.finish()
+
+
+def test_precision_policy_holds_in_the_slam_worker_while_the_step_runs():
+    """The policy is process-global. A VioApi with SLAM holds it from its
+    construction to its finish(): the SLAM worker thread reads "highest"
+    with cuDNN TF32 off all the while the main thread enters and leaves the
+    step's full_precision scope, and finish() restores the caller's
+    setting."""
+    import threading
+
+    from hybvio_tpu_torch import runtime
+    from hybvio_tpu_torch.api.vio import VioApi
+
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("medium")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        p = port_config.Parameters()
+        p.slam.useSlam = True
+        p.slam.slamThread = True
+        api = VioApi(p, 64, 48, device="cpu")
+        assert api.slam.pool is not None
+        started, stop, seen = threading.Event(), threading.Event(), set()
+
+        def worker():
+            started.set()
+            while not stop.is_set():
+                seen.add((torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32))
+
+        fut = api.slam.pool.submit(worker)
+        started.wait(timeout=10)
+        for _ in range(2000):  # the step's scope, as Vio.step enters it
+            with runtime.full_precision():
+                pass
+        stop.set()
+        fut.result(timeout=10)
+        assert seen == {("highest", False)}
+        api.finish()
+        assert (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) == (
+            "medium", True)
+        # without a hold the step's scope restores the caller's setting
+        with runtime.full_precision():
+            assert torch.get_float32_matmul_precision() == "highest"
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
