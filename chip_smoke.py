@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions; every
      later line starts with the card's name and power limit;
-  2. build every CUDA kernel from csrc/ with nvcc (sm_90a);
+  2. build every CUDA kernel from csrc/ with nvcc (sm_90a), and beside it
+     the native image decoder (native/image_decode.cpp, g++; PNG where the
+     host has zlib, else PGM only);
   3. the card's launch floor (an empty kernel, timed like the rows below);
      each kernel against its plain PyTorch version on the card at every
      input shape the five paths of phase 4 give it (exact for gather /
@@ -33,7 +35,8 @@ Phases (any failure exits non-zero and prints no result line):
      200 windows at every window shape and level (API_GATHER_ROWS), greedy
      at K = 400; and at the vislam preset's (phase 8b, the stereo preset at
      one lane): the gather of 96 windows at every row of GATHER_ROWS,
-     greedy at K = 192;
+     greedy at K = 192; and the FAST detector's greedy walk (phase 9a) at
+     K = 256, one lane and 16 lanes with a per-lane d2;
   4. five paths through make_batched_vio, each B=16 lanes, a float32
      filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
      frames (io.synthetic, the benchmark's worlds; mono, fisheye and
@@ -93,7 +96,29 @@ Phases (any failure exits non-zero and prints no result line):
      a non-finite output, an ATE over 0.05 m, fewer than 2 SLAM keyframes, no
      local BA, no map point, a host sync in a step, a path kernel not
      launched, fewer CLI outputs than frames - 3 or a map file without a
-     keyframe line.
+     keyframe line;
+  9. recorded stereo input and the stereo options: (a) STEREO_OPTION_STEPS
+     (7) steps of each stereo option on stereo_per_lane's 16 worlds at
+     752x480 (the batched update, a float32 filter): rectification of
+     frames recorded through EuRoC cam0's radial distortion on both cameras
+     (the frames rendered pinhole and warped through the distorted lens by
+     the port's build_remap / remap), dense depth with the independent
+     stereo triangulation, the independent stereo triangulation alone,
+     upright-2P, stereo without RANSAC3, the FAST detector,
+     predictOpticalFlow = false; each with its median step (steps 3-7)
+     beside the same steps without an option and stereo_per_lane's phase-4
+     median, finite lanes, ATE, launches and the host syncs of one step;
+     then the SAD disparity alone at 16 lanes on the card; fails on a
+     non-finite lane, a host sync or a path kernel the option runs and did
+     not launch (FAST runs three of the four: no corner response); (b) a
+     EuRoC ASL (mav0) tree of the stereo path's world at 752x480
+     (EUROC_FRAMES frames through EuRoC cam0's intrinsics and radial
+     distortion, PNG with the standard library's zlib where the decoder
+     reads PNG, else PGM, imu0, ground truth) through the port's CLI run()
+     in-process at the reference's defaults with -useStereo
+     -useRectification: frames in, outputs out, per-frame wall time, decode
+     time a frame, ATE, launches and the host syncs of one step; fails as
+     phase 7.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -113,7 +138,9 @@ FRAMES = 60
 # limit with the sequential path (the paths that share their code with
 # stereo_per_lane and stereo_sequential_hybrid keep 60), and
 # stereo_sequential_hybrid (~2 s a step) to 40 to make room for phase 8
-PATH_FRAMES = {"mono": 40, "fisheye": 40, "stereo_sequential_hybrid": 40}
+# (stereo_sequential_hybrid to 30 and the CLI runs of phases 7 and 8c to 14
+# frames to make room for phase 9)
+PATH_FRAMES = {"mono": 40, "fisheye": 40, "stereo_sequential_hybrid": 30}
 PATHS = ("stereo", "mono", "fisheye", "stereo_per_lane", "stereo_sequential_hybrid")
 FRAME_HW = {"stereo": (480, 752), "mono": (480, 752), "fisheye": (512, 512),
             "stereo_per_lane": (480, 752), "stereo_sequential_hybrid": (480, 752)}
@@ -173,7 +200,7 @@ API_GATHER_ROWS = ((3, 34, 0), (3, 34, 1), (3, 34, 2), (3, 34, 3), (1, 60, 3), (
                    (1, 50, 1), (1, 50, 0), (1, 66, 1), (2, 33, 0))
 API_GREEDY_K = 2 * API_T  # the detector's candidates, max(2 T, 128)
 API_CONFIGS = ("mono", "stereo")
-API_FRAMES = 20  # frames each CLI run reads
+API_FRAMES = 14  # frames each CLI run reads
 API_TIMER_FRAMES = 8  # frames of each -timer run
 API_SYNC_STEP = 3  # the step whose host syncs are counted
 ATE_LIMIT_M = 0.05
@@ -185,6 +212,27 @@ SLAM_POSE_TOL = 1e-8
 VISLAM_FRAMES = 60
 VISLAM_SYNC_STEP = 10
 VISLAM_T = 96
+# phase 9: the stereo options (name, tracker / odometry parameters), each
+# STEREO_OPTION_STEPS steps of the per-lane stereo input (step 2 counts the
+# host syncs; the median is over the steps after it: 3 steps, as phase 6
+# runs its options, left one sample, and single steps spread over 235-450
+# ms on one host), and the EuRoC tree.
+# EuRoC cam0's radial coefficients (io/euroc.py drops p1 and p2) and
+# intrinsics.
+EUROC_K = (-0.28340811, 0.07395907)
+EUROC_INTRINSICS = (458.654, 457.296, 367.215, 248.375)
+STEREO_OPTION_STEPS = 7
+STEREO_OPTIONS = (
+    ("rectification, EuRoC distortion", {"tracker.useRectification": True}),
+    ("dense depth + independent triangulation",
+     {"tracker.computeDenseStereoDepth": True, "odometry.useIndependentStereoTriangulation": True}),
+    ("independent triangulation", {"odometry.useIndependentStereoTriangulation": True}),
+    ("upright-2P", {"tracker.useRansac3": False, "tracker.useStereoUpright2p": True}),
+    ("no RANSAC3", {"tracker.useRansac3": False}),
+    ("FAST detector", {"tracker.featureDetector": "FAST"}),
+    ("predictOpticalFlow = false", {"tracker.predictOpticalFlow": False}))
+FAST_K = 256  # the FAST detector's candidates
+EUROC_FRAMES = 14
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
@@ -210,6 +258,7 @@ KERNELS = {  # name -> (source, Pallas kernels it replaces, ", "-separated)
 
 
 CARD = ""  # nvidia-smi's "name, power limit", set in main
+PATH_MEDIAN_MS = {}  # phase 4's median step of each path
 
 
 def say(msg: str) -> None:
@@ -650,6 +699,7 @@ def check_kernels(dev):
     check_per_lane(dev, g, results, timed, shape_row)
     check_api_shapes(dev, g, results, timed, shape_row)
     check_vislam_shapes(dev, g, results, timed, shape_row)
+    check_fast_shapes(dev, g, results, timed, shape_row)
 
     say(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
         f"/ pyramid-and-gradients cases equal their plain versions")
@@ -860,6 +910,32 @@ def check_vislam_shapes(dev, g, results, timed, shape_row):
                  K * (K - 1) // 2, plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
                  plain_reps=10)
     results["greedy_nms"]["shapes"][shape_key((1, K, "shared"))] = shape_row(srow)
+
+
+def check_fast_shapes(dev, g, results, timed, shape_row):
+    """Phase 3 at the FAST detector's shape (phase 9a): the greedy walk over
+    its FAST_K candidates, at one lane and at B lanes with a per-lane d2,
+    each against its plain version exactly."""
+    from hybvio_tpu_torch import ops
+
+    K = FAST_K
+    d2, ok, min_d2 = greedy_inputs(g, 2, K, False, False, dev)
+    d2, ok = d2[1:].contiguous(), ok[1:].contiguous()  # the lane with eligible candidates
+    srow = timed(f"greedy_nms, one lane, K={K} (FAST)",
+                 float((ops.greedy_min_distance(d2, ok, min_d2)
+                        != ops.greedy_min_distance_plain(d2, ok, min_d2)).sum()), 0.0,
+                 lambda: ops.greedy_min_distance(d2, ok, min_d2), None, 4 * K * K + 2 * K,
+                 K * (K - 1) // 2, plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
+                 plain_reps=10)
+    results["greedy_nms"]["shapes"][shape_key((1, K, "shared"))] = shape_row(srow)
+    d2l, okl, _ = greedy_inputs(g, B, K, False, False, dev)
+    srow = timed(f"greedy_nms, {B} lanes, per-lane d2, K={K} (FAST)",
+                 float((ops.greedy_min_distance(d2l, okl, min_d2)
+                        != ops.greedy_min_distance_plain(d2l, okl, min_d2)).sum()), 0.0,
+                 lambda: ops.greedy_min_distance(d2l, okl, min_d2), None,
+                 4 * B * K * K + 2 * B * K, B * K * (K - 1) // 2,
+                 plain=lambda: ops.greedy_min_distance_plain(d2l, okl, min_d2), plain_reps=10)
+    results["greedy_nms"]["shapes"][shape_key((B, K, "per-lane"))] = shape_row(srow)
 
 
 def rank(rows, path=None):
@@ -1101,6 +1177,7 @@ def run_path(dev, config):
     ates = [float(ate_rmse(est[:, b], gt[b])) for b in finite]
     timed = step_ms[2:]  # the first step is the warm-up, the second counted the syncs
     med = statistics.median(timed)
+    PATH_MEDIAN_MS[config] = med
     fps = B * len(timed) / (sum(timed) / 1000.0)
     ate_med = float(np.median(ates)) if ates else float("nan")
     ate_p90 = float(np.percentile(ates, 90)) if ates else float("nan")
@@ -1767,6 +1844,213 @@ def run_cli_vislam(dev):
     return launches, by_shape, sum(syncs.values())
 
 
+def run_stereo_options(dev):
+    """Phase 9a: STEREO_OPTION_STEPS steps of each stereo option of
+    STEREO_OPTIONS on stereo_per_lane's input (B distinct worlds, 752x480,
+    the batched update, a float32 filter), first the same steps with no
+    option. The distortion option records the frames through EuRoC cam0's
+    radial lens on both cameras: each frame rendered pinhole on the card and
+    warped through the distorted camera by build_remap / remap, outside the
+    step. Fails on a non-finite lane, a host sync in a step or a path kernel
+    the option runs and did not launch. Returns {path name: (launches,
+    launches by shape, host syncs)}."""
+    import copy
+
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.frontend.rectify import build_remap, remap
+    from hybvio_tpu_torch.geometry.cameras import build_pinhole
+    from hybvio_tpu_torch.models import _finalize
+    from hybvio_tpu_torch.parallel.batched import make_batched_vio
+
+    H, W = FRAME_HW["stereo_per_lane"]
+    base, derived, cams, start, gt, frame, batches = per_lane_inputs(
+        dev, torch.float32, STEREO_OPTION_STEPS + 1)
+    pt = base.tracker
+    pin = build_pinhole(pt.focalLength, pt.focalLength, pt.principalPointX, pt.principalPointY,
+                        width=W, height=H)
+    lens = build_pinhole(pt.focalLength, pt.focalLength, pt.principalPointX, pt.principalPointY,
+                         coeffs=EUROC_K + (0.0,), width=W, height=H)
+    warp = build_remap(pin, lens, W, H, torch.float32, dev)
+    runs, plain_ate = {}, {}
+    for name, settings in (("no option", {}),) + STEREO_OPTIONS:
+        params = copy.deepcopy(base)
+        for key, value in settings.items():
+            group, field = key.split(".")
+            params.set_parameter(group, field, value)
+        distort = "useRectification" in str(settings)
+        if distort:
+            params.tracker.distortionCoeffs = EUROC_K + (0.0,)
+        p, d, c = _finalize(params, W, H)
+        images = ((lambda fi: tuple(remap(im, warp) for im in frame(fi))) if distort else frame)
+        binit, bstep, _ = make_batched_vio(p, d, c, batch_size=B, device=dev,
+                                           dtype=torch.float32)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        states = binit(images(0), np.full(B, start), np.arange(B))
+        positions, step_ms = [], []
+        for fi in range(1, STEREO_OPTION_STEPS + 1):
+            im = images(fi)  # rendered (and warped) outside the step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if fi == 2:
+                (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], im))
+            else:
+                states, out = bstep(states, batches[fi - 1], im)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            positions.append(out.position)
+        launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+        est = torch.stack(positions).double().cpu().numpy()
+        finite = [b for b in range(B) if np.isfinite(est[:, b]).all()]
+        ates = [float(ate_rmse(est[:, b], gt[b][:STEREO_OPTION_STEPS])) for b in finite]
+        lane_ate = dict(zip(finite, ates))
+        if not settings:  # "no option" runs first
+            plain_ate = lane_ate
+        worst = max(lane_ate, key=lane_ate.get, default=None)
+        with_depth = int(torch.sum(out.track_depth > 0))
+        say(f"stereo option {name}: {STEREO_OPTION_STEPS} steps at B={B} {W}x{H}, float32 "
+            f"filter: median step {statistics.median(step_ms[2:]):.2f} ms over steps 3-"
+            f"{STEREO_OPTION_STEPS} ({' '.join(f'{t:.1f}' for t in step_ms[2:])}; "
+            f"stereo_per_lane's median step in phase 4: "
+            f"{PATH_MEDIAN_MS.get('stereo_per_lane', float('nan')):.2f} ms), steps 1-2 "
+            f"{step_ms[0]:.1f} / {step_ms[1]:.1f} ms (step 2 under the sync check); finite lanes "
+            f"{len(finite)}/{B}; ATE median "
+            f"{statistics.median(ates) if ates else float('nan'):.4f} m, max "
+            f"{max(ates, default=float('nan')):.4f} m in lane {worst} (that lane with no option "
+            f"{plain_ate.get(worst, float('nan')):.4f} m); tracks with dense depth at the last "
+            f"step {with_depth}; host syncs in step 2: {sum(syncs.values())} "
+            f"{json.dumps(dict(sorted(syncs.items())))}")
+        say(f"stereo option {name}: kernel launches {json.dumps(launches)}; by input shape "
+            + json.dumps({f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+        if len(finite) != B:
+            raise AssertionError(f"stereo option {name}: only {len(finite)}/{B} lanes finite")
+        if sum(syncs.values()):
+            raise AssertionError(f"stereo option {name}: host syncs in a step: {dict(syncs)}")
+        runs_kernels = [k for k in PATH_KERNELS
+                        if not (k == "corner_response" and p.tracker.featureDetector == "FAST")]
+        missing = [k for k in runs_kernels if not launches[k]]
+        if missing:
+            raise AssertionError(f"stereo option {name}: kernels not launched: {missing}")
+        if "computeDenseStereoDepth" in str(settings) and not with_depth:
+            raise AssertionError(f"stereo option {name}: no track got a dense depth")
+        runs[f"stereo option: {name}"] = (launches, by_shape, sum(syncs.values()))
+    # the dense depth's SAD disparity alone, device time at B lanes (plain
+    # PyTorch: the cost volume (B, H, D, W) written once by a gather, read
+    # and written by the 2 x 15 box-sum passes), and the memory it takes
+    # above its inputs at its peak
+    from hybvio_tpu_torch.frontend.disparity import compute_disparity, default_max_disparity
+
+    left, right = (im.contiguous() for im in frame(1))
+    D = default_max_disparity(W)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    compute_disparity(left, right, D)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms, _ = device_ms(lambda: compute_disparity(left, right, D), reps=3)
+    volume = 4 * B * H * W * D
+    say(f"stereo options: the SAD disparity of {B} lanes of {W}x{H}, D={D}: {ms:.2f} ms on the "
+        f"card (CUDA events, 3 calls a run, median of {RUNS}); its volume {volume / 1e9:.2f} GB, "
+        f"its peak memory above its inputs {peak / 1e9:.2f} GB ({peak / volume:.2f} volumes); "
+        f"reading the two images and writing disparity and validity once would take "
+        f"{bound(4 * B * H * W * 3 + B * H * W, 0)[0]:.4f} ms")
+    return runs
+
+
+def run_euroc_cli(dev):
+    """Phase 9b: a EuRoC ASL tree of the stereo path's world (EUROC_FRAMES
+    frames at 752x480 through EuRoC cam0's intrinsics and radial lens on
+    both cameras) through the port's CLI at the reference's defaults with
+    -useStereo -useRectification (run_cli). Fails as phase 7. Returns
+    (launches, launches by shape, host syncs)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.io import native_image
+    from hybvio_tpu_torch.io.euroc import read_euroc_events
+    from hybvio_tpu_torch.io.jsonl import ECHO
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence
+    from hybvio_tpu_torch.io.video import load_image_file
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from euroc_fixture import write_euroc_sequence  # the tests' mav0 writer
+
+    H, W = FRAME_HW["stereo"]
+    fmt = "png" if native_image.png_supported() else "pgm"
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_euroc_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        seq = generate_sequence(duration=(EUROC_FRAMES + 2) / 20.0, imu_rate=200.0,
+                                frame_rate=20.0, n_landmarks=500, landmark_radius=6.0,
+                                gyro_noise=5e-4, acc_noise=5e-3, seed=0)
+        second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
+        second[0, 3] = -0.11
+        mav = f"{tmp}/mav0"
+        n = write_euroc_sequence(mav, seq, (SYNTH_IMU_TO_CAMERA, second), *EUROC_INTRINSICS,
+                                 W, H, EUROC_K, n_frames=EUROC_FRAMES, fmt=fmt)
+        files = sorted(glob.glob(f"{mav}/cam*/data/*.{fmt}"))
+        t1 = time.perf_counter()
+        for f in files:
+            load_image_file(f)
+        decode_ms = 1e3 * (time.perf_counter() - t1) / n  # both cameras' images of a frame
+        gt = [e.raw for e in read_euroc_events(mav) if e.kind == ECHO]
+        gt_t = np.array([g["time"] for g in gt])
+        gt_p = np.array([[g["groundTruth"]["position"][a] for a in "xyz"] for g in gt])
+        say(f"euroc cli: wrote a {n}-frame mav0 tree ({W}x{H}, 2 cameras, EuRoC cam0 "
+            f"intrinsics {EUROC_INTRINSICS} and k1, k2 = {EUROC_K}, {fmt.upper()} "
+            f"({'the decoder reads PNG' if fmt == 'png' else 'the decoder was built without zlib'}"
+            f"), {len(files)} images) in {t1 - t0:.1f} s; decode {decode_ms:.3f} ms a frame "
+            f"(2 images, io.video.load_image_file)")
+        out_path = f"{tmp}/out.jsonl"
+        t0 = time.perf_counter()
+        launches, by_shape, syncs, wall, err = run_cli(
+            dev, "stereo", tmp, out_path, EUROC_FRAMES, extra=("-useRectification",))
+        secs = time.perf_counter() - t0
+        lines = [json.loads(line) for line in open(out_path)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
+    t_out = np.array([j["time"] for j in lines])
+    floats = np.array([[*j["position"].values(), *j["orientation"].values(),
+                        *j["velocity"].values(), *np.ravel(j["positionCovariance"])]
+                       for j in lines])
+    finite = bool(len(lines)) and bool(np.isfinite(floats).all())
+    gt_i = np.stack([np.interp(t_out, gt_t, gt_p[:, a]) for a in range(3)], axis=1)
+    ate = float(ate_rmse(est, gt_i)) if finite and len(lines) >= 3 else float("nan")
+    steady = [w for i, w in enumerate(wall) if i not in (0, API_SYNC_STEP)]
+    say(f"euroc cli (-useStereo -useRectification, the reference's defaults, B=1): "
+        f"{EUROC_FRAMES} frames in, {len(lines)} outputs out in {secs:.1f} s; per-frame wall "
+        f"time: median {1e3 * statistics.median(steady):.2f} ms, p90 "
+        f"{1e3 * float(np.percentile(steady, 90)):.2f} ms, first step {1e3 * wall[0]:.1f} ms; "
+        f"ATE {ate:.4f} m over {len(lines)} outputs")
+    say(f"euroc cli: host syncs in step {API_SYNC_STEP} (the retirement excluded): "
+        f"{sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}; kernel launches "
+        f"{json.dumps(launches)}")
+    say("euroc cli: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    if not finite:
+        raise AssertionError("euroc cli: a non-finite output")
+    if len(lines) < EUROC_FRAMES - 3:
+        raise AssertionError(f"euroc cli: {len(lines)} outputs for {EUROC_FRAMES} frames")
+    if not ate <= ATE_LIMIT_M:
+        raise AssertionError(f"euroc cli: ATE {ate} m > {ATE_LIMIT_M} m")
+    if sum(syncs.values()):
+        raise AssertionError(f"euroc cli: host syncs in a step: {dict(syncs)}")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"euroc cli: kernels not launched: {missing}")
+    return launches, by_shape, sum(syncs.values())
+
+
 def main() -> int:
     try:
         import torch
@@ -1792,9 +2076,30 @@ def main() -> int:
     runtime.configure_precision()
     dev = runtime.default_device()
     try:
+        import threading
+
+        from hybvio_tpu_torch.io import native_image
+
+        decoder = {}  # the image decoder (g++) builds while nvcc runs
+
+        def build_decoder():
+            try:
+                decoder["s"] = native_image.build(force=True)
+            except RuntimeError as e:
+                decoder["error"] = str(e)
+
+        decoder_build = threading.Thread(target=build_decoder)
+        decoder_build.start()
         secs = ops.build(force=True)
+        decoder_build.join()
         say(f"build: nvcc sm_90a, {len(list(ops._lib.CSRC.glob('*.cu')))} sources, "
-            f"{secs:.1f} s")
+            f"{secs:.1f} s; the image decoder (g++): "
+            + (f"{decoder['s']:.1f} s, reads "
+               + ("PNG and PGM" if native_image.png_supported() else "PGM only (no zlib)")
+               if "s" in decoder else f"FAILED: {decoder['error']}"))
+        why = decoder.get("error") or native_image.unavailable_reason()
+        if why:
+            raise RuntimeError(f"the image decoder: {why}")
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
         runs = {config: run_path(dev, config) for config in PATHS}
@@ -1803,6 +2108,8 @@ def main() -> int:
         run_slam_sessions(dev)
         runs["vislam"] = run_vislam(dev)
         runs["cli_vislam"] = run_cli_vislam(dev)
+        runs.update(run_stereo_options(dev))
+        runs["euroc_cli"] = run_euroc_cli(dev)
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

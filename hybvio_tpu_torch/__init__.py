@@ -13,13 +13,17 @@ Layout:
   runtime.py   device and precision policy (f64 filter on CPU, f32 on CUDA,
                no TF32)
   config/      Parameters, parameter_names, DerivedParameters
-  io/          the synthetic world of the smoke run and the tests
+  io/          recorded input (JSONL, EuRoC ASL, legacy CSV; frames through
+               the native PNG / PGM decoder, native/, or PIL) and the
+               synthetic world of the smoke run and the tests
   eval/        ATE
   random.py    threefry2x32, bit-exact with jax.random
-  geometry/    quaternions, poses, pinhole camera
+  geometry/    quaternions, poses, the pinhole (radial distortion,
+               rectification rotation) and KB4 fisheye cameras
   ekf/         filter state, predict, updates, augmentation
   odometry/    trail, triangulation, visual update, backend, VIO step
-  frontend/    pyramid, LK, GFTT, FAST, stereo check, RANSAC, tracker
+  frontend/    pyramid, LK, GFTT, FAST, stereo check, rectification, SAD
+               disparity, RANSAC, tracker
   slam/        the SLAM session: keyframes, ORB, vocabulary, BA, pose graph,
                loop closure (coupled to the VIO by odometry/slam_coupling.py)
   ops/         CUDA kernels (csrc/) with their plain PyTorch versions

@@ -26,18 +26,21 @@ _TYPES = {cls.__name__: cls for cls in (
 
 def camera_from_jax(cam) -> Camera:
     """Port camera from a reference ``Camera`` (arrays or numpy): the
-    pinhole without distortion or rotation, or the KB4 fisheye. The values
-    are the reference's own, float32-rounded where its arrays are."""
+    pinhole with its radial coefficients and rectification rotation, or the
+    KB4 fisheye. The values are the reference's own, float32-rounded where
+    its arrays are."""
     f = lambda a: float(np.asarray(a))
     if cam.kind == FISHEYE:
         return Camera(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), cam.width, cam.height,
                       kind=FISHEYE, coeffs=tuple(float(c) for c in np.asarray(cam.coeffs)),
                       max_valid_theta=f(cam.max_valid_theta), max_valid_r=f(cam.max_valid_r),
                       has_distortion=bool(cam.has_distortion))
-    if cam.kind != PINHOLE or cam.has_distortion or cam.has_rotation:
-        raise NotImplementedError(f"{cam.kind} camera with distortion/rotation")
-    return build_pinhole(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy),
-                         width=cam.width, height=cam.height)
+    if cam.kind != PINHOLE:
+        raise NotImplementedError(f"{cam.kind} camera")
+    coeffs = tuple(float(c) for c in np.asarray(cam.coeffs)[:3]) if cam.has_distortion else ()
+    return build_pinhole(f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), coeffs=coeffs,
+                         width=cam.width, height=cam.height,
+                         rotation=np.asarray(cam.rot, np.float64) if cam.has_rotation else None)
 
 
 def from_jax(tree, device=None):

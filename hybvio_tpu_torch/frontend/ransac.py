@@ -1,6 +1,6 @@
 """RANSAC outlier rejection (port of the reference's ``frontend/ransac.py``:
-``ransac2``, ``ransac5``, ``hybrid_ransac``, ``ransac3`` and the Horn/QCP
-rotation solve), batch-first.
+``ransac2``, ``ransac5``, ``hybrid_ransac``, ``ransac3``, the gravity-aligned
+``stereo_upright_2p`` and the Horn/QCP rotation solve), batch-first.
 
 Every lane draws its hypotheses from its own threefry key, so the hypotheses
 are the reference's, and all of them are solved and scored at once.
@@ -334,3 +334,94 @@ def ransac3(prev_pts3d, cur_pts3d, cur_norm, valid, rng_key, error_thresh: float
     inl = count(R_f, t_f) & ok[:, None]
     return Ransac3Result(R=R_f, t=t_f, inliers=inl,
                          inlier_count=torch.sum(inl, dim=1).to(torch.int32), ok=ok)
+
+
+class UprightRansacResult(NamedTuple):
+    yaw: torch.Tensor  # (B,)
+    t: torch.Tensor  # (B, 3)
+    inliers: torch.Tensor  # (B, T)
+    inlier_count: torch.Tensor  # (B,) int32
+    ok: torch.Tensor  # (B,)
+
+
+def _rz_apply(cy, sy, p):
+    """Rz(yaw) p about +z, with cos / sin (...,) and points (..., 3)."""
+    x = cy * p[..., 0] - sy * p[..., 1]
+    return torch.stack([x, sy * p[..., 0] + cy * p[..., 1], p[..., 2].expand_as(x)], dim=-1)
+
+
+def _solve_upright_2p(p1, p2, d1, d2):
+    """Closed-form gravity-aligned 2-point pose over leading dims: yaw about
+    +z and t with Rz(yaw) p_i + t = s_i d_i. Eliminating t, the z row is
+    linear in (s1, s2) and the xy norm a quadratic in s1. Returns
+    (yaw (..., 2), t (..., 2, 3), valid (..., 2)) for the two roots."""
+    v = p2 - p1
+    vxy2 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+    d2z = torch.where(torch.abs(d2[..., 2]) > 1e-9, d2[..., 2], torch.full_like(d2[..., 2], 1e-9))
+    alpha = v[..., 2] / d2z
+    beta = d1[..., 2] / d2z
+    u = alpha[..., None] * d2[..., :2]  # constant part of (s2 d2 - s1 d1)_xy
+    w = beta[..., None] * d2[..., :2] - d1[..., :2]  # its s1 coefficient
+    a = torch.sum(w * w, dim=-1)
+    b = 2 * torch.sum(u * w, dim=-1)
+    c = torch.sum(u * u, dim=-1) - vxy2
+    disc = b * b - 4 * a * c
+    a_ok = torch.abs(a) > 1e-12
+    valid = (disc >= 0) & a_ok
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    s1s = torch.stack([-b + sq, -b - sq], dim=-1) / (
+        2 * torch.where(a_ok, a, torch.ones_like(a)))[..., None]
+    s2s = alpha[..., None] + beta[..., None] * s1s
+    rhs = s2s[..., None] * d2[..., None, :] - s1s[..., None] * d1[..., None, :]  # = Rz v
+    yaw = (torch.atan2(rhs[..., 1], rhs[..., 0])
+           - torch.atan2(v[..., 1], v[..., 0])[..., None])
+    t = s1s[..., None] * d1[..., None, :] - _rz_apply(torch.cos(yaw), torch.sin(yaw),
+                                                       p1[..., None, :])
+    return yaw, t, valid[..., None] & (s1s > 0) & (s2s > 0)
+
+
+def stereo_upright_2p(prev_pts3d, cur_rays, valid, rng_key, error_thresh: float = 1e-4,
+                      max_iters: int = 128, world_to_cam=None, cur_norm=None,
+                      int_bits: int = 32) -> UprightRansacResult:
+    """Gravity-aligned 2-point pose RANSAC: previous-frame stereo points
+    (B, T, 3) and current bearing rays (B, T, 3), both in gravity-aligned
+    world axes; solves yaw and translation. Inliers by the squared
+    normalized reprojection error of Rz p + t against ``cur_norm`` (B, T, 2),
+    in the current camera frame when ``world_to_cam`` (B, 3, 3) is given
+    (else the world frame doubles as the camera frame, and the rays'
+    normalized points stand in). Every lane draws its hypotheses from its
+    own key; the draw's bound is the lane's valid count, a tensor."""
+    B = prev_pts3d.shape[0]
+    n = torch.sum(valid, dim=1)
+    k1 = jr.split(rng_key)[:, 0]
+    idx = jr.randint(k1, (max_iters, 2), 0, torch.clamp(n, min=1), int_bits)
+    slots = _lane_take(_valid_first(valid), idx)  # (B, K, 2)
+    if cur_norm is None:
+        z = cur_rays[..., 2:3]
+        cur_norm = cur_rays[..., :2] / torch.where(torch.abs(z) > 1e-9, z, torch.full_like(z, 1e-9))
+
+    P = _lane_take(prev_pts3d, slots)  # (B, K, 2, 3)
+    Dr = _lane_take(cur_rays, slots)
+    yaws, ts, ok = _solve_upright_2p(P[..., 0, :], P[..., 1, :], Dr[..., 0, :], Dr[..., 1, :])
+    # every root of every hypothesis scored at once: (B, K, 2, T)
+    p = _rz_apply(torch.cos(yaws)[..., None], torch.sin(yaws)[..., None],
+                  prev_pts3d[:, None, None]) + ts[..., None, :]
+    if world_to_cam is not None:
+        p = p @ world_to_cam[:, None, None].transpose(-1, -2)
+    zc = p[..., 2]
+    okz = zc > 1e-6
+    proj = p[..., :2] / torch.where(okz, zc, torch.ones_like(zc))[..., None]
+    e2 = torch.sum((proj - cur_norm[:, None, None]) ** 2, dim=-1)
+    inls = valid[:, None, None] & okz & (e2 < error_thresh)
+    counts = torch.where(ok, torch.sum(inls, dim=-1), -1)  # (B, K, 2)
+    root = torch.argmax(counts, dim=-1, keepdim=True)
+    counts = torch.gather(counts, 2, root)[..., 0]
+    distinct = slots[..., 0] != slots[..., 1]
+    counts = torch.where(distinct, counts, -1)
+    best = torch.argmax(counts, dim=1)
+    lanes = torch.arange(B, device=prev_pts3d.device)
+    r = root[lanes, best, 0]
+    ok_n = n >= 2
+    inl = inls[lanes, best, r] & ok_n[:, None]
+    return UprightRansacResult(yaw=yaws[lanes, best, r], t=ts[lanes, best, r], inliers=inl,
+                               inlier_count=torch.sum(inl, dim=1).to(torch.int32), ok=ok_n)

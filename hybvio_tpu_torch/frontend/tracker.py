@@ -1,17 +1,18 @@
 """Tracker core: the track-lifecycle engine (port of the reference's
-``frontend/tracker.py``: the stereo path with RANSAC3 and the mono path with
-the hybrid RANSAC2/RANSAC5), batch-first.
+``frontend/tracker.py``), batch-first.
 
 Per frame: the pyramid of the frame (of the left and right frames in
 stereo; once per step for a frame shared by every lane, (H, W), or per lane
 for per-lane frames, (B, H, W), in the same one launch), LK of every lane's
 tracks prev -> cur with
 odometry-predicted guesses, in stereo left -> right LK with the epipolar
-check, RANSAC2 (stationarity score) and RANSAC3 in stereo or the hybrid
-RANSAC2/RANSAC5 selection in mono, keyframe / stationarity decision,
-capacity culling, and GFTT top-up of the free slots. Detection runs in every
-lane and is masked per lane, as the reference's ``lax.cond`` does under
-``vmap``.
+check, RANSAC2 (stationarity score) and in stereo RANSAC3 or the
+gravity-aligned upright-2P (given the pose rotations), else the hybrid
+RANSAC2/RANSAC5 selection (or RANSAC2 alone without ``useHybridRansac``),
+keyframe / stationarity decision, capacity culling, and GFTT (or FAST)
+top-up of the free slots. Detection runs in every lane and is masked per
+lane, as the reference's ``lax.cond`` does under ``vmap``. The cameras may
+be rectified pinholes carrying their rectification rotation.
 """
 from __future__ import annotations
 
@@ -25,10 +26,11 @@ from .. import random as jr
 from ..geometry.cameras import normalize_pixel
 from ..odometry.triangulation import triangulate_stereo_idp
 from ..runtime import constant
+from .fast import detect_fast
 from .gftt import detect_corners, subpixel_refine
 from .lk import FLOW_OK, FLOW_OUT_OF_RANGE, LKParams, lk_track_pyramid
 from .pyramid import build_pyramids_with_gradients
-from .ransac import hybrid_ransac, ransac2, ransac3
+from .ransac import hybrid_ransac, ransac2, ransac3, stereo_upright_2p
 from .stereo import epipolar_check
 
 ST_TRACKED = 0
@@ -87,12 +89,7 @@ class Tracker(nn.Module):
         super().__init__()
         pt = params.tracker
         self.stereo = bool(pt.useStereo)
-        if self.stereo and not pt.useRansac3:
-            raise NotImplementedError("stereo tracker without RANSAC3")
-        if pt.featureDetector.upper() == "FAST":
-            raise NotImplementedError("FAST detector")
-        if self.stereo and (pt.useRectification or pt.computeDenseStereoDepth):
-            raise NotImplementedError("stereo rectification / dense depth")
+        self.fast = pt.featureDetector.upper() == "FAST"
         self.pt = pt
         self.T = max_tracks if max_tracks is not None else pt.maxTracks
         self.int_bits = int_bits
@@ -130,12 +127,19 @@ class Tracker(nn.Module):
 
     def detect(self, img, existing_xy, existing_valid, mask_scale, n_out):
         pt = self.pt
-        xy, score, valid = detect_corners(
-            img, n_out, existing_xy, existing_valid,
-            mask_radius=self.mask_radius(mask_scale), min_distance=self.min_distance,
-            block_size=pt.gfttBlockSize, min_response=pt.gfttMinResponse,
-            n_candidates=max(2 * self.T, 128), crop_fraction=pt.partOfImageToDetectFeatures,
-            quality_level=pt.gfttQualityLevel)
+        if self.fast:  # cv::FAST's default threshold, 20 of 255
+            xy, score, valid = detect_fast(
+                img, n_out, existing_xy, existing_valid,
+                mask_radius=self.mask_radius(mask_scale), min_distance=self.min_distance,
+                threshold=20.0 / 255.0)
+        else:
+            xy, score, valid = detect_corners(
+                img, n_out, existing_xy, existing_valid,
+                mask_radius=self.mask_radius(mask_scale), min_distance=self.min_distance,
+                block_size=pt.gfttBlockSize, min_response=pt.gfttMinResponse,
+                n_candidates=max(2 * self.T, 128),
+                crop_fraction=pt.partOfImageToDetectFeatures,
+                quality_level=pt.gfttQualityLevel)
         if pt.subPixMaxIter > 0:
             xy = subpixel_refine(img, xy, window=min(pt.subPixWindowSize, 7),
                                  iters=min(pt.subPixMaxIter, 5), epsilon=pt.subPixEpsilon)
@@ -194,10 +198,13 @@ class Tracker(nn.Module):
             prev_time=t0.to(torch.float32))
 
     def track_frame(self, ts: TrackerState, image, rng_key, t, flow_guess,
-                    blacklist_flags, blacklist_ids, second_image=None, stereo_guess=None):
+                    blacklist_flags, blacklist_ids, second_image=None, stereo_guess=None,
+                    pose_rot=None):
         """One new frame (stereo: pair), shared (H, W) or per lane
         (B, H, W): (state, TrackerOutput). rng_key (B, 2); t (B,);
-        flow_guess / stereo_guess (B, T, 2)."""
+        flow_guess / stereo_guess (B, T, 2), flow_guess None for the
+        previous positions; pose_rot, for upright-2P, the (previous,
+        current) camera-to-world rotations (B, 3, 3)."""
         pt, lk, T = self.pt, self.lk, self.T
         B = ts.track_ids.shape[0]
         dev = ts.px.device
@@ -208,7 +215,8 @@ class Tracker(nn.Module):
         black = blacklist_flags & (blacklist_ids == ts.track_ids) & alive
 
         prev_px = ts.px[:, :, 0, :]
-        guesses = torch.where(alive[..., None], flow_guess, prev_px)
+        guesses = (prev_px if flow_guess is None
+                   else torch.where(alive[..., None], flow_guess, prev_px))
         new_px, flow_status, _ = lk_track_pyramid(
             list(ts.prev_pyr), list(zip(ts.prev_ix, ts.prev_iy)), _lanes(cur_pyr, B),
             prev_px, initial_pts=guesses, params=lk)
@@ -224,9 +232,9 @@ class Tracker(nn.Module):
         n1, ok_n1 = normalize_pixel(self.cam0, prev_px)
         n2, ok_n2 = normalize_pixel(self.cam0, new_px)
         valid_n = tracked & ok_n1 & ok_n2
-        if self.stereo:
+        if self.stereo and (pt.useRansac3 or (pt.useStereoUpright2p and pose_rot is not None)):
             ransac_inliers, ransac_skipped, score = self.ransac_stereo(
-                ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key)
+                ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key, pose_rot)
         elif pt.useHybridRansac:
             hr = hybrid_ransac(self.cam0, self.cam0, prev_px, new_px, n1, n2, valid_n, r_key, pt,
                                self.ransac2_threshold, self.ransac5_threshold,
@@ -338,9 +346,12 @@ class Tracker(nn.Module):
             status=status.to(torch.int32), prev_pixels=ts.px, viz_pixels=viz_px)
         return new_state, out
 
-    def ransac_stereo(self, ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key):
-        """RANSAC2 for the stationarity score, then RANSAC3 on the stereo
-        triangulations of the previous and current frames: (inliers,
+    def ransac_stereo(self, ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key,
+                      pose_rot=None):
+        """RANSAC2 for the stationarity score, then on the stereo
+        triangulations of the previous frame either RANSAC3 (against the
+        current frame's) or, without ``useRansac3``, upright-2P (against the
+        current left rays, in world axes through ``pose_rot``): (inliers,
         skipped, score)."""
         pt = self.pt
         r2 = ransac2(self.cam0, self.cam0, prev_px, new_px, valid_n, r_key,
@@ -348,23 +359,38 @@ class Tracker(nn.Module):
         ransac_inliers = r2.inliers
         ransac_skipped = torch.sum(valid_n, dim=1) < 2
 
-        r3_key = jr.split(rng_key)[:, 1]
+        key = jr.split(rng_key)[:, 1]
         n1r, ok1r = normalize_pixel(self.cam1, ts.px[:, :, 1, :])
-        n2r, ok2r = normalize_pixel(self.cam1, right_px)
         idp_prev, _, okt1 = triangulate_stereo_idp(n1, n1r, self.second_to_first, with_cov=False)
-        idp_cur, _, okt2 = triangulate_stereo_idp(n2, n2r, self.second_to_first, with_cov=False)
+        if pt.useRansac3:
+            n2r, ok2r = normalize_pixel(self.cam1, right_px)
+            idp_cur, _, okt2 = triangulate_stereo_idp(n2, n2r, self.second_to_first,
+                                                      with_cov=False)
 
-        def idp_to_xyz(idp):
-            z = 1.0 / torch.where(torch.abs(idp[..., 2]) > 1e-9, idp[..., 2],
-                                  torch.ones_like(idp[..., 2]))
-            return torch.stack([idp[..., 0] * z, idp[..., 1] * z, z], dim=-1)
+            def idp_to_xyz(idp):
+                z = 1.0 / torch.where(torch.abs(idp[..., 2]) > 1e-9, idp[..., 2],
+                                      torch.ones_like(idp[..., 2]))
+                return torch.stack([idp[..., 0] * z, idp[..., 1] * z, z], dim=-1)
 
-        v3 = (valid_n & ok1r & ok2r & okt1 & okt2
-              & (idp_prev[..., 2] > 1e-4) & (idp_cur[..., 2] > 1e-4))
-        r3 = ransac3(idp_to_xyz(idp_prev), idp_to_xyz(idp_cur), n2, v3, r3_key,
-                     error_thresh=pt.ransac3ErrorThresh, max_iters=64, int_bits=self.int_bits)
-        frac3 = r3.inlier_count / torch.clamp(torch.sum(valid_n, dim=1), min=1).to(n2.dtype)
-        r3_good = r3.ok & (frac3 >= pt.ransacMinInlierFraction)
-        ransac_inliers = torch.where(r3_good[:, None], r3.inliers, ransac_inliers)
-        ransac_skipped = torch.where(r3_good, False, ransac_skipped)
+            v3 = (valid_n & ok1r & ok2r & okt1 & okt2
+                  & (idp_prev[..., 2] > 1e-4) & (idp_cur[..., 2] > 1e-4))
+            res = ransac3(idp_to_xyz(idp_prev), idp_to_xyz(idp_cur), n2, v3, key,
+                          error_thresh=pt.ransac3ErrorThresh, max_iters=64,
+                          int_bits=self.int_bits)
+        else:
+            R0, R1 = (r.to(n2.dtype) for r in pose_rot)
+            okd = idp_prev[..., 2] > 1e-4
+            z = 1.0 / torch.where(okd, idp_prev[..., 2], torch.ones_like(idp_prev[..., 2]))
+            p_cam = torch.stack([idp_prev[..., 0] * z, idp_prev[..., 1] * z, z], dim=-1)
+            rays = torch.cat([n2, torch.ones_like(n2[..., :1])], dim=-1)
+            rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+            res = stereo_upright_2p(
+                p_cam @ R0.transpose(-1, -2), rays @ R1.transpose(-1, -2),
+                valid_n & ok1r & okt1 & okd, key,
+                error_thresh=pt.ransacStereoUpright2pErrorThresh,
+                world_to_cam=R1.transpose(-1, -2), cur_norm=n2, int_bits=self.int_bits)
+        frac = res.inlier_count / torch.clamp(torch.sum(valid_n, dim=1), min=1).to(n2.dtype)
+        good = res.ok & (frac >= pt.ransacMinInlierFraction)
+        ransac_inliers = torch.where(good[:, None], res.inliers, ransac_inliers)
+        ransac_skipped = torch.where(good, False, ransac_skipped)
         return ransac_inliers, ransac_skipped, r2.score

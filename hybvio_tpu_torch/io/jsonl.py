@@ -1,6 +1,7 @@
 """JSONL dataset reading/writing, reference-format compatible (port of the
-reference package's ``io/jsonl.py``: the Python reader, without the native
-bulk parser ``io/native_jsonl.py`` or the legacy CSV reader).
+reference package's ``io/jsonl.py``: the Python reader and the legacy CSV
+reader ``read_csv_events``, without the native bulk parser
+``io/native_jsonl.py``).
 
 Input format (reference: src/commandline/input_jsonl.cpp): one JSON object per
 line in ``data.jsonl``:
@@ -218,3 +219,69 @@ class Recorder:
 
     def close(self):
         self.f.close()
+
+
+# numeric sensor-type codes in the legacy CSV format
+# (reference: src/commandline/input_csv.cpp:15-19)
+CSV_FRAME = 1
+CSV_GPS = 2
+CSV_ACCELEROMETER = 3
+CSV_GYROSCOPE = 4
+CSV_ARKIT = 7
+
+
+def read_csv_events(path: str) -> Iterator[InputEvent]:
+    """Legacy CSV reader (reference: src/commandline/input_csv.cpp:128-193):
+    rows of `t, type, ...` with numeric sensor-type codes.
+
+      1 FRAME: t, 1, ind[, fx, fy, px, py[, cameraInd[, syncedInd]]]
+      2 GPS:   t, 2, lat, lon, accuracy, alt   -> echo (pose-plot overlay)
+      3 ACC /  4 GYRO: t, code, x, y, z
+      7 ARKIT: t, 7, ind, x, y, z, ...[, fx@9, fy@10] — a FRAME row (iPhone
+        recordings pair each ARKit pose with a video frame) that also feeds
+        the ARKit pose-history overlay.
+    """
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) < 2:
+                continue
+            v = [float(x) for x in parts]
+            t = v[0]
+            code = int(v[1])
+            if code == CSV_GYROSCOPE:
+                yield InputEvent(GYROSCOPE, t, values=(v[2], v[3], v[4]))
+            elif code == CSV_ACCELEROMETER:
+                yield InputEvent(ACCELEROMETER, t, values=(v[2], v[3], v[4]))
+            elif code == CSV_FRAME:
+                ind = int(v[2])
+                fx = fy = px = py = -1.0
+                if len(v) >= 7:
+                    fx, fy, px, py = v[3], v[4], v[5], v[6]
+                cam_ind = int(v[7]) if len(v) >= 8 else 0
+                fr = InputFrame(camera_ind=cam_ind, t=t, focal_length_x=fx,
+                                focal_length_y=fy, principal_point_x=px,
+                                principal_point_y=py, number=ind)
+                yield InputEvent(FRAME, t, frames=[fr], frames_index=ind)
+            elif code == CSV_ARKIT:
+                # overlay echo first (reference getPoseHistories reorders the
+                # stored axes: input_csv.cpp:281-287)
+                yield InputEvent(ECHO, t, raw={
+                    "time": t,
+                    "ARKit": {"position": {"x": v[5], "y": v[3], "z": v[4]}}})
+                ind = int(v[2])
+                fx = fy = -1.0
+                if len(v) >= 11 and (v[9] + v[10]) > 0:
+                    fx = fy = (v[9] + v[10]) / 2.0
+                fr = InputFrame(camera_ind=0, t=t, focal_length_x=fx,
+                                focal_length_y=fy, number=ind)
+                yield InputEvent(FRAME, t, frames=[fr], frames_index=ind)
+            elif code == CSV_GPS:
+                yield InputEvent(ECHO, t, raw={
+                    "time": t,
+                    "gps": {"latitude": v[2], "longitude": v[3],
+                            "accuracy": v[4],
+                            "altitude": v[5] if len(v) >= 6 else 0.0}})

@@ -292,3 +292,4 @@ def render_view_fisheye(landmarks, pos, quat, imu_to_camera, fx, fy, cx, cy,
     bg = (0.35 + np.einsum("hwk,k->hw", np.sin(phase), _SKY_A) * 0.25).astype(np.float32)
     return render_frame(pix, depth, vis, width, height, blob_sigma=blob_sigma,
                         background=bg, seed=seed)
+

@@ -1,8 +1,8 @@
 """Presets of the port (the reference's ``models``): the EuRoC-like
 ``euroc_mono`` and ``euroc_stereo`` at the reference's defaults (BASELINE
 configs 1 and 2, as the CLI runs them), full VISLAM ``vislam`` (BASELINE
-config 3), the benchmark preset ``synthetic_bench_params`` and
-``_finalize``. The TUM-VI preset is not ported."""
+config 3), the TUM-VI-style KB4 fisheye ``tumvi_fisheye`` (BASELINE config
+4), the benchmark preset ``synthetic_bench_params`` and ``_finalize``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -63,6 +63,21 @@ def vislam(width: int = 752, height: int = 480, **overrides):
     p, derived, cams = euroc_mono(width, height, **overrides)
     p.slam.useSlam = True
     return p, derived, cams
+
+
+def tumvi_fisheye(width: int = 512, height: int = 512, **overrides):
+    """Fisheye KB4 (TUM-VI-style; BASELINE config 4): a 150 degree field of
+    view, 190 px focal length, centred principal point."""
+    p = Parameters()
+    p.tracker.fisheyeCamera = True
+    p.tracker.validCameraFov = 150.0
+    p.tracker.focalLength = 190.0
+    p.tracker.principalPointX = width / 2
+    p.tracker.principalPointY = height / 2
+    p.tracker.distortionCoeffs = (0.0035, 0.0007, -0.002, 0.0002)
+    p.odometry.visualR = 0.4
+    _override(p, overrides)
+    return _finalize(p, width, height)
 
 
 def synthetic_bench_params(config: str = "stereo", lk_levels: Optional[int] = None,

@@ -12,13 +12,17 @@ with ``batchVisualUpdate``, the batched one; both carry the hybrid EKF-SLAM
 map (``hybridMapSize`` > 0) and every track sampling. With
 ``visualUpdateForEveryNFrame`` N > 1 only every N-th frame may be a
 keyframe; with ``visualUpdateEnabled = false`` the frame skips the trail
-and the visual update. The square-root filter is not ported and raises
-``NotImplementedError`` when the module is built.
+and the visual update. With ``useIndependentStereoTriangulation`` (stereo)
+every frame's tracks are triangulated from their own stereo pair, their
+range taken from the dense stereo depth where the tracker gives one, and
+the visual update fuses a track's triangulations. The square-root filter is
+not ported and raises ``NotImplementedError`` when the module is built.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,6 +38,7 @@ from ..lanes import tuple_where
 from . import trail as tr
 from .batched_update import make_batched_visual_update
 from .sequential_update import make_sequential_visual_update
+from .triangulation import inverse_depth, triangulate_stereo_idp
 from .visual_update import make_prepare_track_update
 
 STATUS_INIT = 0
@@ -133,6 +138,11 @@ class Backend(nn.Module):
         self.register_buffer("imu_to_camera", torch.as_tensor(derived.imu_to_camera, dtype=dtype))
         self.register_buffer("second_imu_to_camera",
                              torch.as_tensor(derived.second_imu_to_camera, dtype=dtype))
+        self.indep_stereo = self.stereo and bool(po.useIndependentStereoTriangulation)
+        if self.indep_stereo:  # second-camera to first-camera transform
+            self.register_buffer("second_to_first", torch.as_tensor(
+                np.asarray(derived.imu_to_camera)
+                @ np.linalg.inv(np.asarray(derived.second_imu_to_camera)), dtype=dtype))
         self._predict = make_predict(po)
         f = cameras[0].focal_length
         self.visual_r = po.visualR / f
@@ -264,6 +274,22 @@ class Backend(nn.Module):
         )
         return state, out
 
+    def _stereo_rows(self, norm0, norm1, depth, valid):
+        """Each track's stereo triangulation in its left camera's inverse-
+        depth coordinates with its sensitivity covariance (B, T, ...); a
+        dense z-depth ``depth`` > 0 rescales the point to that depth and
+        keeps the covariance."""
+        sidp, scov, sok = triangulate_stereo_idp(norm0, norm1, self.second_to_first)
+        dd = depth.to(sidp.dtype)
+        pf3 = inverse_depth(sidp)
+        z = pf3[..., 2:3]
+        sidp_dd = inverse_depth(pf3 * (dd[..., None] / torch.where(torch.abs(z) > 1e-9, z,
+                                                                    torch.ones_like(z))))
+        finite = lambda a: torch.all(torch.isfinite(a), dim=-1)
+        use_dd = (dd > 0) & sok & (torch.abs(pf3[..., 2]) > 1e-9) & finite(sidp_dd)
+        sidp = torch.where(use_dd[..., None], sidp_dd, sidp)
+        return dict(stereo_idp=sidp, stereo_cov=scov, stereo_valid=sok & valid & finite(sidp))
+
     def _visual_frame(self, state: BackendState, tin: TrackerInput, keyframe, stationary_visual,
                       t_frame):
         """The frame's trail and visual update: (state, point cloud tuple,
@@ -283,9 +309,12 @@ class Backend(nn.Module):
             norm = norm0[:, :, None, :]
         valid = (tin.track_ids >= 0) & ok0
         ids = torch.where(valid, tin.track_ids, torch.full_like(tin.track_ids, -1))
+        stereo = {}
+        if self.indep_stereo:
+            stereo = self._stereo_rows(norm0, norm1, tin.stereo_depth, valid)
         trail = tr.insert_head_features(
             state.trail, tin.track_ids, norm, tin.pixels[:, :, 0, :], valid,
-            timestamp=t_frame, estimate_velocities=bool(po.estimateImuCameraTimeShift))
+            timestamp=t_frame, estimate_velocities=bool(po.estimateImuCameraTimeShift), **stereo)
         kf_frame_num = trail.kf_frame_num.clone()
         kf_frame_num[:, 0] = frame_number
         trail = tr.prune(trail._replace(kf_frame_num=kf_frame_num), ids)

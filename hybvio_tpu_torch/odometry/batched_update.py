@@ -66,6 +66,9 @@ class Candidates(NamedTuple):
     selected_all: torch.Tensor  # (B, T, K) every slot's trail poses
     was_blacklisted: torch.Tensor  # (B, T)
     exists_head: torch.Tensor  # (B, K, T) feature_exists
+    # useIndependentStereoTriangulation: prepare()'s stereo_idp (B, NV, K, 3),
+    # stereo_cov (B, NV, K, 3, 3) and stereo_valid (B, NV, K); else empty
+    stereo: dict
 
 
 def select_candidates(po, state, track_ids, valid, rng, NV, n_cams) -> Candidates:
@@ -123,13 +126,18 @@ def select_candidates(po, state, track_ids, valid, rng, NV, n_cams) -> Candidate
         a = _take(a.transpose(1, 2), order)  # (B, NV, K, C, 2)
         return a.transpose(2, 3).reshape(B, NV, n_cams * K, 2)
 
+    stereo = {}
+    if n_cams == 2 and po.useIndependentStereoTriangulation:
+        stereo = {name: _take(getattr(trail, "kf_" + name).transpose(1, 2), order)
+                  for name in ("stereo_idp", "stereo_cov", "stereo_valid")}
+
     return Candidates(
         rng=rng, order=order, active=torch.gather(eligible, 1, order),
         map_point=torch.gather(is_map_point, 1, order),
         map_index=torch.gather(map_index, 1, order), selected=_take(selected_all, order),
         n_selected=torch.gather(n_sel, 1, order), ips=rows_of(trail.kf_norm),
         vels=rows_of(trail.kf_vel), selected_all=selected_all,
-        was_blacklisted=was_blacklisted, exists_head=exists_head)
+        was_blacklisted=was_blacklisted, exists_head=exists_head, stereo=stereo)
 
 
 def map_point_of(m, is_map_point, map_index, M):
@@ -146,11 +154,13 @@ def map_point_of(m, is_map_point, map_index, M):
     return torch.where(is_map_point[..., None], point, torch.zeros_like(point)), off
 
 
-def prepare_candidates(prepare, pose_states, ips, vels, sel, m, is_map_point, map_index, M):
-    """prepare() of candidate tracks; with M > 0 run twice, in the hybrid
-    form (from the map point in ``m``) and triangulated, and keep the form
-    each track's ``is_map_point`` says."""
-    out = prepare(pose_states, ips, vels, sel)
+def prepare_candidates(prepare, pose_states, ips, vels, sel, m, is_map_point, map_index, M,
+                       stereo=None):
+    """prepare() of candidate tracks (``stereo``: their stereo rows, as
+    ``Candidates.stereo``); with M > 0 run twice, in the hybrid form (from
+    the map point in ``m``) and triangulated, and keep the form each
+    track's ``is_map_point`` says."""
+    out = prepare(pose_states, ips, vels, sel, **(stereo or {}))
     if M == 0:
         return out
     point, off = map_point_of(m, is_map_point, map_index, M)
@@ -177,7 +187,7 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         pose_states = gather_pose_states(ekf.m, L)
         ps = torch.where(c.selected[..., None], pose_states[:, None], pose_states[:, None, :1])
         outs = prepare_candidates(prepare, ps, c.ips, c.vels, c.selected, ekf.m, mp,
-                                  c.map_index, M)
+                                  c.map_index, M, c.stereo)
         tri_ok = (outs.tri_status == TRI_OK) | mp
         prep_ok = outs.prepare_status == 0
         gate_ok, _ = visual_track_gate(ekf.P[:, None], outs.H, outs.f, outs.y,

@@ -66,7 +66,8 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
             pose_states = gather_pose_states(m, L)
             ps = torch.where(sel[..., None], pose_states, pose_states[:, :1])
             out = prepare_candidates(prepare, ps, c.ips[:, j], c.vels[:, j], sel, m, mp,
-                                     c.map_index[:, j], M)
+                                     c.map_index[:, j], M,
+                                     {k: v[:, j] for k, v in c.stereo.items()})
             tri_ok = (out.tri_status == TRI_OK) | mp
             do_update = active & need_more & tri_ok & (out.prepare_status == 0)
             res = visual_track_update(m, P, out.H, out.f, out.y, out.row_mask, visual_r,

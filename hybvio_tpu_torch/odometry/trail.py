@@ -143,9 +143,12 @@ def _set_head(a, v):
 
 
 def insert_head_features(trail: TrailState, track_ids, norm_pts, pixels, valid,
-                         timestamp, estimate_velocities=True) -> TrailState:
-    """Write the current frame's features into head keyframe 0, and refresh
-    the head (and slot 1) feature velocities."""
+                         timestamp, estimate_velocities=True, stereo_idp=None,
+                         stereo_cov=None, stereo_valid=None) -> TrailState:
+    """Write the current frame's features (and, given, their stereo
+    triangulations (B, T, 3), covariances (B, T, 3, 3) and validity) into
+    head keyframe 0, and refresh the head (and slot 1) feature
+    velocities."""
     tid = torch.where(valid, track_ids, torch.full_like(track_ids, -1)).to(torch.int32)
     trail = trail._replace(
         kf_track_id=_set_head(trail.kf_track_id, tid),
@@ -154,6 +157,11 @@ def insert_head_features(trail: TrailState, track_ids, norm_pts, pixels, valid,
         kf_used=_set_head(trail.kf_used, torch.zeros_like(valid)),
         kf_time=_set_head(trail.kf_time, timestamp),
     )
+    if stereo_idp is not None:
+        trail = trail._replace(
+            kf_stereo_idp=_set_head(trail.kf_stereo_idp, stereo_idp),
+            kf_stereo_cov=_set_head(trail.kf_stereo_cov, stereo_cov),
+            kf_stereo_valid=_set_head(trail.kf_stereo_valid, stereo_valid & valid))
     if estimate_velocities:
         t0, t1, t2 = (trail.kf_time[:, i] for i in range(3))
         exists = feature_exists(trail, tid)

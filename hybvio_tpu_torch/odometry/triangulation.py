@@ -213,24 +213,100 @@ def triangulate_linear(poses: CameraPoses, ips, mask):
     return pf, torch.where(behind, TRI_BEHIND, TRI_OK)
 
 
+def _inverse_depth_jacobian(a):
+    """d inverse_depth / d a of points (..., 3): closed form."""
+    iz = 1.0 / a[..., 2]
+    zero = torch.zeros_like(iz)
+    return torch.stack([
+        torch.stack([iz, zero, -a[..., 0] * iz * iz], dim=-1),
+        torch.stack([zero, iz, -a[..., 1] * iz * iz], dim=-1),
+        torch.stack([zero, zero, -iz * iz], dim=-1)], dim=-2)
+
+
+def _inv3(A):
+    """Inverse of 3x3 matrices (..., 3, 3) by the adjugate (elementwise, so
+    forward-mode safe under vmap); a singular A gives inf/nan."""
+    a = lambda i, j: A[..., i, j]
+    c00 = a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)
+    c01 = a(1, 2) * a(2, 0) - a(1, 0) * a(2, 2)
+    c02 = a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)
+    det = a(0, 0) * c00 + a(0, 1) * c01 + a(0, 2) * c02
+    adj = torch.stack([
+        c00, a(0, 2) * a(2, 1) - a(0, 1) * a(2, 2), a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1),
+        c01, a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0), a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2),
+        c02, a(0, 1) * a(2, 0) - a(0, 0) * a(2, 1), a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0),
+    ], dim=-1).reshape(A.shape)
+    return adj / det[..., None, None]
+
+
+def triangulate_stereo_fused(poses: CameraPoses, stereo_idp, stereo_cov, stereo_valid):
+    """Information-weighted fusion of ONE track's per-pose stereo
+    triangulations (``useIndependentStereoTriangulation``): poses (N,) left
+    cameras, stereo_idp (N, 3) each in inverse-depth coordinates of its own
+    camera, stereo_cov (N, 3, 3) their sensitivity covariances, stereo_valid
+    (N,). Each is mapped into the anchor (row 0) camera's inverse-depth
+    coordinates and averaged with weights (J cov J^T)^-1; J is in closed
+    form and the 3x3 inverse an adjugate, so ``torch.func.jacfwd`` of the
+    whole under vmap is exact. Returns (pf (3,) world point, status () int64,
+    rcond ())."""
+    dtype = stereo_idp.dtype
+    p0, R0 = poses.p[0], poses.R[0]
+    eye = torch.eye(3, dtype=dtype, device=stereo_idp.device)
+    RiT = poses.R.transpose(-1, -2)
+    f3 = inverse_depth(stereo_idp)
+    pos_w = (RiT @ f3[..., None])[..., 0] + poses.p
+    pos0 = (R0 @ (pos_w - p0)[..., None])[..., 0]
+    ipos = inverse_depth(pos0)
+    J = _inverse_depth_jacobian(pos0) @ R0 @ RiT @ _inverse_depth_jacobian(stereo_idp)
+    cov = J @ stereo_cov @ J.transpose(-1, -2)
+    finite_cov = torch.all(torch.isfinite(cov.reshape(-1, 9)), dim=-1)
+    usable = (stereo_valid & (torch.linalg.norm(cov.reshape(-1, 9), dim=-1) >= 1e-10)
+              & finite_cov)
+    tiny = torch.finfo(dtype).tiny
+    ridge = 1e-9 * torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1) + tiny
+    info = _inv3(cov + ridge[:, None, None] * eye)
+    finite_info = torch.all(torch.isfinite(info.reshape(-1, 9)), dim=-1)
+    info = torch.where(finite_info[:, None, None], info, torch.zeros_like(info))
+    info = info * usable.to(dtype)[:, None, None]
+    wsum = torch.sum((info @ ipos[..., None])[..., 0], dim=0)
+    SW = torch.sum(info, dim=0)
+    ok_cond = torch.linalg.norm(SW) >= 1e-10
+    SW_safe = SW + torch.where(ok_cond, 0.0, 1.0).to(dtype) * eye
+    pf = R0.transpose(0, 1) @ inverse_depth(_solve3_spd_equil(SW_safe, wsum)) + p0
+    finite = torch.all(torch.isfinite(pf))
+    status = torch.where(ok_cond & finite, TRI_OK, TRI_BAD_COND)
+    diag = torch.diagonal(SW)
+    rc = torch.min(diag) / torch.clamp(torch.max(diag), min=tiny)
+    return torch.where(finite, pf, torch.zeros_like(pf)), status, rc
+
+
+def _norm(x):
+    """|x| over the last dim as sqrt(sum x^2) (keepdim), whose derivative at
+    0 is nan, as the reference's ``jnp.linalg.norm``'s."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
 def triangulate_stereo_idp(ip_first, ip_second, second_to_first_camera, with_cov=True):
     """(w)Mid2 two-ray triangulation in inverse-depth coordinates of the
     first camera, over leading dims. Returns (idp, cov or None, ok); the
-    3x3 sensitivity covariance J J^T comes from ``torch.func.jacfwd``."""
+    3x3 sensitivity covariance J J^T of the idp in the four image
+    coordinates, J by reverse mode (``torch.func.jacrev``: forward mode
+    keeps a process-global dual level, which a SLAM worker thread's own
+    Jacobians would race)."""
     R = second_to_first_camera[:3, :3]
     tt = second_to_first_camera[:3, 3]
 
     def pf_fn(f0, f1):
-        f0hat = f0 / torch.linalg.norm(f0, dim=-1, keepdim=True)
-        f1hat = f1 / torch.linalg.norm(f1, dim=-1, keepdim=True)
+        f0hat = f0 / _norm(f0)
+        f1hat = f1 / _norm(f1)
         Rf0 = (R @ f0hat[..., None])[..., 0]
         ttb = tt.expand_as(Rf0)
         p = torch.linalg.cross(Rf0, f1hat)
         q = torch.linalg.cross(Rf0, ttb)
         r = torch.linalg.cross(f1hat, ttb)
-        pn = torch.linalg.norm(p, dim=-1, keepdim=True)
-        qn = torch.linalg.norm(q, dim=-1, keepdim=True)
-        rn = torch.linalg.norm(r, dim=-1, keepdim=True)
+        pn = _norm(p)
+        qn = _norm(q)
+        rn = _norm(r)
         lam0 = rn / torch.clamp(pn, min=1e-300)
         w = qn / torch.clamp(qn + rn, min=1e-300)
         pf = w * (tt + lam0 * (Rf0 + f1hat))
@@ -261,5 +337,5 @@ def triangulate_stereo_idp(ip_first, ip_second, second_to_first_camera, with_cov
 
     lead = ip_first.shape[:-1]
     x = torch.cat([ip_first, ip_second], dim=-1).reshape(-1, 4)
-    J = torch.func.vmap(torch.func.jacfwd(idp_fn))(x).reshape(lead + (3, 4))
+    J = torch.func.vmap(torch.func.jacrev(idp_fn))(x).reshape(lead + (3, 4))
     return idp, J @ J.transpose(-1, -2), ok

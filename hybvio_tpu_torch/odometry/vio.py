@@ -9,7 +9,17 @@ each frame (stereo: each pair) or have one frame each.
 widest-baseline two-view triangulation over the pose trail (at least
 predictOpticalFlowMinTriangulationDistance), the previous corner unprojected
 at that distance and reprojected with the current EKF pose (in stereo into
-both cameras).
+both cameras); with ``predictOpticalFlow = false`` LK starts from the
+previous corners.
+
+Stereo options: ``useRectification`` resamples both frames into a pair of
+rectified pinholes (their rotation carried by the cameras, so rays stay in
+the original camera frames and the extrinsics are unchanged);
+``computeDenseStereoDepth`` attaches the SAD disparity's depth to every
+track (``TrackerInput.stereo_depth``); upright-2P (``useStereoUpright2p``
+without ``useRansac3``) gets the previous and current camera-to-world
+rotations. The remap fields and Q are built once, at construction, and
+moved with the module.
 """
 from __future__ import annotations
 
@@ -19,7 +29,11 @@ import torch
 from torch import nn
 
 from .. import random as jr
-from ..ekf import ORI, POS
+from ..ekf import CAM, ORI, POS, POSE_DIM
+from ..frontend.disparity import (
+    compute_disparity, default_max_disparity, disparity_to_depth, sample_depth,
+)
+from ..frontend.rectify import build_remap, remap, stereo_rectify
 from ..frontend.tracker import Tracker, TrackerState
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.poses import to_camera_to_world, to_world_to_camera, transform_vec3
@@ -50,6 +64,12 @@ def _lane_gather(a, idx):
     return torch.gather(a, 1, view)[:, 0]
 
 
+# the rectification's remap fields are evaluated in float64, as the
+# reference evaluates them in its cameras' dtype, float64 where its API and
+# CLI build them
+REMAP_DTYPE = torch.float64
+
+
 class Vio(nn.Module):
     """The stereo or mono VIO for static parameters; ``dtype`` is the
     filter's."""
@@ -57,12 +77,27 @@ class Vio(nn.Module):
     def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
         super().__init__()
         pt = params.tracker
-        if not pt.predictOpticalFlow:
-            raise NotImplementedError("predictOpticalFlow = false")
-        if pt.useStereo and pt.useStereoUpright2p and not pt.useRansac3:
-            raise NotImplementedError("upright-2p RANSAC")
         self.pt = pt
         self.dtype = dtype
+        stereo = bool(pt.useStereo)
+        self.rectify = stereo and bool(pt.useRectification)
+        self.dense_depth = stereo and bool(pt.computeDenseStereoDepth)
+        self.upright = stereo and bool(pt.useStereoUpright2p) and not pt.useRansac3
+        if self.rectify or self.dense_depth:
+            W, H = cameras[0].width, cameras[0].height
+            rc0, rc1, Q, _, _ = stereo_rectify(
+                cameras[0], cameras[1], derived.imu_to_camera, derived.second_imu_to_camera,
+                W, H, zoom=pt.rectificationZoom)
+            self.rect_cameras = (rc0, rc1)
+            self.register_buffer("Q", torch.as_tensor(Q, dtype=IMAGE_DTYPE))
+            # built on the host once; the buffers move with the module
+            self.register_buffer("remap0", build_remap(cameras[0], rc0, W, H, REMAP_DTYPE,
+                                                       device="cpu"))
+            self.register_buffer("remap1", build_remap(cameras[1], rc1, W, H, REMAP_DTYPE,
+                                                       device="cpu"))
+            self.max_disparity = default_max_disparity(W)
+            if self.rectify:
+                cameras = (rc0, rc1)
         self.cameras = tuple(cameras)
         self.T = max_tracks if max_tracks is not None else pt.maxTracks
         self.L = params.odometry.cameraTrailLength
@@ -70,10 +105,41 @@ class Vio(nn.Module):
         self.tracker = Tracker(params, cameras, derived, max_tracks=self.T,
                                int_bits=random_int_bits(dtype))
 
+    def rectify_inputs(self, image, second_image):
+        """Both frames resampled into the rectified cameras, with
+        ``useRectification``; else as given."""
+        if not self.rectify:
+            return image, second_image
+        return remap(image, self.remap0), remap(second_image, self.remap1)
+
+    def track_dense_depth(self, image, second_image, pixels, valid):
+        """Dense z-depth (B, T) at the tracks' left pixels (B, T, 2), -1
+        where there is none: SAD disparity of the rectified pair (rectified
+        here unless the inputs already are), depth through Q, sampled at
+        each track's pixel in the rectified left camera."""
+        if not self.rectify:
+            image, second_image = remap(image, self.remap0), remap(second_image, self.remap1)
+        disp, dvalid = compute_disparity(image, second_image, self.max_disparity)
+        depth, dok = disparity_to_depth(disp, dvalid, self.Q)
+        rays, ok_r = pixel_to_ray(self.cameras[0], pixels.to(IMAGE_DTYPE))
+        rpix, ok_p = ray_to_pixel(self.rect_cameras[0], rays)
+        d = sample_depth(depth, dok, rpix)
+        return torch.where(valid & ok_r & ok_p, d, torch.full_like(d, -1.0)).to(self.dtype)
+
+    def pose_rotations(self, m):
+        """(previous, current) camera-to-world rotations (B, 3, 3): the
+        trail's newest pose and the current EKF pose."""
+        i2c = self.backend.imu_to_camera
+        prev = to_camera_to_world(m[:, CAM:CAM + 3], m[:, CAM + 3:CAM + POSE_DIM], i2c)
+        cur = to_camera_to_world(m[:, POS:POS + 3], m[:, ORI:ORI + 4], i2c)
+        return prev[:, :3, :3], cur[:, :3, :3]
+
     @scoped_precision
     def init_state(self, first_image, t0, rng_keys, second_image=None) -> VioState:
         first_image = normalize_input(first_image)
         second_image = normalize_input(second_image)
+        if self.rectify:
+            first_image, second_image = self.rectify_inputs(first_image, second_image)
         return VioState(
             backend=self.backend.init_state(rng_keys),
             tracker=self.tracker.init_state(first_image, t0, second_image),
@@ -130,19 +196,28 @@ class Vio(nn.Module):
     def track_stage(self, state: VioState, t, image, second_image=None):
         image = normalize_input(image)
         second_image = normalize_input(second_image)
+        image, second_image = self.rectify_inputs(image, second_image)
         bstate = state.backend
-        guess, stereo_guess, _ = self.predict_flow(bstate, state.tracker)
+        guess = stereo_guess = None
+        if self.pt.predictOpticalFlow:
+            guess, stereo_guess, _ = self.predict_flow(bstate, state.tracker)
         keys = jr.split(bstate.rng)
         tkey = jr.fold_in(keys[:, 1], self.pt.ransacRngSeed)
         bstate = bstate._replace(rng=keys[:, 0])
         tstate, tout = self.tracker.track_frame(
             state.tracker, image, tkey, t, flow_guess=guess,
             blacklist_flags=bstate.blacklist_flags, blacklist_ids=bstate.blacklist_ids,
-            second_image=second_image, stereo_guess=stereo_guess)
+            second_image=second_image, stereo_guess=stereo_guess,
+            pose_rot=self.pose_rotations(bstate.ekf.m) if self.upright else None)
         dtype = self.dtype
+        if self.dense_depth:
+            depth = self.track_dense_depth(image, second_image, tout.pixels[:, :, 0, :],
+                                           tout.track_ids >= 0)
+        else:
+            depth = torch.full(tout.track_ids.shape, -1.0, dtype=dtype, device=t.device)
         tin = TrackerInput(
             track_ids=tout.track_ids, pixels=tout.pixels.to(dtype), keyframe=tout.keyframe,
-            stereo_depth=torch.full(tout.track_ids.shape, -1.0, dtype=dtype, device=t.device),
+            stereo_depth=depth,
             track_status=tout.status, prev_pixels=tout.prev_pixels, viz_pixels=tout.viz_pixels)
         return VioState(backend=bstate, tracker=tstate, tracker_ready=state.tracker_ready), tin
 

@@ -8,9 +8,11 @@ The measurement function
 
 is written once per track and ``torch.func.vmap(torch.func.jacfwd(h))``
 gives the full Jacobian, including the chain through the triangulation (GN,
-or linear) and the IMU-camera time-shift column. A hybrid map-point track
-skips the triangulation: its point is a state block, so h takes the point
-as three more inputs and H gets their columns.
+linear, or with ``useIndependentStereoTriangulation`` the fusion of the
+track's per-keyframe stereo triangulations) and the IMU-camera time-shift
+column. A hybrid map-point track skips the triangulation: its point is a
+state block, so h takes the point as three more inputs and H gets their
+columns.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch
 
 from ..ekf.state import CAM, ORI, POS, POSE_DIM, SFT
 from .triangulation import (
-    TRI_BAD_DEPTH, TRI_HYBRID, TRI_OK, CameraPoses, camera_poses_from_states, triangulate_gn,
-    triangulate_linear,
+    TRI_BAD_COND, TRI_BAD_DEPTH, TRI_HYBRID, TRI_OK, CameraPoses, camera_poses_from_states,
+    triangulate_gn, triangulate_linear, triangulate_stereo_fused,
 )
 
 PREPARE_VU_OK = 0
@@ -48,21 +50,26 @@ def _project(poses: CameraPoses, pf):
 
 def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stereo, d):
     """prepare(pose_states (..., N, 7), ips (..., C*N, 2), vels (..., C*N, 2),
-    mask (..., N), map_point=None, map_point_offset=None) -> TrackUpdateData,
-    where row k of the poses is trail index k (0 = current pose) and masked
-    rows hold a finite stand-in pose.
+    mask (..., N), map_point=None, map_point_offset=None, stereo_idp=None,
+    stereo_cov=None, stereo_valid=None) -> TrackUpdateData, where row k of
+    the poses is trail index k (0 = current pose) and masked rows hold a
+    finite stand-in pose.
 
     With ``map_point`` (..., 3) and ``map_point_offset`` (...,) given (the
     hybrid form), the track's point is that hybrid map point: it is not
     triangulated, its status is TRI_HYBRID and H gets d proj / d pf at the
     three state columns from the offset (an offset of ``d`` drops them).
     Otherwise the point is triangulated by Gauss-Newton, or in closed form
-    with ``useLinearTriangulation``.
+    with ``useLinearTriangulation``; in stereo with
+    ``useIndependentStereoTriangulation`` and ``stereo_idp`` (..., N, 3),
+    ``stereo_cov`` (..., N, 3, 3), ``stereo_valid`` (..., N) given (the
+    track's per-keyframe stereo triangulations), by their information-
+    weighted fusion, which needs one usable row (else TRI_BAD_COND); the
+    time shift moves each row along its left-camera feature velocity.
 
     ``imu_to_camera`` / ``second_imu_to_camera`` are 4x4 tensors in the
-    filter dtype. The independent-stereo variant is not ported."""
-    if use_stereo and po.useIndependentStereoTriangulation:
-        raise NotImplementedError("useIndependentStereoTriangulation")
+    filter dtype."""
+    use_indep_stereo = use_stereo and bool(po.useIndependentStereoTriangulation)
     est_sft = bool(po.estimateImuCameraTimeShift)
     n_cams = 2 if use_stereo else 1
     i2c = imu_to_camera
@@ -109,11 +116,25 @@ def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stere
         out = measure(trail, pf_in + x[N * 7 + 1:N * 7 + 4], x[N * 7], vels)
         return out, out
 
+    def one_stereo_track(x, vels, mask, sidp, scov, svalid):
+        """h of one track from its fused stereo triangulations."""
+        N = mask.shape[0]
+        sft = x[N * 7]
+        ps = x[:N * 7].reshape(N, 7)
+        if est_sft:
+            sidp = sidp + sft * torch.cat([vels[:N], torch.zeros_like(vels[:N, :1])], dim=1)
+        pf, status, _ = triangulate_stereo_fused(camera_poses_from_states(ps, i2c), sidp, scov,
+                                                 svalid & mask)
+        status = torch.where(torch.sum(svalid & mask) >= 1, status, TRI_BAD_COND)
+        out = measure(trail_from_states(ps), pf, sft, vels)
+        return out, (out, pf, status)
+
     jac = torch.func.vmap(torch.func.jacfwd(one_track, has_aux=True))
     jac_map = torch.func.vmap(torch.func.jacfwd(one_map_track, has_aux=True))
+    jac_stereo = torch.func.vmap(torch.func.jacfwd(one_stereo_track, has_aux=True))
 
-    def prepare(pose_states, ips, vels, mask, map_point=None,
-                map_point_offset=None) -> TrackUpdateData:
+    def prepare(pose_states, ips, vels, mask, map_point=None, map_point_offset=None,
+                stereo_idp=None, stereo_cov=None, stereo_valid=None) -> TrackUpdateData:
         lead = mask.shape[:-1]
         N = mask.shape[-1]
         rows = 2 * n_cams * N
@@ -131,7 +152,11 @@ def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stere
             J, f = jac_map(x0, vels_f, pf)
             tri_status = torch.full((NB,), TRI_HYBRID, dtype=torch.int64, device=pf.device)
         else:
-            J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
+            if use_indep_stereo and stereo_idp is not None:
+                J, (f, pf, tri_status) = jac_stereo(x0, vels_f, mask_f, flat(stereo_idp),
+                                                    flat(stereo_cov), flat(stereo_valid))
+            else:
+                J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
             depth = torch.linalg.norm(pf - trail.p[:, 0], dim=-1)
             max_dist = po.triangulationMaxDist
             if max_dist > torch.finfo(dtype).max:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import random as jr
-from ..runtime import random_int_bits
+from ..runtime import default_device, random_int_bits
 
 
 def _proper(U, Vt, dtype):
@@ -169,9 +169,11 @@ def _padded(arrays, pad: int, device):
 
 
 def ransac_pnp_np(pts3, obs2, seed: int = 0, n_hyp: int = 100,
-                  threshold: float = 0.02, pad: int = 256, device="cpu"):
-    """Host wrapper for ransac_pnp on ``device`` (float64, padded to a
-    power-of-two multiple of ``pad`` as the reference pads for its jit)."""
+                  threshold: float = 0.02, pad: int = 256, device=None):
+    """Host wrapper for ransac_pnp on ``device``, the card unless given
+    (float64, padded to a power-of-two multiple of ``pad`` as the reference
+    pads for its jit)."""
+    device = default_device() if device is None else device
     pts3 = np.asarray(pts3, np.float64)
     M = pts3.shape[0]
     (pp, op), vp = _padded([pts3, np.asarray(obs2, np.float64)], pad, device)
@@ -182,9 +184,10 @@ def ransac_pnp_np(pts3, obs2, seed: int = 0, n_hyp: int = 100,
 
 def ransac_similarity_np(src, dst, seed: int = 0, n_hyp: int = 100,
                          threshold: float = 0.1, with_scale: bool = False,
-                         pad: int = 256, device="cpu"):
-    """Host wrapper for ransac_similarity on ``device`` (float64, padded as
-    ransac_pnp_np)."""
+                         pad: int = 256, device=None):
+    """Host wrapper for ransac_similarity on ``device``, the card unless
+    given (float64, padded as ransac_pnp_np)."""
+    device = default_device() if device is None else device
     src = np.asarray(src, np.float64)
     M = src.shape[0]
     (sp, dp), vp = _padded([src, np.asarray(dst, np.float64)], pad, device)

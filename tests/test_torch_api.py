@@ -364,8 +364,15 @@ def test_recording_only_records_without_running(tmp_path):
     slam_api = VioApi(p, 64, 48, device="cpu")  # the SLAM session is ported
     assert slam_api.slam is not None and slam_api.slam.device.type == "cpu"
     slam_api.finish()
-    with pytest.raises(NotImplementedError, match="utils/gps.py"):
-        api.add_echo({"time": 0.0, "gps": {"latitude": 60.0, "longitude": 24.0}})
+    # GPS echoes land in the pose history, metres east / north / up of the
+    # first fix (utils/gps.py), as the reference's do
+    ref_api = RVioApi(RParams(), 64, 48, recording_only=True, native_sync=False)
+    for a in (api, ref_api):
+        for t, lat, lon, alt in ((0.0, 60.0, 24.0, 10.0), (1.0, 60.001, 24.002, 12.5)):
+            a.add_echo({"time": t, "gps": {"latitude": lat, "longitude": lon, "altitude": alt}})
+    gps = np.asarray(api.pose_histories["gps"])
+    np.testing.assert_array_equal(gps, np.asarray(ref_api.pose_histories["gps"]))
+    assert np.allclose(gps[0, 1:], 0.0) and 100.0 < gps[1, 1] < 120.0 and gps[1, 3] == 2.5
     with pytest.raises(NotImplementedError, match="odometry/debug.py"):
         api.debug_api = object()
     with pytest.raises(NotImplementedError, match="add_frame_mono_varying"):

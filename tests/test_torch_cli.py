@@ -8,8 +8,8 @@ as it runs by default and with -timer, each frame step starting from the
 reference's state at the same point (as in tests/test_torch_api.py): every
 field of every output line equals the reference's, status, time and focal
 length exactly, floats to torch_parity.mono_step_tol; the -timer report has
-the reference's labels. Unported inputs and flags raise
-NotImplementedError."""
+the reference's labels. Unported inputs (a video, with or without the
+legacy CSV beside it) and flags raise NotImplementedError."""
 import contextlib
 import io
 import json
@@ -127,7 +127,7 @@ def test_cli_honours_hybvio_platform(runs, tmp_path, monkeypatch):
     (["-p"], "visualizations"),
     (["-visualizationPath=/nonexistent"], "visualizations"),
     (["-useSlam", "-visualizeOrbMatching"], "visualizations"),
-    (["-computeStereoPointCloud", "-useStereo"], "rectify"),
+    (["-useSquareRootEkf"], "useSquareRootEkf"),
 ])
 def test_cli_unported_flags_raise(runs, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -136,15 +136,18 @@ def test_cli_unported_flags_raise(runs, tmp_path, flags, match):
 
 
 @pytest.mark.parametrize("layout, match", [
-    ("euroc", "io/euroc.py"), ("csv", "read_csv_events"), ("video", "io/video.py"),
+    ("mp4_csv", "VideoFileSource"), ("mov_csv", "VideoFileSource"), ("video", "io/video.py"),
     ("varying", "add_frame_mono_varying")])
 def test_cli_unported_inputs_raise(runs, tmp_path, layout, match):
     ds = tmp_path / layout
-    if layout == "euroc":
-        (ds / "mav0" / "cam0").mkdir(parents=True)
-    elif layout == "csv":
+    if layout.endswith("_csv"):  # a video with the legacy CSV beside it
         ds.mkdir()
+        video = ds / f"data.{layout[:3]}"
+        video.write_bytes(b"")
         (ds / "data.csv").write_text("0.0,4,0,0,0\n")
+        with pytest.raises(NotImplementedError, match=match):
+            run([f"-i={video}"], device="cpu")
+        return
     else:
         ds.mkdir()
         lines = open(os.path.join(runs["dataset"], "data.jsonl")).read().splitlines()

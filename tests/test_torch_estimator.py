@@ -351,15 +351,27 @@ def test_backend_matches_reference(case):
 
 
 def test_unported_options_still_raise():
-    """The square-root filter and independent stereo triangulation are the
-    estimator options the port still lacks: building the estimator raises."""
+    """The square-root filter is the estimator option the port still lacks:
+    building the estimator raises. Independent stereo triangulation builds,
+    with the second-to-first camera transform its pre-triangulation uses."""
     from hybvio_tpu_torch.geometry.cameras import build_pinhole as port_pinhole
 
     cam = port_pinhole(FX, FX, W / 2, H / 2, width=W, height=H)
-    for name in ("useSquareRootEkf", "useIndependentStereoTriangulation"):
+
+    def stereo_params(name):
         p = Parameters()
         p.tracker.useStereo = True
         p.odometry.secondImuToCameraMatrix = tuple(SECOND_IMU_TO_CAMERA.T.flatten())
         setattr(p.odometry, name, True)
-        with pytest.raises(NotImplementedError, match=name):
-            Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
+        return p
+
+    p = stereo_params("useSquareRootEkf")
+    with pytest.raises(NotImplementedError, match="useSquareRootEkf"):
+        Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
+    p = stereo_params("useIndependentStereoTriangulation")
+    derived = PortDerived.from_parameters(p)
+    backend = Backend(p, derived, (cam, cam), max_tracks=T)
+    assert backend.indep_stereo
+    want = (np.asarray(derived.imu_to_camera)
+            @ np.linalg.inv(np.asarray(derived.second_imu_to_camera)))
+    np.testing.assert_allclose(backend.second_to_first.numpy(), want, rtol=0, atol=1e-15)

@@ -49,10 +49,11 @@ def test_port_imports_no_jax():
 
 
 def test_port_and_smoke_run_never_import_the_reference():
-    """No import statement of the port or of chip_smoke.py names jax or
-    hybvio_tpu, not even inside a function."""
+    """No import statement of the port, of chip_smoke.py or of the mav0
+    writer it shares with the tests names jax or hybvio_tpu, not even
+    inside a function."""
     found = []
-    for path in PORT_FILES + [REPO / "chip_smoke.py"]:
+    for path in PORT_FILES + [REPO / "chip_smoke.py", REPO / "tests" / "euroc_fixture.py"]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -213,3 +214,65 @@ def test_precision_policy_holds_in_the_slam_worker_while_the_step_runs():
     finally:
         torch.set_float32_matmul_precision(saved[0])
         torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def test_scan_covers_the_recorded_input_and_stereo_option_modules():
+    """The AST scan and the import check above include the modules of the
+    recorded input and the stereo options, and the decoder's binding."""
+    for name in ("frontend.rectify", "frontend.disparity", "frontend.fast", "io.euroc",
+                 "io.native_image", "io.video", "utils.gps"):
+        assert f"hybvio_tpu_torch.{name}" in PORT_MODULES, name
+    source = (REPO / "hybvio_tpu_torch" / "native" / "image_decode.cpp").read_text()
+    assert "jax" not in source and "hybvio_tpu/" not in source
+
+
+@pytest.mark.parametrize("fn", ["ransac_pnp_np", "ransac_similarity_np"])
+def test_loop_closure_helpers_take_the_card(fn, monkeypatch):
+    """Without a device given, the loop-closure helpers resolve it through
+    runtime.default_device(): the card, or a raise without one (no CPU
+    fallback)."""
+    from hybvio_tpu_torch import runtime
+    from hybvio_tpu_torch.slam import loopclosure
+
+    rng = np.random.RandomState(0)
+    pts = rng.randn(12, 3) + [0, 0, 5]
+    args = (pts, pts[:, :2] / pts[:, 2:]) if fn == "ransac_pnp_np" else (pts, pts + 0.1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(loopclosure, fn)(*args, n_hyp=8)
+    asked = []
+    monkeypatch.setattr(loopclosure, "default_device",
+                        lambda: asked.append(True) or torch.device("cpu"))
+    got = getattr(loopclosure, fn)(*args, n_hyp=8)
+    want = getattr(loopclosure, fn)(*args, n_hyp=8, device="cpu")
+    assert asked == [True]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert runtime.default_device is not loopclosure.default_device
+
+
+@pytest.mark.parametrize("fn", ["build_remap", "build_mono_undistort"])
+def test_rectification_maps_take_the_card(fn, monkeypatch):
+    """Without a device given, the rectification and undistortion maps are
+    built on runtime.default_device(): the card, or a raise without one (no
+    CPU fallback)."""
+    from hybvio_tpu_torch.frontend import rectify
+    from hybvio_tpu_torch.geometry.cameras import build_pinhole
+
+    lens = build_pinhole(90.0, 90.0, 40.0, 30.0, coeffs=(-0.28, 0.07, 0.0), width=80,
+                         height=60)
+    args = (lens, build_pinhole(90.0, 90.0, 40.0, 30.0, width=80, height=60), 80, 60)
+    if fn == "build_mono_undistort":
+        args = (lens, 80, 60)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(rectify, fn)(*args)
+    asked = []
+    monkeypatch.setattr(rectify, "default_device",
+                        lambda: asked.append(True) or torch.device("cpu"))
+    got = getattr(rectify, fn)(*args)
+    want = getattr(rectify, fn)(*args, device="cpu")
+    assert asked == [True]
+    got_map, want_map = (got, want) if fn == "build_remap" else (got[1], want[1])
+    assert got_map.device.type == "cpu"
+    torch.testing.assert_close(got_map, want_map, rtol=0, atol=0)

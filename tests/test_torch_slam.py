@@ -445,7 +445,7 @@ def test_ransac_similarity_equals_reference(seed, with_scale):
     session's _loop_seed feeds them), Kabsch fits and the refit."""
     src, dst = _similarity_data(seed, scale=1.1 if with_scale else 1.0)
     got = loopclosure.ransac_similarity_np(src, dst, seed=seed + 1, n_hyp=100, threshold=0.1,
-                                           with_scale=with_scale)
+                                           with_scale=with_scale, device="cpu")
     want = r_lc.ransac_similarity_np(src, dst, seed=seed + 1, n_hyp=100, threshold=0.1,
                                      with_scale=with_scale)
     np.testing.assert_array_equal(got[3], want[3])
@@ -463,7 +463,8 @@ def test_ransac_pnp_equals_reference(seed):
     pc = pts3 @ Rt.T + np.array([0.1, 0.2, 0.3])
     obs = pc[:, :2] / pc[:, 2:] + 0.001 * rng.randn(40, 2)
     obs[:8] += 0.3
-    got = loopclosure.ransac_pnp_np(pts3, obs, seed=seed + 5, n_hyp=100, threshold=0.02)
+    got = loopclosure.ransac_pnp_np(pts3, obs, seed=seed + 5, n_hyp=100, threshold=0.02,
+                                    device="cpu")
     want = r_lc.ransac_pnp_np(pts3, obs, seed=seed + 5, n_hyp=100, threshold=0.02)
     np.testing.assert_array_equal(got[2], want[2])
     assert got[3] == want[3] >= 25
