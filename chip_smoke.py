@@ -36,7 +36,11 @@ Phases (any failure exits non-zero and prints no result line):
      at K = 400; and at the vislam preset's (phase 8b, the stereo preset at
      one lane): the gather of 96 windows at every row of GATHER_ROWS,
      greedy at K = 192; and the FAST detector's greedy walk (phase 9a) at
-     K = 256, one lane and 16 lanes with a per-lane d2;
+     K = 256, one lane and 16 lanes with a per-lane d2; and at the textured
+     world's new shapes (TEXTURED_SHAPES, one lane): the short probe's
+     240x320 frame (maxTracks 64: the gathers at every GATHER_ROWS row, the
+     fused pyramid of one and two cameras, the corner response, greedy at
+     K = 128) and the long fisheye's 512x512 gathers of 96 windows;
   4. five paths through make_batched_vio, each B=16 lanes, a float32
      filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
      frames (io.synthetic, the benchmark's worlds; mono, fisheye and
@@ -118,7 +122,20 @@ Phases (any failure exits non-zero and prints no result line):
      in-process at the reference's defaults with -useStereo
      -useRectification: frames in, outputs out, per-frame wall time, decode
      time a frame, ATE, launches and the host syncs of one step; fails as
-     phase 7.
+     phase 7;
+ 10. the textured world (eval/long_probe.py, frames ray-cast on the card by
+     io/textured_device.py outside the timed step, one lane, float32
+     filter): (a) long_stereo, the stereo preset at 752x480 over 20 s (200
+     frames), ATE <= 0.05 m; (b) long_stereo_sqrt, the same with
+     useSquareRootEkf over 10 s: finite, the smallest eigenvalue of
+     W W^T >= -1e-9 x the largest, its ATE beside (a)'s over the same
+     frames; (c) long_mono (752x480) and long_fisheye (512x512 KB4), 10 s
+     each: finite, ATE printed; (d) zoom: VioApi on the mono preset at
+     752x480 over ZOOM_FRAMES blob frames whose focal length grows by 30%,
+     through add_frame_mono_varying beside the same frames through
+     add_frame_mono: finite, the varying run's ATE under 0.7 x the fixed
+     lens's. Each prints per-frame median and p90 ms, ATE, the host syncs
+     of one step and its launches; any host sync in a step fails.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -233,6 +250,24 @@ STEREO_OPTIONS = (
     ("predictOpticalFlow = false", {"tracker.predictOpticalFlow": False}))
 FAST_K = 256  # the FAST detector's candidates
 EUROC_FRAMES = 14
+# phase 10: the textured world (eval/long_probe.py's families at one lane,
+# float32 filter, 10 frames a second, rendered on the card by
+# io/textured_device.py outside the timed step) and the zooming lens. The
+# seconds of each run; the step whose host syncs are counted; the scene
+# seed; the zoom run's frames and focal-length ramp; the square-root
+# factor's eigenvalue floor (relative to the largest). The short probe's
+# shapes (eval/textured_probe.py: 320x240, maxTracks 64, pyrLKWindowSize
+# 15, two levels) and the long fisheye's (512x512 at one lane) are timed in
+# phase 3 (TEXTURED_SHAPES: frame size -> windows a gather, cameras).
+TEXTURED_RUNS = (("long_stereo", "stereo", 20.0, False), ("long_stereo_sqrt", "stereo", 10.0, True),
+                 ("long_mono", "mono", 10.0, False), ("long_fisheye", "fisheye", 10.0, False))
+TEXTURED_SYNC_STEP = 3
+TEXTURED_SEED = 8
+ZOOM_FRAMES = 40
+ZOOM = 0.30
+ZOOM_ATE_RATIO = 0.7  # the reference's criterion (tests/test_varying_intrinsics.py)
+SQRT_EIG_TOL = 1e-9
+TEXTURED_SHAPES = {(240, 320): (64, (1, 2)), (512, 512): (96, (1,))}
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
@@ -700,6 +735,7 @@ def check_kernels(dev):
     check_api_shapes(dev, g, results, timed, shape_row)
     check_vislam_shapes(dev, g, results, timed, shape_row)
     check_fast_shapes(dev, g, results, timed, shape_row)
+    check_textured_shapes(dev, g, results, timed, shape_row)
 
     say(f"edge cases: {check_edge_cases(dev, g)} gather / greedy / corner-response / pyramid "
         f"/ pyramid-and-gradients cases equal their plain versions")
@@ -936,6 +972,92 @@ def check_fast_shapes(dev, g, results, timed, shape_row):
                  4 * B * K * K + 2 * B * K, B * K * (K - 1) // 2,
                  plain=lambda: ops.greedy_min_distance_plain(d2l, okl, min_d2), plain_reps=10)
     results["greedy_nms"]["shapes"][shape_key((B, K, "per-lane"))] = shape_row(srow)
+
+
+def check_textured_shapes(dev, g, results, timed, shape_row):
+    """Phase 3 at the textured world's new shapes (TEXTURED_SHAPES), one
+    lane: the gather of the frame size's windows at every row of
+    GATHER_ROWS (the short probe's 240x320 at the 480x752 rows) on the
+    levels and gradients of a two-level pyramid, the fused pyramid of one
+    and two cameras, the corner response, and greedy over the detector's
+    max(2 T, 128) candidates; each against its plain version exactly. A
+    shape some earlier row timed is not timed again."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    for (H, W), (n, cams_n) in TEXTURED_SHAPES.items():
+        frames = torch.rand((1, 2, H, W), generator=g).to(dev)  # one lane, two cameras
+        cams = (frames[:, 0], frames[:, 1])
+        lhw = [(H, W), ((H + 1) // 2, (W + 1) // 2), ((H + 3) // 4, (W + 3) // 4)]
+        blur = sum(9 * lhw[l - 1][0] * w + 9 * h * w for l, (h, w) in enumerate(lhw) if l > 0)
+        grad = sum(2 * 10 * h * w for h, w in lhw)
+        for c in cams_n:
+            key = shape_key((c, 1, H, W, 2))
+            if key in results["pyramid_scharr"]["shapes"]:
+                continue
+            images = cams[:c]
+            nbytes = 4 * (c * H * W + c * sum(h * w for h, w in lhw[1:])
+                          + 2 * sum(h * w for h, w in lhw))
+            srow = timed(f"pyramid_scharr ({c} camera{'s' if c > 1 else ''}, one lane, {H}x{W}, "
+                         f"2 levels, gradients of levels 0-2, one launch)", fused_err(images, 2),
+                         0.0, lambda: ops.pyramid_with_gradients(images, 2), None, nbytes,
+                         c * blur + grad, plain=lambda: ops.pyramid_with_gradients_plain(images, 2))
+            results["pyramid_scharr"]["shapes"][key] = shape_row(srow)
+        (lv, _), grads = ops.pyramid_with_gradients(cams, 2)
+        left = cams[0]
+        rows = GATHER_ROWS.get((H, W), GATHER_ROWS[FRAME_HW["stereo"]])
+        for k, ps, level in rows:
+            base = (left, *lv)[level]
+            h, w = base.shape[-2:]
+            key = shape_key((k, 1, n, ps, h, w, "shared"))
+            if key in results["patch_gather"]["shapes"]:
+                continue
+            planes = {3: (base, *grads[level]), 1: (base,), 2: grads[level]}[k]
+            y0 = torch.randint(0, h - ps + 1, (1, n), generator=g, dtype=torch.int32).to(dev)
+            x0 = torch.randint(0, w - ps + 1, (1, n), generator=g, dtype=torch.int32).to(dev)
+            r = torch.arange(ps, device=dev)
+            idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+                   + (x0.long()[..., None] + r)[..., None, :]).reshape(1, -1).expand(k, 1, -1)
+            flat = torch.stack([p.reshape(1, h * w) for p in planes])
+            covered = torch.zeros((1, h * w), dtype=torch.bool, device=dev)
+            covered.scatter_(1, idx[0], True)
+            read_px = int(covered.sum())
+            got = ops.gather_patches(planes, y0, x0, ps)
+            err = max(max_err(a, ops.gather_patches_plain(im, y0, x0, ps))
+                      for a, im in zip(got, planes))
+            if not torch.equal(torch.gather(flat, 2, idx).reshape(k, 1, n, ps, ps),
+                               torch.stack(got)):
+                raise AssertionError(f"patch_gather one lane {ps}x{ps} on {h}x{w}: the "
+                                     f"torch.gather yardstick disagrees")
+            srow = timed(f"patch_gather ({k} image{'s' if k > 1 else ''}, one lane, {n} windows "
+                         f"of {ps}x{ps} on {h}x{w})", err, 0.0,
+                         lambda: ops.gather_patches(planes, y0, x0, ps),
+                         lambda: torch.gather(flat, 2, idx),
+                         4 * (k * n * ps * ps + k * read_px + 2 * n), 0,
+                         plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps) for im in planes])
+            results["patch_gather"]["shapes"][key] = shape_row(srow)
+        key = shape_key((1, H, W, 3))
+        if key not in results["corner_response"]["shapes"]:
+            img = left[0]
+            srow = timed(f"corner_response block 3, one lane, {H}x{W}",
+                         max_err(ops.corner_response(img, 3), ops.corner_response_plain(img, 3)),
+                         0.0, lambda: ops.corner_response(img, 3), None, 4 * 2 * H * W,
+                         46 * H * W, plain=lambda: ops.corner_response_plain(img, 3))
+            results["corner_response"]["shapes"][key] = shape_row(srow)
+        K = max(2 * n, 128)
+        key = shape_key((1, K, "shared"))
+        if key not in results["greedy_nms"]["shapes"]:
+            d2, ok, min_d2 = greedy_inputs(g, 2, K, False, False, dev)
+            d2, ok = d2[1:].contiguous(), ok[1:].contiguous()  # the lane with candidates
+            srow = timed(f"greedy_nms, one lane, K={K}",
+                         float((ops.greedy_min_distance(d2, ok, min_d2)
+                                != ops.greedy_min_distance_plain(d2, ok, min_d2)).sum()), 0.0,
+                         lambda: ops.greedy_min_distance(d2, ok, min_d2), None,
+                         4 * K * K + 2 * K, K * (K - 1) // 2,
+                         plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
+                         plain_reps=10)
+            results["greedy_nms"]["shapes"][key] = shape_row(srow)
 
 
 def rank(rows, path=None):
@@ -2051,6 +2173,226 @@ def run_euroc_cli(dev):
     return launches, by_shape, sum(syncs.values())
 
 
+TEXTURED_ATE = {}  # phase 10: each long run's per-frame positions and ground truth
+
+
+def run_long(dev, name, family, seconds, sqrt):
+    """Phase 10, one long textured run (eval/long_probe.py's family at one
+    lane, its preset, the scene seed TEXTURED_SEED): the frames rendered on
+    the card a chunk at a time outside the timed step, the step timed on the
+    host clock around torch.cuda.synchronize(). Prints per-frame median and
+    p90 ms (without the warm-up step and the counted one), finite, ATE,
+    the host syncs of step TEXTURED_SYNC_STEP and the launches; with
+    ``sqrt`` the smallest eigenvalue of W W^T at the end. Returns (launches,
+    launches by shape, host syncs)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.config import DerivedParameters
+    from hybvio_tpu_torch.eval import long_probe as lp
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.eval.textured_probe import imu_batches
+    from hybvio_tpu_torch.geometry.cameras import build_camera_from_params
+    from hybvio_tpu_torch.parallel.batched import make_batched_vio
+
+    overrides = {"odometry.useSquareRootEkf": True} if sqrt else None
+    p, W, H, fx, coeffs = lp._geometry(family, overrides, None, None, None)
+    cams = [build_camera_from_params(p.tracker, W, H)]
+    if p.tracker.useStereo:
+        cams.append(build_camera_from_params(p.tracker, W, H, second=True))
+    seq = lp._make_sequence(seconds, TEXTURED_SEED, 10.0, 100.0)
+    renderers, _ = lp._build_world(family, seq, W, H, fx, coeffs, TEXTURED_SEED, device=dev)
+    frames = lp._FrameCache(seq, renderers)
+    init, step, _ = make_batched_vio(p, DerivedParameters.from_parameters(p), tuple(cams),
+                                     batch_size=1, max_tracks=p.tracker.maxTracks,
+                                     dtype=torch.float32, device=dev)
+    stereo = len(cams) == 2
+
+    def frame(fi):
+        imgs = tuple(im[None] for im in frames.get(fi))
+        return imgs if stereo else imgs[0]
+
+    F = len(seq.frame_sample_idx)
+    S = int(np.max(np.diff(np.concatenate([[0], seq.frame_sample_idx + 1]))))
+    batches = [b for b, _ in imu_batches(seq, F, S, torch.float32, dev)]
+    t0 = time.perf_counter()
+    first = frame(0)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    state = init(first, np.full(1, seq.frame_times[0]), np.arange(1))
+    positions, wall, syncs = [], [], None
+    for fi in range(1, F):
+        t0 = time.perf_counter()
+        images = frame(fi)  # a new chunk renders here, outside the timed step
+        torch.cuda.synchronize()
+        render_s += time.perf_counter() - t0
+        ts = time.perf_counter()
+        if fi == TEXTURED_SYNC_STEP:
+            (state, out), syncs = host_syncs(lambda: step(state, batches[fi - 1], images))
+        else:
+            state, out = step(state, batches[fi - 1], images)
+        torch.cuda.synchronize()
+        wall.append(1000.0 * (time.perf_counter() - ts))
+        positions.append(out.position[0])
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    est = torch.stack(positions).double().cpu().numpy()
+    gt = seq.pos[seq.frame_sample_idx[1:F]] - seq.pos[0]
+    finite = bool(np.isfinite(est).all())
+    ate = float(ate_rmse(est, gt)) if finite else float("nan")
+    TEXTURED_ATE[name] = (est, gt)
+    timed_ms = [w for i, w in enumerate(wall) if i >= 1 and i != TEXTURED_SYNC_STEP - 1]
+    say(f"{name}: {family} textured, B=1, {W}x{H}, float32 filter"
+        f"{', square-root filter' if sqrt else ''}, {seconds:.0f} s ({F - 1} steps): per-frame "
+        f"median {statistics.median(timed_ms):.2f} ms, p90 "
+        f"{float(np.percentile(timed_ms, 90)):.2f} ms, first step {wall[0]:.1f} ms; frames "
+        f"rendered on the card in {render_s:.1f} s")
+    say(f"{name}: finite {finite}, ATE {ate:.4f} m over {len(est)} frames; host syncs in step "
+        f"{TEXTURED_SYNC_STEP}: {sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
+    say(f"{name}: kernel launches {json.dumps(launches)}")
+    say(f"{name}: kernel launches by input shape " + json.dumps(
+        {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    if not finite:
+        raise AssertionError(f"{name}: a non-finite position")
+    if sqrt:
+        Wf = state.backend.ekf.P[0].double()
+        eig = torch.linalg.eigvalsh(Wf @ Wf.T)
+        lo, hi = float(eig.min()), float(eig.max())
+        ref_est, ref_gt = TEXTURED_ATE["long_stereo"]
+        n = len(est)
+        ref_ate = float(ate_rmse(ref_est[:n], ref_gt[:n]))
+        say(f"{name}: W W^T eigenvalues {lo:.4g} .. {hi:.4g} (floor {-SQRT_EIG_TOL:g} x max); "
+            f"ATE {ate:.4f} m beside the dense filter's {ref_ate:.4f} m over the same {n} frames")
+        if not lo >= -SQRT_EIG_TOL * hi:
+            raise AssertionError(f"{name}: W W^T has eigenvalue {lo} < -{SQRT_EIG_TOL} x {hi}")
+    if name == "long_stereo" and not ate <= ATE_LIMIT_M:
+        raise AssertionError(f"{name}: ATE {ate} m > {ATE_LIMIT_M} m")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return launches, by_shape, sum(syncs.values())
+
+
+def run_zoom(dev):
+    """Phase 10d: VioApi on synthetic_bench_params("mono") at 752x480 over
+    ZOOM_FRAMES frames of the blob world whose lens zooms by ZOOM (the
+    focal length of frame i f0 (1 + ZOOM i / (F - 1)), each frame rendered
+    on the card through its own lens beforehand), once through
+    add_frame_mono_varying with each frame's intrinsics and once through
+    add_frame_mono (the session camera kept at the first lens). Prints each
+    run's per-frame wall time, finite outputs, ATE, the host syncs of step
+    TEXTURED_SYNC_STEP and launches; fails unless both are finite, the
+    varying run makes no host sync and its ATE is under ZOOM_ATE_RATIO of
+    the fixed lens's. Returns {run: (launches, launches by shape, syncs)}."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence
+    from hybvio_tpu_torch.io.synthetic_device import make_blob_renderer
+    from hybvio_tpu_torch.models import synthetic_bench_params
+
+    params = synthetic_bench_params("mono")
+    pt = params.tracker
+    W, H = int(2 * pt.principalPointX), int(2 * pt.principalPointY)
+    f0, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
+    seq = generate_sequence(duration=ZOOM_FRAMES / 10.0 + 0.05, imu_rate=100.0, frame_rate=10.0,
+                            n_landmarks=500, landmark_radius=6.0, gyro_noise=5e-4,
+                            acc_noise=5e-3, seed=3)
+    F = min(ZOOM_FRAMES, len(seq.frame_sample_idx))
+    fxs = [f0 * (1.0 + ZOOM * fi / (F - 1)) for fi in range(F)]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    t0 = time.perf_counter()
+    frames = []
+    for fi, k in enumerate(seq.frame_sample_idx[:F]):
+        render = make_blob_renderer([SYNTH_IMU_TO_CAMERA], fxs[fi], fxs[fi], cx, cy, W, H,
+                                    blob_sigma=1.4, device=dev)
+        frames.append(render(f32(seq.landmarks[None]), f32(seq.pos[k][None]),
+                             f32(seq.quat[k][None]))[0, 0])
+    torch.cuda.synchronize()
+    say(f"zoom: rendered {F} frames of {W}x{H} on the card, focal length {fxs[0]:.1f} -> "
+        f"{fxs[-1]:.1f} px ({100 * ZOOM:.0f}%), in {time.perf_counter() - t0:.1f} s")
+    frame_of = {int(k): fi for fi, k in enumerate(seq.frame_sample_idx[:F])}
+    out, ates = {}, {}
+    for run, varying in (("zoom", True), ("zoom_fixed_lens", False)):
+        api = VioApi(params, W, H, device=dev)
+        outputs, wall, counted = [], [], {}
+        api.on_output = outputs.append
+        process, step = api._process_frame, api._step_frame
+
+        def timed_process(synced):
+            stepped = api._state is not None
+            ts = time.perf_counter()
+            process(synced)
+            if stepped:
+                wall.append(time.perf_counter() - ts)
+
+        def counted_step(*a):
+            if len(wall) == TEXTURED_SYNC_STEP and "syncs" not in counted:
+                counted["syncs"] = host_syncs(lambda: step(*a))[1]
+            else:
+                step(*a)
+
+        api._process_frame, api._step_frame = timed_process, counted_step
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for k in range(int(seq.frame_sample_idx[F - 1]) + 1):
+            t = float(seq.times[k])
+            api.add_gyro(t, seq.gyro[k])
+            api.add_acc(t, seq.acc[k])
+            fi = frame_of.get(k)
+            if fi is None:
+                continue
+            if varying:
+                api.add_frame_mono_varying(t, frames[fi], {
+                    "focalLengthX": fxs[fi], "focalLengthY": fxs[fi],
+                    "principalPointX": cx, "principalPointY": cy})
+            else:
+                api.add_frame_mono(t, frames[fi])
+        api.finish()
+        torch.cuda.synchronize()
+        launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+        est = np.stack([o.position for o in outputs])
+        est_t = np.array([o.t for o in outputs])
+        gt = np.stack([np.interp(est_t, seq.times, seq.pos[:, a] - seq.pos[0, a])
+                       for a in range(3)], axis=1)
+        finite = bool(np.isfinite(est).all())
+        ates[run] = float(ate_rmse(est, gt)) if finite else float("nan")
+        syncs = counted.get("syncs")
+        steady = [w for i, w in enumerate(wall) if i >= 1 and i != TEXTURED_SYNC_STEP]
+        say(f"{run}: {'add_frame_mono_varying' if varying else 'add_frame_mono (first lens)'}, "
+            f"B=1 {W}x{H}, {F} frames in, {len(outputs)} outputs out; per-frame wall median "
+            f"{1e3 * statistics.median(steady):.2f} ms, p90 "
+            f"{1e3 * float(np.percentile(steady, 90)):.2f} ms; finite {finite}, ATE "
+            f"{ates[run]:.4f} m; host syncs in step {TEXTURED_SYNC_STEP}: "
+            f"{sum(syncs.values()) if syncs is not None else 'not counted'} "
+            f"{json.dumps(dict(sorted((syncs or {}).items())))}")
+        say(f"{run}: kernel launches {json.dumps(launches)}")
+        say(f"{run}: kernel launches by input shape " + json.dumps(
+            {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+        if not finite:
+            raise AssertionError(f"{run}: a non-finite output")
+        if syncs is None:
+            raise AssertionError(f"{run}: step {TEXTURED_SYNC_STEP} was never run")
+        out[run] = (launches, by_shape, sum(syncs.values()))
+    say(f"zoom: varying-lens ATE {ates['zoom']:.4f} m against the fixed lens's "
+        f"{ates['zoom_fixed_lens']:.4f} m (ratio {ates['zoom'] / ates['zoom_fixed_lens']:.3f}, "
+        f"limit {ZOOM_ATE_RATIO})")
+    if not ates["zoom"] < ZOOM_ATE_RATIO * ates["zoom_fixed_lens"]:
+        raise AssertionError(f"zoom: ATE {ates['zoom']} m not under {ZOOM_ATE_RATIO} x the "
+                             f"fixed lens's {ates['zoom_fixed_lens']} m")
+    return out
+
+
+def run_textured(dev):
+    """Phase 10: the long textured runs (TEXTURED_RUNS) and the zoom."""
+    runs = {name: run_long(dev, name, family, seconds, sqrt)
+            for name, family, seconds, sqrt in TEXTURED_RUNS}
+    runs.update(run_zoom(dev))
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2110,6 +2452,7 @@ def main() -> int:
         runs["cli_vislam"] = run_cli_vislam(dev)
         runs.update(run_stereo_options(dev))
         runs["euroc_cli"] = run_euroc_cli(dev)
+        runs.update(run_textured(dev))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

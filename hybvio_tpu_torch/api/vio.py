@@ -30,10 +30,15 @@ the tracks (``computeDenseStereoDepth``) their depth points join it under
 the tracks' ids. GPS echoes (``gps`` / ``rtkgps``) land in the pose
 histories in a local ENU frame (``utils/gps.py``).
 
+Per-frame intrinsics (``add_frame_mono_varying``, mono) ride each frame's
+packed IMU copy to the card (no blocking copy), where they become the
+step's first camera (``geometry.cameras.with_intrinsics``). With
+``odometry.useSquareRootEkf`` the filter carries the square-root factor of
+its covariance (``ekf/sqrt.py``), the state surgery included.
+
 Not ported (each raises ``NotImplementedError`` naming its module when asked
 for): the visualizations (``api/visualizations.py``), the debug publisher
-(``odometry/debug.py``), per-frame intrinsics (``add_frame_mono_varying``)
-and the native synchronizer (``io/native_sync.py``).
+(``odometry/debug.py``) and the native synchronizer (``io/native_sync.py``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ from ..config import DerivedParameters, Parameters
 from ..config.loader import load_parameters
 from ..ekf import ORI, POS, condition_on_last_pose as _condition, initialize_orientation
 from ..ekf import lock_biases as _lock_biases, transform_to
-from ..geometry.cameras import build_camera_from_params
+from ..geometry.cameras import build_camera_from_params, with_intrinsics
 from ..io.jsonl import Recorder, output_to_json
 from ..odometry.backend import FrameOutput, ImuBatch
 from ..odometry.sample_sync import SampleSync, SyncedSample
@@ -141,6 +146,8 @@ class VioApi:
         self.derived = DerivedParameters.from_parameters(params)
         self.width, self.height = width, height
         self._dtype = filter_dtype(self.device) if dtype is None else dtype
+        # the P field holds the square-root factor W (ekf/sqrt.py)
+        self._sqrt_mode = bool(getattr(params.odometry, "useSquareRootEkf", False))
         cams = [build_camera_from_params(params.tracker, width, height)]
         if params.tracker.useStereo:
             cams.append(build_camera_from_params(params.tracker, width, height, second=True))
@@ -303,9 +310,50 @@ class VioApi:
 
     def add_frame_mono_varying(self, t: float, image, intrinsics) -> None:
         """Mono frame with per-frame intrinsics (reference:
-        InternalAPI::addFrameMonoVarying): not ported."""
-        raise NotImplementedError("add_frame_mono_varying: per-frame intrinsics "
-                                  "(geometry/cameras.py with_intrinsics) are not ported")
+        InternalAPI::addFrameMonoVarying, internal.hpp:216-230: an autofocus
+        or zooming lens). ``intrinsics``: a dict with focalLengthX /
+        focalLengthY / principalPointX / principalPointY (the JSONL
+        cameraParameters spelling, optionally distortionCoefficients) or a
+        (fx, fy[, cx, cy[, coeffs]]) sequence; a principal point <= 0 is the
+        session camera's."""
+        if self.params.tracker.useStereo:
+            raise ValueError("varying intrinsics are supported for mono only")
+        intr = self._normalize_intrinsics(intrinsics)
+        with self._lock:
+            if self.recorder:
+                self.recorder.frame(t, [image], camera_params=[{
+                    "focalLengthX": intr[0], "focalLengthY": intr[1],
+                    "principalPointX": intr[2], "principalPointY": intr[3]}])
+            if self.recording_only:
+                return
+            self.sample_sync.add_frame(t, first_image=self._to_gray(image), intrinsics=intr)
+
+    def _normalize_intrinsics(self, intrinsics):
+        """-> (fx, fy, cx, cy, coeffs or None) floats."""
+        if isinstance(intrinsics, dict):
+            fx = intrinsics.get("focalLengthX", intrinsics.get("fx", -1.0))
+            fy = intrinsics.get("focalLengthY", intrinsics.get("fy", fx))
+            cx = intrinsics.get("principalPointX", intrinsics.get("cx", -1.0))
+            cy = intrinsics.get("principalPointY", intrinsics.get("cy", -1.0))
+            coeffs = intrinsics.get("distortionCoefficients", intrinsics.get("coeffs"))
+        else:
+            seq = list(intrinsics)
+            fx = seq[0]
+            fy = seq[1] if len(seq) > 1 else fx
+            cx = seq[2] if len(seq) > 2 else -1.0
+            cy = seq[3] if len(seq) > 3 else -1.0
+            coeffs = seq[4] if len(seq) > 4 else None
+        if fx <= 0:
+            raise ValueError("varying intrinsics need a positive focal length")
+        if fy <= 0:
+            fy = fx
+        base = self.cameras[0]
+        if cx <= 0:
+            cx = base.cx
+        if cy <= 0:
+            cy = base.cy
+        return (float(fx), float(fy), float(cx), float(cy),
+                tuple(float(c) for c in coeffs) if coeffs is not None else None)
 
     def add_frame_stereo(self, t: float, first, second) -> None:
         with self._lock:
@@ -455,24 +503,37 @@ class VioApi:
             return image.clone()[None]
         return image.to(self.device, non_blocking=True)[None]
 
-    def _imu_batch(self, chunk, t_frame):
-        """(ImuBatch of one lane and S columns, valid count): the samples in
-        one pinned (S, 7) host buffer copied to the device without blocking;
-        the tail repeats the last time and is invalid (reference:
-        api/vio.py:525-539)."""
+    def _imu_batch(self, chunk, t_frame, intrinsics=None):
+        """(ImuBatch of one lane and S columns, valid count, the frame's
+        camera or None): the samples, and a frame's per-frame intrinsics
+        where it has them, in one pinned host buffer copied to the device
+        without blocking; the tail repeats the last time and is invalid
+        (reference: api/vio.py:525-539)."""
         S, n = self.S, len(chunk)
-        host = torch.empty((S, 7), dtype=self._dtype, pin_memory=self.device.type == "cuda")
-        a = np.zeros((S, 7))
-        a[:, 0] = chunk[-1].t if chunk else t_frame
+        a = np.zeros(S * 7 + (8 if intrinsics is not None else 0))
+        imu = a[:S * 7].reshape(S, 7)
+        imu[:, 0] = chunk[-1].t if chunk else t_frame
         for i, s in enumerate(chunk):
-            a[i, 0] = s.t
-            a[i, 1:4] = s.l
-            a[i, 4:7] = s.f
+            imu[i, 0] = s.t
+            imu[i, 1:4] = s.l
+            imu[i, 4:7] = s.f
+        if intrinsics is not None:
+            a[S * 7:S * 7 + 4] = intrinsics[:4]
+            if intrinsics[4] is not None:
+                a[S * 7 + 4:] = (tuple(intrinsics[4]) + (0.0,) * 4)[:4]
+        host = torch.empty(a.shape, dtype=self._dtype, pin_memory=self.device.type == "cuda")
         host.copy_(torch.from_numpy(a))
         dev = (host.to(self.device, non_blocking=True) if self.device.type == "cuda"
                else host)
+        cam0 = None
+        if intrinsics is not None:
+            k = dev[S * 7:]
+            cam0 = with_intrinsics(self.cameras[0], k[0], k[1], k[2], k[3],
+                                   coeffs=k[4:] if intrinsics[4] is not None else None,
+                                   dtype=self._dtype)
+        dev = dev[:S * 7].reshape(S, 7)
         valid = constant((tuple(i < n for i in range(S)),), torch.bool, self.device)
-        return ImuBatch(dev[None, :, 0], dev[None, :, 1:4], dev[None, :, 4:7], valid), n
+        return ImuBatch(dev[None, :, 0], dev[None, :, 1:4], dev[None, :, 4:7], valid), n, cam0
 
     def _rng_keys(self):
         seed = (int(self.params.odometry.rngSeed),)
@@ -496,12 +557,13 @@ class VioApi:
         if self._state is None:
             self._ensure_state(image, synced.t, second)
             return
-        self._step_frame(samples, synced.t, image, second)
+        self._step_frame(samples, synced.t, image, second, getattr(frame, "intrinsics", None))
         self._retire_due()
 
-    def _step_frame(self, samples, t_frame, image, second) -> None:
+    def _step_frame(self, samples, t_frame, image, second, intrinsics=None) -> None:
         """Queue one frame's step and its output's copy to the host; no host
-        sync unless ``-timer`` is on."""
+        sync unless ``-timer`` is on. ``intrinsics``: the frame's own lens
+        (``_normalize_intrinsics``), or None for the session camera."""
         vio, S = self._vio, self.S
         with full_precision():
             # Process ALL pending samples: every chunk of S beyond the last
@@ -514,14 +576,15 @@ class VioApi:
                 lead, samples = samples[:-S], samples[-S:]
                 for i in range(0, len(lead), S):
                     self._state = vio.imu_only(self._state,
-                                               *self._imu_batch(lead[i:i + S], t_frame))
-            batch, n = self._imu_batch(samples, t_frame)
+                                               *self._imu_batch(lead[i:i + S], t_frame)[:2])
+            batch, n, cam0 = self._imu_batch(samples, t_frame, intrinsics)
             img, img2 = self._as_input(image), self._as_input(second)
             self.time_stats.start_frame()
             if self.time_stats.enabled:
-                out = self._staged_step(batch, n, img, img2)
+                out = self._staged_step(batch, n, img, img2, cam0)
             else:
-                self._state, out = vio.step(self._state, batch, img, img2, n_valid=n)
+                self._state, out = vio.step(self._state, batch, img, img2, n_valid=n,
+                                            camera0=cam0)
             raw, layout = _pack(out)
             if self.device.type == "cuda":
                 host = torch.empty(raw.shape, dtype=torch.uint8, pin_memory=True)
@@ -532,7 +595,7 @@ class VioApi:
                 host, event = raw, None
         self._inflight.append(_Fetch(host, event, layout, (image, second, img)))
 
-    def _staged_step(self, batch, n, img, img2):
+    def _staged_step(self, batch, n, img, img2, cam0=None):
         """The step in its three stages, each scope waiting on the card
         before it closes (reference per-label report, main.cpp:1008-1016),
         then one sample per sub-stage label from StageProbes on this frame."""
@@ -541,10 +604,10 @@ class VioApi:
             self._state = vio.imu_only(self._state, batch, n)
             wait_for(self._state.backend.ekf.m)
         with ts.scope("tracker (flow+LK+detect+RANSAC)"):
-            self._state, tin = vio.track_stage(self._state, batch.t[:, -1], img, img2)
+            self._state, tin = vio.track_stage(self._state, batch.t[:, -1], img, img2, cam0)
             wait_for(tin.pixels)
         with ts.scope("visual update + augmentation"):
-            self._state, out = vio.backend_stage(self._state, tin)
+            self._state, out = vio.backend_stage(self._state, tin, cam0)
             wait_for(out.position)
         if self._stage_probes is None:
             from ..utils.stage_attribution import StageProbes
@@ -702,14 +765,14 @@ class VioApi:
     def lock_biases(self) -> None:
         """Freeze IMU bias estimates (reference: InternalAPI::lockBiases,
         internal.hpp:246; ekf.cpp:944-947). No-op before the first frame."""
-        self._surgery(_lock_biases)
+        self._surgery(lambda ekf: _lock_biases(ekf, self._sqrt_mode))
 
     def condition_on_last_pose(self) -> None:
         """Schur-condition the state on the newest pose (reference:
         InternalAPI::conditionOnLastPose, internal.hpp:247; ekf.cpp:928-942).
         No-op before the first frame."""
         L = self.params.odometry.cameraTrailLength
-        self._surgery(lambda ekf: _condition(ekf, L))
+        self._surgery(lambda ekf: _condition(ekf, L, self._sqrt_mode))
 
     def set_visualization(self, mode) -> None:
         raise NotImplementedError("visualizations: api/visualizations.py is not ported")
@@ -732,9 +795,9 @@ class VioApi:
                 m = old.backend.ekf.m
                 ekf = initialize_orientation(
                     state.backend.ekf, constant((GRAVITY_UP,), self._dtype, self.device),
-                    po.noiseInitialOri, po.noiseScale**2)
+                    po.noiseInitialOri, po.noiseScale**2, self._sqrt_mode)
                 ekf = transform_to(ekf, m[:, POS:POS + 3], m[:, ORI:ORI + 4],
-                                   po.cameraTrailLength)
+                                   po.cameraTrailLength, sqrt_mode=self._sqrt_mode)
                 state = state._replace(backend=state.backend._replace(
                     ekf=ekf, orientation_initialized=torch.ones_like(
                         state.backend.orientation_initialized)))

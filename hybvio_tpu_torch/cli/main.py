@@ -28,10 +28,15 @@ SLAM: -useSlam runs the SLAM session beside the VIO (on the same device);
 -slamMapPosesPath=<file> saves its keyframe map at the end; with -timer the
 SLAM worker's per-keyframe stage table follows the VIO's.
 
+A JSONL input whose frames' cameraParameters change mid-sequence (a
+zooming or autofocus lens) runs through VioApi.add_frame_mono_varying from
+the first frame whose lens differs from the session camera (mono);
+-useSquareRootEkf runs the square-root filter (ekf/sqrt.py).
+
 Not ported (raise NotImplementedError naming the module): video containers
 (io/video.py VideoFileSource, also a .mp4/.mov with a sibling .csv), the
 display and visualization flags and the SLAM viewers
-(api/visualizations.py), per-frame varying intrinsics.
+(api/visualizations.py).
 """
 from __future__ import annotations
 
@@ -464,8 +469,8 @@ def run(argv=None, device=None) -> int:
                 # updates the camera from every frame's cameraParameters,
                 # input_jsonl.cpp:119-199 -> addFrameMonoVarying,
                 # internal.hpp:216-230), from the first frame whose lens
-                # differs from the session camera; not ported, so such an
-                # input raises rather than running with the wrong lens
+                # differs from the session camera (mobile autofocus);
+                # fixed-lens inputs keep the plain path
                 fr0 = ev.frames[0] if ev.frames else None
                 if fr0 is not None and fr0.focal_length_x > 0:
                     fx = fr0.focal_length_x * intr_scale[0]
@@ -473,6 +478,8 @@ def run(argv=None, device=None) -> int:
                           else fr0.focal_length_x) * intr_scale[1]
                     cx = (fr0.principal_point_x * intr_scale[0]
                           if fr0.principal_point_x >= 0 else -1.0)
+                    cy = (fr0.principal_point_y * intr_scale[1]
+                          if fr0.principal_point_y >= 0 else -1.0)
                     base = api.cameras[0]
                     if not varying_intrinsics[0]:
                         varying_intrinsics[0] = (
@@ -480,7 +487,7 @@ def run(argv=None, device=None) -> int:
                             or abs(fy - base.fy) > 1e-6 * fy
                             or (cx >= 0 and abs(cx - base.cx) > 1e-6 * max(cx, 1.0)))
                     if varying_intrinsics[0]:
-                        api.add_frame_mono_varying(ev.t, img, None)
+                        api.add_frame_mono_varying(ev.t, img, (fx, fy, cx, cy))
                     else:
                         api.add_frame_mono(ev.t, img)
                 else:

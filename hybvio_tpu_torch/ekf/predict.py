@@ -5,7 +5,8 @@ batch-first over lanes; every lane has its own ``dt``.
     v_new = v + (R(q_new)^T (BAT*xa - baa) + g) dt,  baa *= exp(-dt theta_a)
 
 and the block covariance update P_II = F P_II F^T + G Q G^T,
-P_TI = P_TI F^T, P_IT = F P_IT.
+P_TI = P_TI F^T, P_IT = F P_IT; in sqrt mode the factor's QR
+W <- qr_factor([F W | G sqrt(Q)]).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from .state import (
     BAA, BAT, BGA, INER_DIM, ORI, POS, Q_ACC, Q_BAA_DRIFT, Q_BGA_DRIFT, Q_DIM,
     Q_GYRO, VEL, EKFState, process_noise_values,
 )
+from .sqrt import qr_factor
 from .update import pdot
 
 _dquat_to_rmat = torch.func.vmap(torch.func.jacfwd(quat_to_rmat))
@@ -108,10 +110,11 @@ def process_noise_diag(po, dt, dtype, device):
     return q
 
 
-def make_predict(po):
+def make_predict(po, sqrt_mode: bool = False):
     """predict(state, t (B,), xg (B, 3), xa (B, 3)) -> state. A lane whose
     dt is not positive (first, duplicate or out-of-order sample) keeps its
-    mean and covariance."""
+    mean and covariance. ``sqrt_mode``: state.P holds the factor W
+    (``ekf/sqrt.py``), propagated as W <- qr_factor([F W | G sqrt(Q)])."""
 
     def predict(s: EKFState, t, xg, xa) -> EKFState:
         first = ~s.got_first_sample
@@ -125,6 +128,15 @@ def make_predict(po):
         m, dydx, dydq = predict_mean_and_jacobians(po, s.m, dt, xg, xa)
         q_diag = process_noise_diag(po, dt, s.m.dtype, s.m.device)
         P = s.P
+        if sqrt_mode:  # F = blockdiag(dydx, I); G lives on the inertial rows
+            noise = dydq * torch.sqrt(torch.clamp(q_diag, min=0.0))[:, None, :]
+            rest = torch.zeros((P.shape[0], P.shape[1] - INER_DIM, Q_DIM),
+                               dtype=P.dtype, device=P.device)
+            W = torch.cat([torch.cat([pdot(dydx, P[:, :INER_DIM]), noise], dim=2),
+                           torch.cat([P[:, INER_DIM:], rest], dim=2)], dim=1)
+            P_new = qr_factor(W)
+            go = dt > 0.0
+            return s._replace(m=lane_where(go, m, s.m), P=lane_where(go, P_new, s.P))
         dydxT = dydx.transpose(-1, -2)
         P_II = (pdot(pdot(dydx, P[:, :INER_DIM, :INER_DIM]), dydxT)
                 + pdot(dydq * q_diag[:, None, :], dydq.transpose(-1, -2)))

@@ -34,7 +34,7 @@ Q_DIM = 12
 
 class EKFState(NamedTuple):
     m: torch.Tensor  # (B, d)
-    P: torch.Tensor  # (B, d, d)
+    P: torch.Tensor  # (B, d, d): the covariance, or its factor W in sqrt mode
     time: torch.Tensor  # (B,) seconds since first sample
     prev_sample_t: torch.Tensor  # (B,)
     first_sample_t: torch.Tensor  # (B,)
@@ -51,9 +51,12 @@ def state_dim(camera_trail_length: int, hybrid_map_size: int) -> int:
     return INER_DIM + POSE_DIM * camera_trail_length + MAP_POINT_DIM * hybrid_map_size
 
 
-def init_state(po, batch: int, dtype=torch.float64, device=None) -> EKFState:
+def init_state(po, batch: int, dtype=torch.float64, device=None,
+               sqrt_mode: bool = False) -> EKFState:
     """The initial filter state of ``batch`` lanes, on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise. ``sqrt_mode``: the P field holds the
+    square-root factor W (P = W W^T, ``ekf/sqrt.py``); the initial diagonal
+    covariance factors elementwise."""
     if device is None:
         device = default_device()
     L = po.cameraTrailLength
@@ -75,6 +78,8 @@ def init_state(po, batch: int, dtype=torch.float64, device=None) -> EKFState:
         Pd[s:s + 3] = po.noiseInitialPosTrail**2
         Pd[s + 3:s + 7] = po.noiseInitialOriTrail**2
     P = np.diag(Pd) * noise_scale
+    if sqrt_mode:
+        P = np.sqrt(P)
 
     def lanes(a, dt=dtype):
         t = torch.as_tensor(np.asarray(a), dtype=dt, device=device)

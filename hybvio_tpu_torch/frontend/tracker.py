@@ -199,13 +199,22 @@ class Tracker(nn.Module):
 
     def track_frame(self, ts: TrackerState, image, rng_key, t, flow_guess,
                     blacklist_flags, blacklist_ids, second_image=None, stereo_guess=None,
-                    pose_rot=None):
+                    pose_rot=None, camera0=None):
         """One new frame (stereo: pair), shared (H, W) or per lane
         (B, H, W): (state, TrackerOutput). rng_key (B, 2); t (B,);
         flow_guess / stereo_guess (B, T, 2), flow_guess None for the
         previous positions; pose_rot, for upright-2P, the (previous,
-        current) camera-to-world rotations (B, 3, 3)."""
+        current) camera-to-world rotations (B, 3, 3); camera0, mono only, a
+        per-frame first camera (``with_intrinsics``) that replaces the
+        static one for this frame, RANSAC5's threshold scaled by its focal
+        length."""
         pt, lk, T = self.pt, self.lk, self.T
+        c0, r5_threshold = self.cam0, self.ransac5_threshold
+        if camera0 is not None:
+            if self.stereo:
+                raise ValueError("varying intrinsics are supported for mono only")
+            c0 = camera0
+            r5_threshold = pt.ransac5Threshold / ((c0.fx + c0.fy) * 0.5)
         B = ts.track_ids.shape[0]
         dev = ts.px.device
         img = image.to(torch.float32)
@@ -229,19 +238,19 @@ class Tracker(nn.Module):
 
         keys = jr.split(rng_key)
         rng_key, r_key = keys[:, 0], keys[:, 1]
-        n1, ok_n1 = normalize_pixel(self.cam0, prev_px)
-        n2, ok_n2 = normalize_pixel(self.cam0, new_px)
+        n1, ok_n1 = normalize_pixel(c0, prev_px)
+        n2, ok_n2 = normalize_pixel(c0, new_px)
         valid_n = tracked & ok_n1 & ok_n2
         if self.stereo and (pt.useRansac3 or (pt.useStereoUpright2p and pose_rot is not None)):
             ransac_inliers, ransac_skipped, score = self.ransac_stereo(
                 ts, prev_px, new_px, right_px, n1, n2, valid_n, r_key, rng_key, pose_rot)
         elif pt.useHybridRansac:
-            hr = hybrid_ransac(self.cam0, self.cam0, prev_px, new_px, n1, n2, valid_n, r_key, pt,
-                               self.ransac2_threshold, self.ransac5_threshold,
+            hr = hybrid_ransac(c0, c0, prev_px, new_px, n1, n2, valid_n, r_key, pt,
+                               self.ransac2_threshold, r5_threshold,
                                int_bits=self.int_bits)
             ransac_inliers, ransac_skipped, score = hr.inliers, hr.skipped, hr.score
         else:  # RANSAC2 gives the stationarity score and rejects nothing
-            score = ransac2(self.cam0, self.cam0, prev_px, new_px, valid_n, r_key,
+            score = ransac2(c0, c0, prev_px, new_px, valid_n, r_key,
                             self.ransac2_threshold, int_bits=self.int_bits).score
             ransac_inliers, ransac_skipped = valid_n, torch.zeros_like(score, dtype=torch.bool)
         inlier = tracked & ransac_inliers

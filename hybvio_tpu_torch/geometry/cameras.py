@@ -4,8 +4,12 @@ Kannala-Brandt (KB4) fisheye.
 
 Intrinsics, coefficients and the rotation are Python floats: arithmetic
 with them keeps the dtype of the pixel tensors, and a camera needs no
-device. Iterative inversions (the pinhole undistortion, the fisheye theta
-solve) run a fixed number of Newton steps, with no data-dependent exit.
+device. A per-frame lens (``with_intrinsics``, a zooming or autofocus
+camera) carries fx, fy, cx, cy and the coefficients as 0-d tensors on the
+device instead, which arithmetic treats as it treats the floats: a new lens
+rebuilds, recompiles and syncs nothing. Iterative inversions (the pinhole
+undistortion, the fisheye theta solve) run a fixed number of Newton steps,
+with no data-dependent exit.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ FISHEYE = "fisheye"
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
+    # floats, or 0-d tensors (coeffs a (4,) tensor) on the device for a
+    # per-frame lens
     fx: float
     fy: float
     cx: float
@@ -79,6 +85,39 @@ def build_fisheye(fx, fy, cx, cy, coeffs=(), max_valid_fov_deg=180.0,
                   kind=FISHEYE, coeffs=c, max_valid_theta=max_theta,
                   max_valid_r=_poly_theta(max_theta, c) if has_dist else max_theta,
                   has_distortion=has_dist)
+
+
+def with_intrinsics(cam: Camera, fx, fy=None, cx=None, cy=None, coeffs=None,
+                    dtype=torch.float64, device=None) -> Camera:
+    """The same camera model with this frame's intrinsics (port of the
+    reference's ``with_intrinsics``; reference addFrameMonoVarying,
+    src/api/internal.hpp:216-230): fx, fy, cx, cy become 0-d tensors and,
+    where ``cam`` has distortion, the coefficients a (4,) tensor; the kind,
+    the flags, the rotation and the size stay. ``fy`` defaults to ``fx``,
+    ``cx`` / ``cy`` to ``cam``'s; coefficients are ignored on a camera built
+    without distortion. A tensor argument stays on its device (cast to
+    ``dtype``); a number is made a tensor on ``device``, by default that of
+    the tensor arguments, else the card."""
+    given = [v for v in (fx, fy, cx, cy, coeffs) if isinstance(v, torch.Tensor)]
+    if device is None:
+        device = given[0].device if given else None
+    if device is None:
+        from ..runtime import default_device
+
+        device = default_device()
+
+    def a(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype)
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    new = dict(fx=a(fx), fy=a(fy if fy is not None else fx),
+               cx=a(cx if cx is not None else cam.cx), cy=a(cy if cy is not None else cam.cy))
+    if coeffs is not None and cam.has_distortion:
+        if not isinstance(coeffs, torch.Tensor):
+            coeffs = (tuple(float(c) for c in coeffs) + (0.0,) * 4)[:4]
+        new["coeffs"] = a(coeffs)
+    return dataclasses.replace(cam, **new)
 
 
 def build_camera_from_params(pt, width: int, height: int,

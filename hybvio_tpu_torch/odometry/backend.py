@@ -15,8 +15,13 @@ keyframe; with ``visualUpdateEnabled = false`` the frame skips the trail
 and the visual update. With ``useIndependentStereoTriangulation`` (stereo)
 every frame's tracks are triangulated from their own stereo pair, their
 range taken from the dense stereo depth where the tracker gives one, and
-the visual update fuses a track's triangulations. The square-root filter is
-not ported and raises ``NotImplementedError`` when the module is built.
+the visual update fuses a track's triangulations. With ``useSquareRootEkf``
+the filter carries the factor W of its covariance (``ekf/sqrt.py``) through
+every predict, update, augmentation and map insert, and the outputs'
+covariances are formed from it. ``process_frame`` takes an optional
+per-frame first camera (``geometry.cameras.with_intrinsics``, mono): the
+tracks normalize through it and the measurement noise and gates scale with
+its focal length, as tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from ..ekf import (
     initialize_orientation, make_predict, state_dim, undo_augmentation, update_pseudo_velocity,
     update_zupt, update_zupt_initialization,
 )
+from ..ekf.sqrt import cov_block, cov_diag
 from ..ekf.update import normalize_current_quat
 from ..geometry.cameras import normalize_pixel
 from ..lanes import tuple_where
@@ -120,9 +126,8 @@ class Backend(nn.Module):
     def __init__(self, params, derived, cameras, max_tracks=None, dtype=torch.float64):
         super().__init__()
         po, pt = params.odometry, params.tracker
-        if getattr(po, "useSquareRootEkf", False):
-            raise NotImplementedError("useSquareRootEkf")
         self.po = po
+        self.sqrt_mode = bool(getattr(po, "useSquareRootEkf", False))
         self.stereo = bool(pt.useStereo)
         self.n_cams = 2 if self.stereo else 1
         self.cameras = tuple(cameras)
@@ -143,21 +148,33 @@ class Backend(nn.Module):
             self.register_buffer("second_to_first", torch.as_tensor(
                 np.asarray(derived.imu_to_camera)
                 @ np.linalg.inv(np.asarray(derived.second_imu_to_camera)), dtype=dtype))
-        self._predict = make_predict(po)
-        f = cameras[0].focal_length
-        self.visual_r = po.visualR / f
-        self.rmse_thr0 = po.trackRmseThreshold / f if po.trackRmseThreshold >= 0 else -1.0
-        self.chi_r0 = po.trackChiTestOutlierR / f if po.trackChiTestOutlierR >= 0 else -1.0
+        self._predict = make_predict(po, self.sqrt_mode)
         self._visual_update()  # an option the port lacks raises here, not at the first step
 
-    def _visual_update(self):
+    def focal_thresholds(self, camera0=None):
+        """(visual_r, rmse_thr0, chi_r0): the measurement noise and the gate
+        thresholds in normalized units, the pixel parameters over the first
+        camera's focal length: floats for the static camera, 0-d tensors in
+        the filter's dtype for a per-frame ``camera0``. A gate is on or off
+        by its parameter's sign alone (off: -1.0)."""
+        po = self.po
+        if camera0 is None:
+            f = self.cameras[0].focal_length
+        else:
+            f = ((camera0.fx + camera0.fy) * 0.5).to(self.dtype)
+        visual_r = po.visualR / f
+        rmse_thr0 = po.trackRmseThreshold / f if po.trackRmseThreshold >= 0 else -1.0
+        chi_r0 = po.trackChiTestOutlierR / f if po.trackChiTestOutlierR >= 0 else -1.0
+        return visual_r, rmse_thr0, chi_r0
+
+    def _visual_update(self, camera0=None):
         # built per call so the closure sees the buffers on their current device
         prepare = make_prepare_track_update(
             self.po, self.imu_to_camera, self.second_imu_to_camera, self.stereo, self.d)
         make = (make_batched_visual_update if getattr(self.po, "batchVisualUpdate", False)
                 else make_sequential_visual_update)
         return make(self.po, prepare, self.d, self.NV, self.n_cams,
-                    self.visual_r, self.rmse_thr0, self.chi_r0)
+                    *self.focal_thresholds(camera0), sqrt_mode=self.sqrt_mode)
 
     def init_state(self, rng_keys) -> BackendState:
         """rng_keys: (B, 2) threefry keys."""
@@ -166,7 +183,7 @@ class Backend(nn.Module):
         T, W, dt = self.T, self.W, self.dtype
         i32 = dict(dtype=torch.int32, device=dev)
         return BackendState(
-            ekf=init_state(self.po, B, dt, dev),
+            ekf=init_state(self.po, B, dt, dev, sqrt_mode=self.sqrt_mode),
             trail=tr.init_trail(self.po, B, T, self.n_cams, dt, dev),
             blacklist_flags=torch.zeros((B, T), dtype=torch.bool, device=dev),
             blacklist_ids=torch.full((B, T), -1, **i32),
@@ -187,28 +204,30 @@ class Backend(nn.Module):
         leaves a lane's state as it was. ``n_valid``, a host int where the
         caller knows that no column from there on is valid in any lane,
         ends the loop there: the same function in fewer launches."""
-        po, ns = self.po, self.noise_scale
+        po, ns, sq = self.po, self.noise_scale, self.sqrt_mode
         S = batch.t.shape[1]
         for s in range(S if n_valid is None else min(n_valid, S)):
             t, g, a = batch.t[:, s], batch.gyro[:, s], batch.acc[:, s]
             ekf = state.ekf
             ekf = tuple_where(state.orientation_initialized, ekf,
-                              initialize_orientation(ekf, a, po.noiseInitialOri, ns))
+                              initialize_orientation(ekf, a, po.noiseInitialOri, ns, sq))
             ekf = self._predict(ekf, t, g, a)
             ekf = ekf._replace(m=normalize_current_quat(ekf.m))
             if po.useDecayingZeroVelocityUpdate:
-                ekf = update_zupt_initialization(ekf, po.initZuptR, ns)
+                ekf = update_zupt_initialization(ekf, po.initZuptR, ns, sq)
             if po.usePseudoVelocity:
                 h = torch.linalg.norm(ekf.m[:, VEL:VEL + 2], dim=-1)
                 ekf = tuple_where(h > po.pseudoVelocityLimit, update_pseudo_velocity(
-                    ekf, po.pseudoVelocityTarget, po.pseudoVelocityR, ns), ekf)
+                    ekf, po.pseudoVelocityTarget, po.pseudoVelocityR, ns, sq), ekf)
             valid = batch.valid[:, s]
             state = state._replace(
                 ekf=tuple_where(valid, ekf, state.ekf),
                 orientation_initialized=state.orientation_initialized | valid)
         return state
 
-    def process_frame(self, state: BackendState, tin: TrackerInput):
+    def process_frame(self, state: BackendState, tin: TrackerInput, camera0=None):
+        """The frame's estimator step; ``camera0``, a per-frame first camera
+        (``with_intrinsics``), replaces the static one for this frame."""
         po, L = self.po, self.L
         ekf = state.ekf
         B = ekf.m.shape[0]
@@ -220,7 +239,8 @@ class Backend(nn.Module):
         stationary_visual = frames_since_kf >= po.visualStationarityFrameCountThreshold
         if po.useVisualStationarity:
             ekf = tuple_where(stationary_visual,
-                              update_zupt(ekf, po.visualZuptR, self.noise_scale), ekf)
+                              update_zupt(ekf, po.visualZuptR, self.noise_scale,
+                                          self.sqrt_mode), ekf)
         state = state._replace(ekf=ekf, frames_since_keyframe=frames_since_kf,
                                frame_number=frame_number)
         if po.visualUpdateForEveryNFrame > 1:  # only every N-th frame may be a keyframe
@@ -229,7 +249,7 @@ class Backend(nn.Module):
             keyframe_eff = keyframe
         if po.visualUpdateEnabled:
             state, pc, good_frame = self._visual_frame(state, tin, keyframe_eff,
-                                                       stationary_visual, t_frame)
+                                                       stationary_visual, t_frame, camera0)
         else:
             dev, NV = ekf.m.device, self.NV
             zeros = torch.zeros((B, NV), dtype=torch.int32, device=dev)
@@ -249,9 +269,12 @@ class Backend(nn.Module):
             orientation=m[:, ORI:ORI + 4],
             bias_gyro=m[:, BGA:BGA + 3],
             bias_acc=m[:, 13:16],
-            position_cov=P[:, POS:POS + 3, POS:POS + 3],
-            velocity_cov=P[:, VEL:VEL + 3, VEL:VEL + 3],
-            bias_cov_diag=torch.diagonal(P, dim1=1, dim2=2)[:, BGA:BGA + 9],
+            position_cov=(cov_block(P, slice(POS, POS + 3)) if self.sqrt_mode
+                          else P[:, POS:POS + 3, POS:POS + 3]),
+            velocity_cov=(cov_block(P, slice(VEL, VEL + 3)) if self.sqrt_mode
+                          else P[:, VEL:VEL + 3, VEL:VEL + 3]),
+            bias_cov_diag=(cov_diag(P) if self.sqrt_mode
+                           else torch.diagonal(P, dim1=1, dim2=2))[:, BGA:BGA + 9],
             tracking_status=state.tracking_status,
             stationary_visual=stationary_visual,
             point_cloud=pc[0], point_cloud_status=pc[1], point_cloud_ids=pc[2],
@@ -291,7 +314,7 @@ class Backend(nn.Module):
         return dict(stereo_idp=sidp, stereo_cov=scov, stereo_valid=sok & valid & finite(sidp))
 
     def _visual_frame(self, state: BackendState, tin: TrackerInput, keyframe, stationary_visual,
-                      t_frame):
+                      t_frame, camera0=None):
         """The frame's trail and visual update: (state, point cloud tuple,
         good_frame (B,))."""
         po, L = self.po, self.L
@@ -299,8 +322,9 @@ class Backend(nn.Module):
         # non-keyframe: drop the head keyframe and undo its augmentation
         state = state._replace(
             trail=tuple_where(keyframe, state.trail, tr.pop_head_keyframe(state.trail)),
-            ekf=tuple_where(keyframe, state.ekf, undo_augmentation(state.ekf, L)))
-        norm0, ok0 = normalize_pixel(self.cameras[0], tin.pixels[:, :, 0, :])
+            ekf=tuple_where(keyframe, state.ekf, undo_augmentation(state.ekf, L, self.sqrt_mode)))
+        norm0, ok0 = normalize_pixel(self.cameras[0] if camera0 is None else camera0,
+                                     tin.pixels[:, :, 0, :])
         if self.stereo:
             norm1, ok1 = normalize_pixel(self.cameras[1], tin.pixels[:, :, 1, :])
             norm = torch.stack([norm0, norm1], dim=2)
@@ -320,14 +344,15 @@ class Backend(nn.Module):
         trail = tr.prune(trail._replace(kf_frame_num=kf_frame_num), ids)
         keys = jr.split(state.rng)
         state = state._replace(trail=trail, rng=keys[:, 0])
-        state, pc, need_more, too_many_failures = self._visual_update()(
+        state, pc, need_more, too_many_failures = self._visual_update(camera0)(
             state, ids, valid, keys[:, 1])
         good_frame = (stationary_visual | ~need_more) & ~too_many_failures
 
         removed, counter = tr.removed_keyframe_index(state.trail, po)
         trail = tr.push_head_keyframe(state.trail._replace(frame_counter=counter),
                                       removed, frame_number, t_frame)
-        state = state._replace(ekf=augment_pose(state.ekf, removed - 1, po), trail=trail)
+        state = state._replace(ekf=augment_pose(state.ekf, removed - 1, po, self.sqrt_mode),
+                               trail=trail)
 
         W = self.W
         vu_window = _set_lane_pos(state.vu_window, state.vu_window_pos,

@@ -20,6 +20,7 @@ from ..ekf import (
     CAM, MAP_POINT_DIM, MAP_POINT_PRIOR_STD, ORI, POS, POSE_DIM, visual_track_gate,
     visual_track_update,
 )
+from ..ekf.sqrt import sr_add_diag_noise
 from ..lanes import lane_where
 from . import trail as tr
 from .triangulation import TRI_OK
@@ -168,7 +169,9 @@ def prepare_candidates(prepare, pose_states, ips, vels, sel, m, is_map_point, ma
     return type(out)(*(lane_where(is_map_point, a, b) for a, b in zip(hyb, out)))
 
 
-def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, chi_r0):
+def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, chi_r0,
+                               sqrt_mode: bool = False):
+    """Thresholds and ``sqrt_mode`` as ``make_sequential_visual_update``."""
     L = po.cameraTrailLength
     M = po.hybridMapSize
     sampling = tr.SAMPLING[po.trackSampling]
@@ -191,7 +194,7 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
         tri_ok = (outs.tri_status == TRI_OK) | mp
         prep_ok = outs.prepare_status == 0
         gate_ok, _ = visual_track_gate(ekf.P[:, None], outs.H, outs.f, outs.y,
-                                       outs.row_mask, noise_scale, chi_r0, rmse_thr0)
+                                       outs.row_mask, noise_scale, chi_r0, rmse_thr0, sqrt_mode)
 
         # map-point updates do not count against the attempt budget
         attempt = active & ~mp
@@ -237,7 +240,7 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
                 (_take(outs.y, idx_c) * okf[..., None]).reshape(B, -1),
                 (_take(outs.row_mask, idx_c) & ok_c[..., None]).reshape(B, -1),
                 visual_r, noise_scale, chi_outlier_r=-1.0, rmse_threshold=-1.0,
-                apply_update=torch.any(ok_c, dim=1))
+                apply_update=torch.any(ok_c, dim=1), sqrt_mode=sqrt_mode)
             m, P = res.m, res.P
 
         if M > 0:
@@ -249,7 +252,10 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
                                  & (idx < offs[..., None] + MAP_POINT_DIM), dim=1)  # (B, d)
             keep = (~in_block).to(dtype)
             prior = torch.where(in_block, MAP_POINT_PRIOR_STD * MAP_POINT_PRIOR_STD, 0.0).to(dtype)
-            P_ins = P * (keep[:, :, None] * keep[:, None, :]) + torch.diag_embed(prior)
+            if sqrt_mode:  # zeroed factor rows, the prior folded in by one QR
+                P_ins = sr_add_diag_noise(P * keep[:, :, None], prior)
+            else:
+                P_ins = P * (keep[:, :, None] * keep[:, None, :]) + torch.diag_embed(prior)
             put = torch.zeros((B, d + 1), dtype=dtype, device=m.device)
             for ci in range(MAP_POINT_DIM):
                 put = put.scatter_add(
@@ -262,7 +268,8 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
                               torch.full_like(mp_ids[:, :1], -1))
             mp_ids = torch.cat([mp_ids, torch.full_like(mp_ids[:, :1], -1)], dim=1).scatter(
                 1, torch.where(can_promote, slot_of, M), ids)[:, :M]  # column M: dropped
-        P = 0.5 * (P + P.transpose(-1, -2))
+        if not sqrt_mode:
+            P = 0.5 * (P + P.transpose(-1, -2))
 
         accepted_per_slot = _scatter_lanes(order, accepted, T)
         kf_used = trail.kf_used

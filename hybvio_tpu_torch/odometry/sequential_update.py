@@ -25,12 +25,18 @@ from .batched_update import (
 from .triangulation import TRI_OK
 
 
-def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, chi_r0):
+def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, chi_r0,
+                                  sqrt_mode: bool = False):
+    """``visual_r``, ``rmse_thr0``, ``chi_r0``: floats or 0-d tensors (a
+    per-frame lens); a gate is on or off by its parameter's sign.
+    ``sqrt_mode``: the filter carries the factor W (``ekf/sqrt.py``)."""
     L = po.cameraTrailLength
     M = po.hybridMapSize
     sampling = tr.SAMPLING[po.trackSampling]
     noise_scale = po.noiseScale**2
     growth = po.trackOutlierThresholdGrowthFactor
+    rmse_on = po.trackRmseThreshold >= 0
+    chi_on = po.trackChiTestOutlierR >= 0
 
     def need_more_of(attempts, successes):
         ok = torch.ones_like(attempts, dtype=torch.bool)
@@ -50,9 +56,10 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
         ids_o = torch.gather(track_ids, 1, c.order)
         slots = torch.arange(T, device=dev)[None, :]
 
-        # a gate is on or off for the whole frame, from its initial threshold
-        rmse_thr = torch.full((B,), rmse_thr0, dtype=dtype, device=dev) if rmse_thr0 >= 0 else -1.0
-        chi_r = torch.full((B,), chi_r0, dtype=dtype, device=dev) if chi_r0 >= 0 else -1.0
+        # a gate is on or off for the whole frame, from its parameter's sign
+        zeros = torch.zeros((B,), dtype=dtype, device=dev)
+        rmse_thr = zeros + rmse_thr0 if rmse_on else -1.0
+        chi_r = zeros + chi_r0 if chi_on else -1.0
         m, P = ekf.m, ekf.P
         kf_used, mp_ids = trail.kf_used, trail.map_point_ids
         attempts = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -71,7 +78,8 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
             tri_ok = (out.tri_status == TRI_OK) | mp
             do_update = active & need_more & tri_ok & (out.prepare_status == 0)
             res = visual_track_update(m, P, out.H, out.f, out.y, out.row_mask, visual_r,
-                                      noise_scale, chi_r, rmse_thr, apply_update=do_update)
+                                      noise_scale, chi_r, rmse_thr, apply_update=do_update,
+                                      sqrt_mode=sqrt_mode)
             inlier = res.is_inlier & do_update
             m, P = res.m, res.P
 
@@ -81,7 +89,7 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
                 can_promote = promote & (idx >= 0)
                 mp_ids = torch.where(can_promote[:, None], offered.map_point_ids, mp_ids)
                 off = d - MAP_POINT_DIM * (M - torch.clamp(idx, min=0))
-                ins = insert_map_point(ekf._replace(m=m, P=P), off, out.pf)
+                ins = insert_map_point(ekf._replace(m=m, P=P), off, out.pf, sqrt_mode)
                 m, P = lane_where(can_promote, ins.m, m), lane_where(can_promote, ins.P, P)
 
             used = tr.mark_track_used(trail._replace(kf_used=kf_used), c.order[:, j], sel,
@@ -89,9 +97,9 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
             kf_used = torch.where(inlier[:, None, None], used, kf_used)
 
             outlier = do_update & ~res.is_inlier
-            if rmse_thr0 >= 0:
+            if rmse_on:
                 rmse_thr = torch.where(outlier, rmse_thr * growth, rmse_thr)
-            if chi_r0 >= 0:
+            if chi_on:
                 chi_r = torch.where(outlier, chi_r * growth, chi_r)
             if po.blacklistTracks:
                 at = (slots == c.order[:, j:j + 1]) & (active & need_more & ~inlier)[:, None]
@@ -115,7 +123,8 @@ def make_sequential_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr
         if po.blacklistTracks:
             bl_flags = bl_flags | c.was_blacklisted
             bl_ids = torch.where(c.was_blacklisted, track_ids, bl_ids)
-        P = 0.5 * (P + P.transpose(-1, -2))
+        if not sqrt_mode:  # the factor is PSD by construction and not symmetric
+            P = 0.5 * (P + P.transpose(-1, -2))
         too_many_failures = (attempts - successes) > 5
         state = state._replace(
             ekf=ekf._replace(m=m, P=P), trail=trail._replace(kf_used=kf_used, map_point_ids=mp_ids),

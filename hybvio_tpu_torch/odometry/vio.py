@@ -20,6 +20,12 @@ track (``TrackerInput.stereo_depth``); upright-2P (``useStereoUpright2p``
 without ``useRansac3``) gets the previous and current camera-to-world
 rotations. The remap fields and Q are built once, at construction, and
 moved with the module.
+
+Per-frame intrinsics (mono): ``step(..., camera0=...)`` takes the frame's
+own first camera (``geometry.cameras.with_intrinsics``, its fields 0-d
+tensors on the device, shared by the lanes), which replaces the static one
+in the flow prediction, the tracker's normalization and RANSAC and the
+estimator's normalization, noise and gates; a new lens rebuilds nothing.
 """
 from __future__ import annotations
 
@@ -145,7 +151,7 @@ class Vio(nn.Module):
             tracker=self.tracker.init_state(first_image, t0, second_image),
             tracker_ready=torch.ones_like(t0, dtype=torch.bool))
 
-    def predict_flow(self, bstate: BackendState, tstate: TrackerState):
+    def predict_flow(self, bstate: BackendState, tstate: TrackerState, camera0=None):
         """(guess, stereo_guess, has_baseline): per-slot predicted pixels
         (B, T, 2) in the left and (stereo; else None) the right camera, and
         (B, T) whether the slot's distance came from the trail's
@@ -173,7 +179,7 @@ class Vio(nn.Module):
                            torch.full_like(pf[..., 2], -1.0))
         dist = torch.clamp(dist, min=self.pt.predictOpticalFlowMinTriangulationDistance)
 
-        c0 = self.cameras[0]
+        c0 = self.cameras[0] if camera0 is None else camera0
         prev_px = tstate.px[:, :, 0, :].to(m.dtype)
         ray0, ok0 = pixel_to_ray(c0, prev_px)
         cam_to_world = to_camera_to_world(pose_states[:, 1, :3], pose_states[:, 1, 3:], i2c)
@@ -193,14 +199,16 @@ class Vio(nn.Module):
         """IMU propagation with no frame; ``n_valid`` as ``Backend.imu_scan``."""
         return state._replace(backend=self.backend.imu_scan(state.backend, imu, n_valid))
 
-    def track_stage(self, state: VioState, t, image, second_image=None):
+    def track_stage(self, state: VioState, t, image, second_image=None, camera0=None):
+        if camera0 is not None and (self.pt.useStereo or self.dense_depth):
+            raise ValueError("varying intrinsics are supported for mono only")
         image = normalize_input(image)
         second_image = normalize_input(second_image)
         image, second_image = self.rectify_inputs(image, second_image)
         bstate = state.backend
         guess = stereo_guess = None
         if self.pt.predictOpticalFlow:
-            guess, stereo_guess, _ = self.predict_flow(bstate, state.tracker)
+            guess, stereo_guess, _ = self.predict_flow(bstate, state.tracker, camera0)
         keys = jr.split(bstate.rng)
         tkey = jr.fold_in(keys[:, 1], self.pt.ransacRngSeed)
         bstate = bstate._replace(rng=keys[:, 0])
@@ -208,7 +216,8 @@ class Vio(nn.Module):
             state.tracker, image, tkey, t, flow_guess=guess,
             blacklist_flags=bstate.blacklist_flags, blacklist_ids=bstate.blacklist_ids,
             second_image=second_image, stereo_guess=stereo_guess,
-            pose_rot=self.pose_rotations(bstate.ekf.m) if self.upright else None)
+            pose_rot=self.pose_rotations(bstate.ekf.m) if self.upright else None,
+            camera0=camera0)
         dtype = self.dtype
         if self.dense_depth:
             depth = self.track_dense_depth(image, second_image, tout.pixels[:, :, 0, :],
@@ -221,17 +230,19 @@ class Vio(nn.Module):
             track_status=tout.status, prev_pixels=tout.prev_pixels, viz_pixels=tout.viz_pixels)
         return VioState(backend=bstate, tracker=tstate, tracker_ready=state.tracker_ready), tin
 
-    def backend_stage(self, state: VioState, tin: TrackerInput):
-        bstate, out = self.backend.process_frame(state.backend, tin)
+    def backend_stage(self, state: VioState, tin: TrackerInput, camera0=None):
+        bstate, out = self.backend.process_frame(state.backend, tin, camera0)
         return state._replace(backend=bstate), out
 
     @scoped_precision
-    def step(self, state: VioState, imu: ImuBatch, image, second_image=None, n_valid=None):
+    def step(self, state: VioState, imu: ImuBatch, image, second_image=None, n_valid=None,
+             camera0=None):
         """IMU propagation first, so the flow prediction uses the pose at
         the frame time. Its products run at "highest" with TF32 off,
         whatever the caller set (restored on return). ``n_valid``: the
         count of valid IMU columns, where the caller knows it (the rest are
-        then skipped, as ``Backend.imu_scan``)."""
+        then skipped, as ``Backend.imu_scan``); ``camera0``: the frame's
+        own first camera (mono)."""
         state = self.imu_only(state, imu, n_valid)
-        state, tin = self.track_stage(state, imu.t[:, -1], image, second_image)
-        return self.backend_stage(state, tin)
+        state, tin = self.track_stage(state, imu.t[:, -1], image, second_image, camera0)
+        return self.backend_stage(state, tin, camera0)

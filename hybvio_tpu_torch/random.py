@@ -12,6 +12,7 @@ dims are the lanes (one key per sequence). Arithmetic runs in int64 with
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -90,17 +91,37 @@ def random_bits(key, bit_width: int, shape):
     raise NotImplementedError(f"random bits of width {bit_width}")
 
 
-def uniform(key, shape, dtype=torch.float32) -> torch.Tensor:
-    """``jax.random.uniform`` on [0, 1): the mantissa bits with exponent 0,
-    minus one, which is exactly ``mantissa * 2**-nmant``."""
+def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform`` on [minval, maxval): the mantissa bits with
+    exponent 0, minus one, which is exactly ``mantissa * 2**-nmant``, then
+    ``max(minval, floats * (maxval - minval) + minval)`` with the bounds and
+    their difference rounded to ``dtype`` as jax rounds them."""
     if dtype == torch.float32:
         mant = random_bits(key, 32, shape) >> 9
-        return mant.to(torch.float32) * (2.0 ** -23)
-    if dtype == torch.float64:
+        floats = mant.to(torch.float32) * (2.0 ** -23)
+        np_dtype = np.float32
+    elif dtype == torch.float64:
         hi, lo = random_bits(key, 64, shape)
         mant = (hi << 20) | (lo >> 12)
-        return mant.to(torch.float64) * (2.0 ** -52)
-    raise NotImplementedError(f"uniform of {dtype}")
+        floats = mant.to(torch.float64) * (2.0 ** -52)
+        np_dtype = np.float64
+    else:
+        raise NotImplementedError(f"uniform of {dtype}")
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    lo, hi = np_dtype(minval), np_dtype(maxval)
+    return torch.clamp(floats * float(hi - lo) + float(lo), min=float(lo))
+
+
+def normal(key, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2) erfinv(u) of u uniform on
+    (nextafter(-1, 0), 1) from the same bits. The uniform draw is bit-exact;
+    ``torch.erfinv`` and XLA's ``erf_inv`` are different approximations, so
+    the result agrees to their rounding, not bit for bit."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    lo = np.nextafter(np_dtype(-1.0), np_dtype(0.0))
+    u = uniform(key, shape, dtype, float(lo), 1.0)
+    return torch.erfinv(u) * float(np.asarray(np.sqrt(2), np_dtype))
 
 
 def randint(key, shape, minval, maxval, bits: int = 32) -> torch.Tensor:

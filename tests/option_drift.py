@@ -4,16 +4,22 @@ each running on its own (not stepped from the other's state), on the CPU.
 The world is lane ``--lane`` of ``chip_smoke.py``'s stereo_per_lane set
 (seed 1000 + lane; radius, angular speed and z-wobble drawn from
 RandomState(7000 + lane)), rendered by the reference's ``render_view`` at
-half the card's size (376x240; focal length and principal point halved,
-the rest of ``synthetic_bench_params("stereo")`` as it is). Both packages
-run ``make_batched_vio`` at B=1 with a float64 filter for ``--steps``
-steps, with no option and with ``--option``, and the script prints each
-run's ATE against the ground truth (``eval.ate.ate_rmse``, aligned). The
+``--width`` x ``--height`` (default half the card's size, 376x240; focal
+length and principal point scaled with the width, the rest of
+``synthetic_bench_params("stereo")`` as it is). Both packages run
+``make_batched_vio`` at B=1 with a ``--dtype`` filter (default float64)
+for ``--steps`` steps, with no option and with ``--option``, and the
+script prints each run's ATE against the ground truth
+(``eval.ate.ate_rmse``, aligned), the distance between the two packages'
+positions at every step, and the first step where it exceeds
+``PART_M`` (null if they never part). The
 ``rectify_distorted`` option records the frames through EuRoC cam0's
 radial lens (the port's ``build_remap`` / ``remap``, float64), as phase 9a
 does.
 
     JAX_PLATFORMS=cpu python tests/option_drift.py --lane 1 --option no_flow_prediction
+    JAX_PLATFORMS=cpu python tests/option_drift.py --lane 1 --option no_flow_prediction \
+        --width 752 --height 480 --dtype float32
 """
 import argparse
 import copy
@@ -51,6 +57,7 @@ from hybvio_tpu_torch.parallel.batched import make_batched_vio  # noqa: E402
 from test_torch_stereo_options_step import EUROC_K, OPTIONS  # noqa: E402
 
 W, H = 376, 240
+PART_M = 1e-3  # the two packages' positions "part" beyond this distance
 
 
 def world(lane, frames):
@@ -90,44 +97,56 @@ def inputs(seq, p, frames, warp):
     return images, imus, seq.pos[idx[1:]] - seq.pos[0]
 
 
-def run_both(p, warp, seq, steps):
+def run_both(p, warp, seq, steps, dtype="float64"):
+    """(reference ATE, port ATE, per-step distance between their positions)."""
     images, imus, gt = inputs(seq, p, steps, warp)
     coeffs = tuple(p.tracker.distortionCoeffs)
     rcam = r_build_pinhole(p.tracker.focalLength, p.tracker.focalLength,
                            p.tracker.principalPointX, p.tracker.principalPointY, coeffs,
                            width=W, height=H, dtype=jnp.float64)
-    t0 = np.full(1, seq.frame_times[0])
+    t0 = np.full(1, seq.frame_times[0]).astype(dtype)
     rinit, rstep = r_make_batched_vio(p, RDerived.from_parameters(p), (rcam, rcam), batch_size=1,
-                                      dtype=jnp.float64, shared_frames=False)
+                                      dtype=getattr(jnp, dtype), shared_frames=False)
     cams = (convert.camera_from_jax(rcam),) * 2
     tinit, tstep, _ = make_batched_vio(p, PortDerived.from_parameters(p), cams, batch_size=1,
-                                       dtype=torch.float64, shared_frames=False, device="cpu")
+                                       dtype=getattr(torch, dtype), shared_frames=False,
+                                       device="cpu")
     rstate = rinit(tuple(map(jnp.asarray, images[0])), t0, np.arange(1))
     tstate = tinit(tuple(map(torch.as_tensor, images[0])), t0, np.arange(1))
     rpos, tpos = [], []
     for fi in range(1, steps + 1):
-        rstate, rout = rstep(rstate, RImuBatch(*map(jnp.asarray, imus[fi - 1])),
+        t, g, a, valid = imus[fi - 1]
+        imu = (t.astype(dtype), g.astype(dtype), a.astype(dtype), valid)
+        rstate, rout = rstep(rstate, RImuBatch(*map(jnp.asarray, imu)),
                              tuple(map(jnp.asarray, images[fi])))
-        tstate, tout = tstep(tstate, ImuBatch(*map(torch.as_tensor, imus[fi - 1])),
+        tstate, tout = tstep(tstate, ImuBatch(*map(torch.as_tensor, imu)),
                              tuple(map(torch.as_tensor, images[fi])))
-        rpos.append(np.asarray(rout.position)[0])
-        tpos.append(tout.position[0].numpy())
-    return (float(ate_rmse(np.array(rpos), gt[:steps])),
-            float(ate_rmse(np.array(tpos), gt[:steps])))
+        rpos.append(np.asarray(rout.position, np.float64)[0])
+        tpos.append(tout.position[0].numpy().astype(np.float64))
+    rpos, tpos = np.array(rpos), np.array(tpos)
+    return (float(ate_rmse(rpos, gt[:steps])), float(ate_rmse(tpos, gt[:steps])),
+            np.linalg.norm(rpos - tpos, axis=1).tolist())
 
 
 def main():
+    global W, H
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lane", type=int, default=1)
     ap.add_argument("--option", choices=sorted(OPTIONS), default="no_flow_prediction")
     ap.add_argument("--steps", type=int, default=7)
+    ap.add_argument("--width", type=int, default=W)
+    ap.add_argument("--height", type=int, default=H)
+    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64",
+                    help="the filter's dtype in both packages")
     args = ap.parse_args()
+    W, H = args.width, args.height
     torch.set_num_threads(1)
     base = synthetic_bench_params("stereo")
-    base.tracker.focalLength /= 2
+    base.tracker.focalLength *= W / 752
     base.tracker.principalPointX, base.tracker.principalPointY = W / 2, H / 2
     seq = world(args.lane, args.steps + 1)
-    out = {"lane": args.lane, "option": args.option, "steps": args.steps, "size": f"{W}x{H}"}
+    out = {"lane": args.lane, "option": args.option, "steps": args.steps, "size": f"{W}x{H}",
+           "dtype": args.dtype}
     for name, settings in (("no option", {}), (args.option, OPTIONS[args.option])):
         p = copy.deepcopy(base)
         for key, value in settings.items():
@@ -140,8 +159,10 @@ def main():
             pin = build_pinhole(f, f, W / 2, H / 2, width=W, height=H)
             lens = build_pinhole(f, f, W / 2, H / 2, coeffs=EUROC_K + (0.0,), width=W, height=H)
             warp = build_remap(pin, lens, W, H, torch.float64, device="cpu")
-        ref, port = run_both(p, warp, seq, args.steps)
-        out[name] = {"reference_ate_m": ref, "port_ate_m": port}
+        ref, port, apart = run_both(p, warp, seq, args.steps, args.dtype)
+        first = next((i + 1 for i, d in enumerate(apart) if d > PART_M), None)
+        out[name] = {"reference_ate_m": ref, "port_ate_m": port, "apart_m": apart,
+                     "first_step_apart": first}
     print(json.dumps(out))
 
 

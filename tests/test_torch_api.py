@@ -375,7 +375,7 @@ def test_recording_only_records_without_running(tmp_path):
     assert np.allclose(gps[0, 1:], 0.0) and 100.0 < gps[1, 1] < 120.0 and gps[1, 3] == 2.5
     with pytest.raises(NotImplementedError, match="odometry/debug.py"):
         api.debug_api = object()
-    with pytest.raises(NotImplementedError, match="add_frame_mono_varying"):
-        api.add_frame_mono_varying(0.0, img, (100.0, 100.0))
+    with pytest.raises(NotImplementedError, match="visualizations"):
+        api.set_visualization("TRACKS")
     with pytest.raises(NotImplementedError, match="native_sync"):
         VioApi(Parameters(), 64, 48, recording_only=True, native_sync=True, device="cpu")

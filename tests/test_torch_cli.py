@@ -127,7 +127,7 @@ def test_cli_honours_hybvio_platform(runs, tmp_path, monkeypatch):
     (["-p"], "visualizations"),
     (["-visualizationPath=/nonexistent"], "visualizations"),
     (["-useSlam", "-visualizeOrbMatching"], "visualizations"),
-    (["-useSquareRootEkf"], "useSquareRootEkf"),
+    (["-displayCovarianceMagnitude"], "visualizations"),
 ])
 def test_cli_unported_flags_raise(runs, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -137,7 +137,7 @@ def test_cli_unported_flags_raise(runs, tmp_path, flags, match):
 
 @pytest.mark.parametrize("layout, match", [
     ("mp4_csv", "VideoFileSource"), ("mov_csv", "VideoFileSource"), ("video", "io/video.py"),
-    ("varying", "add_frame_mono_varying")])
+    ("video_mov", "io/video.py")])
 def test_cli_unported_inputs_raise(runs, tmp_path, layout, match):
     ds = tmp_path / layout
     if layout.endswith("_csv"):  # a video with the legacy CSV beside it
@@ -151,22 +151,7 @@ def test_cli_unported_inputs_raise(runs, tmp_path, layout, match):
     else:
         ds.mkdir()
         lines = open(os.path.join(runs["dataset"], "data.jsonl")).read().splitlines()
-        if layout == "video":
-            (ds / "data.mp4").write_bytes(b"")
-        else:  # the focal length changes from the second frame on
-            for name in os.listdir(runs["dataset"]):
-                if name.endswith(".npy"):
-                    os.symlink(os.path.join(runs["dataset"], name), ds / name)
-            n = 0
-            for i, line in enumerate(lines):
-                j = json.loads(line)
-                if "frames" in j:
-                    n += 1
-                    if n > 1:
-                        j["frames"][0]["cameraParameters"]["focalLengthX"] = 270.0
-                        lines[i] = json.dumps(j)
-            (ds / "parameters.txt").write_text(
-                open(os.path.join(runs["dataset"], "parameters.txt")).read())
+        (ds / ("data.mov" if layout == "video_mov" else "data.mp4")).write_bytes(b"")
         (ds / "data.jsonl").write_text("\n".join(lines) + "\n")
     with pytest.raises(NotImplementedError, match=match):
         run([f"-i={ds}", f"-o={tmp_path / 'x.jsonl'}", "-maxTracks=32", "-pyrLKMaxLevel=2",

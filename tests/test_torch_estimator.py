@@ -12,7 +12,9 @@ covariances are held to MAP_COV_TOL (1e-5) and its means to MAP_TOL (1e-8)
 instead: a map point's variance falls from 1e6 to a few hundred in its
 first update, and that cancellation leaves the float64 rounding of
 1e6-sized terms (up to 5.9e-7 in P and 4.4e-9 in m over these 8 frames,
-where the cases without a map agree to 6e-11 and 3e-13)."""
+where the cases without a map agree to 6e-11 and 3e-13). The
+square-root filter's map cases compare its factor as W W^T and the mean
+over the trail's used slots."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from hybvio_tpu.odometry.triangulation import (
 )
 from hybvio_tpu.odometry.visual_update import make_prepare_track_update as r_make_prepare
 from hybvio_tpu_torch import convert, ekf
+from hybvio_tpu_torch.ekf import CAM, POSE_DIM
 from hybvio_tpu_torch import random as jr
 from hybvio_tpu_torch.config import DerivedParameters as PortDerived
 from hybvio_tpu_torch.odometry import trail as tr
@@ -271,6 +274,11 @@ BACKEND_CASES = {  # name -> the odometry parameters it sets on the stereo set-u
     "linear": {"useLinearTriangulation": True},
     "every_2nd_frame": {"visualUpdateForEveryNFrame": 2},
     "update_disabled": {"visualUpdateEnabled": False},
+    # the square-root filter's map inserts (insert_map_point, and the
+    # batched update's one QR for every promoted slot)
+    "sqrt_sequential_map": {"hybridMapSize": 8, "useSquareRootEkf": True},
+    "sqrt_batched_map": {"hybridMapSize": 8, "batchVisualUpdate": True,
+                         "useSquareRootEkf": True},
 }
 
 
@@ -312,6 +320,24 @@ def test_backend_matches_reference(case):
     assert not mismatches(convert.to_numpy(backend.init_state(state.rng)),
                           jax.tree.map(np.asarray, rstate), 0.0)
     M = p.odometry.hybridMapSize
+    sq = p.odometry.useSquareRootEkf
+
+    def gram(st, out=None):
+        """With the square-root filter: the factor as W W^T (its column
+        signs are free) and the trail slots past augment_count zeroed in
+        the mean and the output's pose trail (QR rounding noise of ~1e-80
+        there, which the quaternion normalization makes an arbitrary unit
+        vector in either package; nothing reads it)."""
+        if not sq:
+            return st if out is None else out
+        L = p.odometry.cameraTrailLength
+        unused = np.arange(L)[None, :] >= np.asarray(st.ekf.augment_count)[:, None]  # (B, L)
+        if out is not None:
+            return out._replace(pose_trail=np.where(unused[..., None], 0.0, out.pose_trail))
+        m = st.ekf.m.copy()
+        trail = m[:, CAM:CAM + POSE_DIM * L].reshape(-1, L, POSE_DIM)
+        m[:, CAM:CAM + POSE_DIM * L] = np.where(unused[..., None], 0.0, trail).reshape(len(m), -1)
+        return st._replace(ekf=st.ekf._replace(m=m, P=st.ekf.P @ np.swapaxes(st.ekf.P, 1, 2)))
     tol = lambda path: (MAP_COV_TOL if path.rsplit(".", 1)[-1] in COV_FIELDS else MAP_TOL) if M else TOL
     S = int(np.max(np.diff(np.concatenate([[0], seq.frame_sample_idx + 1]))))
     prev, statuses = 0, []
@@ -332,10 +358,11 @@ def test_backend_matches_reference(case):
         state = backend.imu_scan(state, ImuBatch(*map(torch.as_tensor, imu)))
         rstate, rout = r_frame(rstate, rb.TrackerInput(*map(jnp.asarray, tin)))
         state, out = backend.process_frame(state, TrackerInput(*map(torch.as_tensor, tin)))
-        diff = (mismatches(convert.to_numpy(state), jax.tree.map(np.asarray, rstate), tol,
-                           f"frame {fi} state")
-                + mismatches(convert.to_numpy(out), jax.tree.map(np.asarray, rout), tol,
-                             f"frame {fi} FrameOutput"))
+        diff = (mismatches(gram(convert.to_numpy(state)), gram(jax.tree.map(np.asarray, rstate)),
+                           tol, f"frame {fi} state")
+                + mismatches(gram(convert.to_numpy(state), convert.to_numpy(out)),
+                             gram(jax.tree.map(np.asarray, rstate), jax.tree.map(np.asarray, rout)),
+                             tol, f"frame {fi} FrameOutput"))
         assert not diff, diff
         statuses.append(np.asarray(rout.point_cloud_status))
         tracker.delete_tracks(np.asarray(rstate.blacklist_flags)[0],
@@ -351,9 +378,13 @@ def test_backend_matches_reference(case):
 
 
 def test_unported_options_still_raise():
-    """The square-root filter is the estimator option the port still lacks:
-    building the estimator raises. Independent stereo triangulation builds,
-    with the second-to-first camera transform its pre-triangulation uses."""
+    """Every estimator option builds now: the square-root filter with its
+    factor (the initial diagonal's square root; tests/test_torch_sqrt_ekf.py
+    holds it to the reference) and independent stereo triangulation with the
+    second-to-first camera transform its pre-triangulation uses. What the
+    port still lacks around the estimator raises: the native sample
+    synchronizer (io/native_sync.py)."""
+    from hybvio_tpu_torch.api.vio import VioApi
     from hybvio_tpu_torch.geometry.cameras import build_pinhole as port_pinhole
 
     cam = port_pinhole(FX, FX, W / 2, H / 2, width=W, height=H)
@@ -366,8 +397,13 @@ def test_unported_options_still_raise():
         return p
 
     p = stereo_params("useSquareRootEkf")
-    with pytest.raises(NotImplementedError, match="useSquareRootEkf"):
-        Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
+    sq = Backend(p, PortDerived.from_parameters(p), (cam, cam), max_tracks=T)
+    P = sq.init_state(jr.prng_key(torch.arange(1))).ekf.P[0]
+    dense = Backend(Parameters(), PortDerived.from_parameters(Parameters()), (cam,),
+                    max_tracks=T).init_state(jr.prng_key(torch.arange(1))).ekf.P[0]
+    assert sq.sqrt_mode and torch.equal(P, torch.sqrt(dense[:P.shape[0], :P.shape[0]]))
+    with pytest.raises(NotImplementedError, match="native_sync"):
+        VioApi(p, W, H, recording_only=True, native_sync=True, device="cpu")
     p = stereo_params("useIndependentStereoTriangulation")
     derived = PortDerived.from_parameters(p)
     backend = Backend(p, derived, (cam, cam), max_tracks=T)

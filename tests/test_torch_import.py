@@ -100,10 +100,23 @@ def test_derived_and_cameras_match_reference():
 
 
 def test_convert_round_trips_vio_state():
+    _round_trip_vio_state("dense")
+
+
+def test_convert_round_trips_sqrt_vio_state():
+    """In sqrt mode (useSquareRootEkf) the P field holds the factor W in
+    both packages; it converts as any field."""
+    _round_trip_vio_state("sqrt")
+
+
+def _round_trip_vio_state(form):
+    """The reference's batched state through from_jax and to_numpy: every
+    leaf back as it was."""
     from hybvio_tpu.parallel.batched import make_batched_vio
     from torch_parity import tiny_stereo_setup
 
     p, derived, cam = tiny_stereo_setup()
+    p.odometry.useSquareRootEkf = form == "sqrt"
     binit, _ = make_batched_vio(p, derived, (cam, cam), batch_size=2, max_tracks=12,
                                 dtype=jnp.float64, shared_frames=True)
     rng = np.random.RandomState(0)
@@ -114,6 +127,32 @@ def test_convert_round_trips_vio_state():
     assert len(flat_a) == len(flat_b)
     for a, b in zip(flat_a, flat_b):
         np.testing.assert_array_equal(np.asarray(a).astype(b.dtype), b)
+    W = st.backend.ekf.P[0]
+    diag = np.sqrt(np.diag(W @ W.T)) if form == "sqrt" else np.sqrt(np.diag(W))
+    assert np.array_equal(np.asarray(back.backend.ekf.P[0]), W) and diag[0] > 0
+    if form == "sqrt":  # the initial factor is the diagonal covariance's square root
+        assert np.array_equal(W, np.diag(np.diag(W)))
+
+
+def test_convert_round_trips_dynamic_camera():
+    """A per-frame camera (the reference's with_intrinsics: fx, fy, cx, cy
+    and the coefficients as arrays) -> the port's (0-d tensors) -> numpy:
+    the values as they were, the static fields kept; a static conversion
+    keeps floats."""
+    from hybvio_tpu.geometry.cameras import build_pinhole, with_intrinsics
+
+    base = build_pinhole(300.0, 300.0, 160.0, 120.0, coeffs=(0.01, -0.002), width=320,
+                         height=240, dtype=jnp.float32)
+    dyn = jax.tree.map(np.asarray, with_intrinsics(base, 330.0, 331.0, 161.0, 119.0,
+                                                   coeffs=(0.02, -0.001)))
+    cam = convert.from_jax(dyn, device="cpu", dynamic_camera=True)
+    assert isinstance(cam.fx, torch.Tensor) and cam.fx.dtype == torch.float32
+    back = convert.to_numpy(cam)
+    for name in ("fx", "fy", "cx", "cy", "coeffs"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)), getattr(dyn, name))
+    for name in ("kind", "has_distortion", "has_rotation", "width", "height"):
+        assert getattr(back, name) == getattr(dyn, name)
+    assert isinstance(convert.from_jax(dyn, device="cpu").fx, float)
 
 
 def test_host_entry_points_take_the_card(tmp_path, monkeypatch):
@@ -224,6 +263,43 @@ def test_scan_covers_the_recorded_input_and_stereo_option_modules():
         assert f"hybvio_tpu_torch.{name}" in PORT_MODULES, name
     source = (REPO / "hybvio_tpu_torch" / "native" / "image_decode.cpp").read_text()
     assert "jax" not in source and "hybvio_tpu/" not in source
+
+
+def test_scan_covers_the_sqrt_filter_and_textured_modules():
+    """The AST scan and the import check above include the square-root
+    filter, the textured world and its accuracy probes."""
+    for name in ("ekf.sqrt", "io.textured", "io.textured_device", "eval.textured_probe",
+                 "eval.long_probe"):
+        assert f"hybvio_tpu_torch.{name}" in PORT_MODULES, name
+
+
+@pytest.mark.parametrize("entry", ["renderer", "textured_probe", "long_probe", "with_intrinsics"])
+def test_textured_entry_points_take_the_card(entry, monkeypatch):
+    """The device renderer, the probes and a per-frame lens built from
+    numbers run on the card unless given device="cpu": without one they
+    raise."""
+    from hybvio_tpu_torch.eval.long_probe import run_long_probe
+    from hybvio_tpu_torch.eval.textured_probe import run_textured_probe
+    from hybvio_tpu_torch.geometry.cameras import build_pinhole, with_intrinsics
+    from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA
+    from hybvio_tpu_torch.io.textured import TexturedScene
+    from hybvio_tpu_torch.io.textured_device import make_textured_renderer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"renderer": lambda **k: make_textured_renderer(
+                TexturedScene(), SYNTH_IMU_TO_CAMERA, 20.0, 20.0, 8.0, 6.0, 16, 12, **k),
+            "textured_probe": lambda **k: run_textured_probe(duration=0.3, width=32,
+                                                             height=24, fx=26.0, **k),
+            "long_probe": lambda **k: run_long_probe("mono", duration=0.3, width=48, **k),
+            "with_intrinsics": lambda **k: with_intrinsics(
+                build_pinhole(50.0, 50.0, 20.0, 15.0, width=40, height=30), 55.0, **k)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    if entry == "with_intrinsics":
+        assert call(device="cpu").fx.device.type == "cpu"
+        return
+    if entry == "renderer":
+        assert callable(call(device="cpu"))
 
 
 @pytest.mark.parametrize("fn", ["ransac_pnp_np", "ransac_similarity_np"])

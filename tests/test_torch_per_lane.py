@@ -27,9 +27,11 @@ from hybvio_tpu_torch.ops import gftt as ops_gftt
 from hybvio_tpu_torch.ops import pyramid as ops_pyramid
 from hybvio_tpu_torch.parallel.batched import make_batched_vio
 
+from hybvio_tpu.io.synthetic import render_view_fisheye
 from torch_parity import (
-    FX, H, SECOND_IMU_TO_CAMERA, W, batched_step_parity, imu_batches, mismatches, mono_frame,
-    stereo_frame, tiny_mono_setup, tiny_sequence, tiny_stereo_setup,
+    FISHEYE_FOV, FISHEYE_FX, FISHEYE_WH, FX, H, KB4, SECOND_IMU_TO_CAMERA, W, batched_step_parity,
+    imu_batches, mismatches, mono_frame, mono_step_tol, stereo_frame, tiny_fisheye_setup,
+    tiny_mono_setup, tiny_sequence, tiny_stereo_setup,
 )
 
 torch.set_num_threads(1)
@@ -37,7 +39,7 @@ torch.set_num_threads(1)
 B, FRAMES = 2, 5
 
 
-def _worlds(n_frames):
+def _worlds(n_frames, landmark_radius=6.0):
     """Two distinct tiny worlds on one time grid, as bench.py's seed-diverse
     leg draws them (seed 1000 + b, radius / angular speed / z-wobble from
     RandomState(7000 + b))."""
@@ -47,7 +49,8 @@ def _worlds(n_frames):
         seqs.append(generate_sequence(
             duration=(n_frames + 2) / 20.0, imu_rate=200.0, frame_rate=20.0,
             radius=float(rng.uniform(1.7, 2.3)), angular_speed=float(rng.uniform(0.34, 0.46)),
-            z_wobble=float(rng.uniform(0.10, 0.20)), n_landmarks=300, landmark_radius=6.0,
+            z_wobble=float(rng.uniform(0.10, 0.20)), n_landmarks=300,
+            landmark_radius=landmark_radius,
             gyro_noise=5e-4, acc_noise=5e-3, seed=1000 + b))
     return seqs
 
@@ -83,6 +86,29 @@ def test_per_lane_stereo_step_matches_reference():
     assert np.abs(frames[1][0][0] - frames[1][0][1]).max() > 0.1  # the lanes see different worlds
     tracked = batched_step_parity(p, (rcam, rcam), frames, seqs[0], B, shared_frames=False,
                                   imus=_per_lane_imu(seqs, FRAMES))
+    assert tracked > 0
+
+
+def test_per_lane_fisheye_step_matches_reference():
+    """Two lanes with different KB4 frames (two worlds) through the port
+    and the reference's make_batched_vio(shared_frames=False): the fisheye
+    preset's one-camera path per lane (floats to mono_step_tol)."""
+    p, _, rcam = tiny_fisheye_setup()
+    seqs = _worlds(FRAMES, landmark_radius=5.0)
+    c = FISHEYE_WH / 2
+
+    def frame(fi):
+        k = seqs[0].frame_sample_idx[fi]
+        return np.stack([render_view_fisheye(s.landmarks, s.pos[k], s.quat[k],
+                                             SYNTH_IMU_TO_CAMERA, FISHEYE_FX, FISHEYE_FX, c, c,
+                                             FISHEYE_WH, FISHEYE_WH, KB4,
+                                             max_fov_deg=FISHEYE_FOV, blob_sigma=1.4)
+                         for s in seqs])
+
+    frames = [frame(fi) for fi in range(FRAMES + 1)]
+    assert np.abs(frames[1][0] - frames[1][1]).max() > 0.1  # the lanes see different worlds
+    tracked = batched_step_parity(p, (rcam,), frames, seqs[0], B, shared_frames=False,
+                                  imus=_per_lane_imu(seqs, FRAMES), tol=mono_step_tol)
     assert tracked > 0
 
 

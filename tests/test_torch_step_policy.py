@@ -25,16 +25,17 @@ from hybvio_tpu_torch.parallel.batched import make_batched_vio
 torch.set_num_threads(1)
 
 B = 2
-PATHS = ["stereo", "mono", "fisheye", "stereo_per_lane", "stereo_sequential_hybrid"]
+PATHS = ["stereo", "mono", "fisheye", "stereo_per_lane", "stereo_sequential_hybrid",
+         "stereo_sqrt"]
 KB4 = (0.0035, 0.0007, -0.002, 0.0002)
 
 
-def _tiny(config, sequential_hybrid=False):
+def _tiny(config, sequential_hybrid=False, sqrt=False):
     """(params, derived, cameras, W, H) of torch_parity's tiny set-ups,
     built from the port alone (this file also runs on a card, where the
     reference package is not installed: pytest --noconftest); with
     ``sequential_hybrid`` the reference's default sequential visual update
-    and a hybrid map of 4 points."""
+    and a hybrid map of 4 points; with ``sqrt`` the square-root filter."""
     p = Parameters()
     p.odometry.cameraTrailLength = 4
     p.tracker.maxTracks = 12
@@ -45,6 +46,7 @@ def _tiny(config, sequential_hybrid=False):
     p.odometry.imuToCameraMatrix = tuple(SYNTH_IMU_TO_CAMERA.T.flatten())
     p.odometry.batchVisualUpdate = not sequential_hybrid
     p.odometry.hybridMapSize = 4 if sequential_hybrid else 0
+    p.odometry.useSquareRootEkf = sqrt
     if config == "fisheye":
         W = H = 96
         p.tracker.fisheyeCamera = True
@@ -69,9 +71,11 @@ def _path(kind, device):
     """(state, step, frames (4), IMU batches (3)) of a tiny path on
     ``device``: B lanes sharing each frame, or with ``_per_lane`` (and in
     ``stereo_sequential_hybrid``, the sequential update with the hybrid
-    map) B copies of it, one per lane."""
+    map; in ``stereo_sqrt``, the square-root filter) B copies of it, one per
+    lane."""
     config = kind.split("_")[0]
-    params, derived, cams, W, H = _tiny(config, kind == "stereo_sequential_hybrid")
+    params, derived, cams, W, H = _tiny(config, kind == "stereo_sequential_hybrid",
+                                        kind == "stereo_sqrt")
     pt = params.tracker
     seq = generate_sequence(duration=5 / 20.0, imu_rate=200.0, frame_rate=20.0, n_landmarks=300,
                             landmark_radius=5.0 if config == "fisheye" else 6.0,

@@ -249,7 +249,8 @@ def _comparable(state):
 
 
 def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
-                        shared_frames=True, on_step=None, imus=None, after_step=None):
+                        shared_frames=True, on_step=None, imus=None, after_step=None,
+                        compare=None):
     """Run the reference's make_batched_vio and the port's (CPU, float64
     filter) over ``frames`` (each an (H, W) array or a stereo pair of them,
     or with ``shared_frames=False`` (B, H, W) arrays, one image per lane):
@@ -260,8 +261,11 @@ def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
     ``on_step(vio, state, imu)``, when given, sees the port's state and IMU
     batch before each step, ``after_step(state, out)`` the port's state and
     output after it. Stereo covariances are compared where the trail's
-    stereo row is valid (``_mask_stereo_rows``). Returns the number of tracked slots over all frames;
-    raises on the first field that parts."""
+    stereo row is valid (``_mask_stereo_rows``); ``compare``, when given,
+    maps both (numpy) states to what is compared instead. Returns the
+    number of tracked slots over all frames; raises on the first field that
+    parts."""
+    compare = _comparable if compare is None else compare
     derived = DerivedParameters.from_parameters(p)
     n = len(frames) - 1
     rinit, rstep = r_make_batched_vio(p, derived, rcams, batch_size=B, max_tracks=max_tracks,
@@ -285,8 +289,8 @@ def batched_step_parity(p, rcams, frames, seq, B, max_tracks=12, tol=step_tol,
                              _tensors(frames[fi], jnp.asarray))
         state, out = tstep(state, ImuBatch(*map(torch.as_tensor, imu)),
                            _tensors(frames[fi], torch.as_tensor))
-        diff = (mismatches(_comparable(convert.to_numpy(state)),
-                           _comparable(jax.tree.map(np.asarray, rstate)), tol, f"frame {fi} state")
+        diff = (mismatches(compare(convert.to_numpy(state)),
+                           compare(jax.tree.map(np.asarray, rstate)), tol, f"frame {fi} state")
                 + mismatches(convert.to_numpy(out), jax.tree.map(np.asarray, rout), tol,
                              f"frame {fi} output"))
         assert not diff, f"first parting: {diff[0]} (all: {diff})"
