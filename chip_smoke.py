@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
      later line starts with the card's name and power limit;
   2. build every CUDA kernel from csrc/ with nvcc (sm_90a), and beside it
      the native image decoder (native/image_decode.cpp, g++; PNG where the
-     host has zlib, else PGM only);
+     host has zlib, else PGM only) and the native host library
+     (native/sample_sync.cpp, jsonl_reader.cpp, orb_detect.cpp, g++;
+     utils/native.py); fails if either does not build;
   3. the card's launch floor (an empty kernel, timed like the rows below);
      each kernel against its plain PyTorch version on the card at every
      input shape the five paths of phase 4 give it (exact for gather /
@@ -79,10 +81,14 @@ Phases (any failure exits non-zero and prints no result line):
      -outputJsonExtras, then a -timer run over API_TIMER_FRAMES frames: frames
      in, outputs out, per-frame wall time at B=1, frames/s, ATE against the
      dataset's ground truth, launches, the host syncs of one step and the
-     -timer stage table. Fails on a non-finite output, fewer outputs than
-     frames - 3, an ATE over 0.05 m, a path kernel not launched or a host
-     sync in a step;
-  8. VISLAM on the card (BASELINE config 3): (a) the SLAM session alone,
+     -timer stage table, and which JSONL reader and synchronizer ran. Fails
+     on a non-finite output, fewer outputs than frames - 3, an ATE over
+     0.05 m, a path kernel not launched, a host sync in a step, or the
+     Python reader or synchronizer in place of the native ones (the
+     reference's defaults);
+  8. VISLAM on the card (BASELINE config 3), (a) and (b) on the torch
+     keypoint detector (HYBVIO_NATIVE_ORB=0; phase 11d runs the native
+     one): (a) the SLAM session alone,
      on the card and on the CPU in this process, over tests/test_slam.py's
      keyframe/BA scenarios and its revisit (240x320 frames, the multi-scale
      keypoints on) and tests/test_slam_global.py's revisit with applied loop
@@ -136,12 +142,30 @@ Phases (any failure exits non-zero and prints no result line):
      add_frame_mono: finite, the varying run's ATE under 0.7 x the fixed
      lens's. Each prints per-frame median and p90 ms, ATE, the host syncs
      of one step and its launches; any host sync in a step fails.
+ 11. the host layers at 752x480, B=1 (run_host_layers): (a) the CLI at the
+     reference's defaults, mono and -useStereo, HOST_FRAMES frames each of
+     phase 7's worlds, through the native JSONL reader and synchronizer,
+     per-frame median and p90 beside phase 7's, and each synchronizer alone
+     on the host (us a sample); (b) the stereo CLI with every -display*
+     flag and -visualizationPath over DISPLAY_FRAMES frames: every view's
+     file for every retired output, each view's render ms, and the
+     corner-response kernel's launches from the CORNER_MEASURE view (at
+     phase 3's 480x752 block-3 row); (c) vislam (8b) over PUBLISHER_FRAMES
+     frames with a RecordingPublisher: its frames, visual updates,
+     triangulations and clouds against the outputs; (d) vislam on the
+     native ORB detector with the SLAM viewers on: keyframes, keypoint ms a
+     keyframe, median, p90, finish() and ATE beside 8b's torch detector.
+     Fails on a native module that fell back, a non-finite output or view,
+     a view file missing, a host sync in a step, an ATE over 0.05 m or a
+     CORNER_MEASURE view that launched no corner-response kernel.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -268,6 +292,24 @@ ZOOM = 0.30
 ZOOM_ATE_RATIO = 0.7  # the reference's criterion (tests/test_varying_intrinsics.py)
 SQRT_EIG_TOL = 1e-9
 TEXTURED_SHAPES = {(240, 320): (64, (1, 2)), (512, 512): (96, (1,))}
+# phase 11: the host layers (the native synchronizer, JSONL reader and ORB
+# detector, the display flags, the debug publisher, the SLAM viewers). The
+# frames of each CLI run at the defaults (11a) and of the display run
+# (11b), the every -display* flag of the CLI and the views they write, the
+# publisher run's frames (11c; 11d runs VISLAM_FRAMES) and the SLAM viewers
+HOST_FRAMES = 10
+DISPLAY_FRAMES = 7
+DISPLAY_FLAGS = ("-displayVideo", "-displayPlainVideo", "-displayTracks", "-displayTracksAll",
+                 "-displayOpticalFlow", "-displayCornerMeasure", "-displayStereoMatching",
+                 "-displayStereoEpipolarCurves", "-displayStereoDisparity", "-displayStereoDepth",
+                 "-displayPose", "-displayPointCloud", "-displayCovarianceMagnitude",
+                 "-displayCorrelation", "-displayImuSamples")
+DISPLAY_VIEWS = ("video", "plain", "tracks", "tracks_all", "flow", "corner", "stereo_match",
+                 "epipolar", "disparity", "depth", "pose", "cov", "corr")
+PUBLISHER_FRAMES = 30
+SLAM_VIEWERS = {"displayKeyframe", "visualizeOrbs", "visualizeOrbPyramid", "visualizeOrbMatching",
+                "visualizeLoopOrbMatching", "visualizeMapPointSearch"}
+SLAM_VIEWS = ("keyframe", "orb_pyramid", "map_search", "orb_match")  # loop_match needs a loop
 STENCIL_TOL = 1e-6
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
@@ -294,6 +336,8 @@ KERNELS = {  # name -> (source, Pallas kernels it replaces, ", "-separated)
 
 CARD = ""  # nvidia-smi's "name, power limit", set in main
 PATH_MEDIAN_MS = {}  # phase 4's median step of each path
+PHASE7_WALL = {}  # phase 7's per-frame wall time at B=1 (median, p90 ms) of mono and stereo
+VISLAM_STATS = {}  # phase 8b's and 11's vislam runs: name -> their numbers
 
 
 def say(msg: str) -> None:
@@ -1447,7 +1491,9 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
     at the reference's defaults (stereo with -useStereo), with -maxFrames
     and -outputJsonExtras (and -timer): (launches, launches by input shape,
     host syncs of step API_SYNC_STEP by line (None with -timer), wall
-    seconds of each frame step, its standard error). A frame's wall time is that of the API's
+    seconds of each frame step, its standard error, the host modules that
+    ran: {"sync": the API's synchronizer class, "reader": the JSONL
+    reader}). A frame's wall time is that of the API's
     ``_process_frame``: queueing its step and retiring the frame before it
     (which waits for that frame's work on the card); the host syncs are
     those of ``_step_frame`` (the step without the retirement), with the
@@ -1461,14 +1507,21 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
     from hybvio_tpu_torch import ops
     from hybvio_tpu_torch.api.vio import VioApi
     from hybvio_tpu_torch.cli.main import run
+    from hybvio_tpu_torch.io import jsonl
 
     argv = [f"-i={dataset}", f"-o={out_path}", f"-maxFrames={frames}", "-outputJsonExtras"]
     argv += (["-useStereo"] if config == "stereo" else []) + (["-timer"] if timer else [])
     argv += list(extra)
-    process, step = VioApi._process_frame, VioApi._step_frame
-    wall, counted = [], {}
+    process, step, read = VioApi._process_frame, VioApi._step_frame, jsonl.read_jsonl_events
+    wall, counted, impl = [], {}, {}
+
+    def reader(path):
+        events = read(path)
+        impl["reader"] = events.reader
+        return events
 
     def timed_process(self, synced):
+        impl["sync"] = type(self.sample_sync).__name__
         stepped = self._state is not None
         t0 = time.perf_counter()
         process(self, synced)
@@ -1485,6 +1538,7 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
 
     err = io.StringIO()
     VioApi._process_frame, VioApi._step_frame = timed_process, counted_step
+    jsonl.read_jsonl_events = reader
     try:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1494,11 +1548,12 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
         launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
     finally:
         VioApi._process_frame, VioApi._step_frame = process, step
+        jsonl.read_jsonl_events = read
     if rc != 0:
         raise RuntimeError(f"the CLI exited with {rc}: {err.getvalue()[-2000:]}")
     if not timer and "syncs" not in counted:
         raise AssertionError(f"cli {config}: step {API_SYNC_STEP} was never run")
-    return launches, by_shape, counted.get("syncs"), wall, err.getvalue()
+    return launches, by_shape, counted.get("syncs"), wall, err.getvalue(), impl
 
 
 def run_api_paths(dev):
@@ -1540,8 +1595,8 @@ def run_api_paths(dev):
                 name = f"api_{config}{'_timer' if timer else ''}"
                 out_path = f"{tmp}/{name}.jsonl"
                 t0 = time.perf_counter()
-                launches, by_shape, syncs, wall, err = run_cli(dev, config, ds, out_path, frames,
-                                                               timer)
+                launches, by_shape, syncs, wall, err, impl = run_cli(dev, config, ds, out_path,
+                                                                     frames, timer)
                 secs = time.perf_counter() - t0
                 lines = [json.loads(l) for l in open(out_path)]
                 est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
@@ -1561,7 +1616,11 @@ def run_api_paths(dev):
                     f"per-frame wall time at B=1: median {med:.2f} ms, p90 {p90:.2f} ms, first "
                     f"step {1e3 * wall[0]:.1f} ms, {len(steady) / sum(steady):.2f} frames/s over "
                     f"{len(steady)} steps; ATE {ate:.4f} m over {len(lines)} outputs; statuses "
-                    f"{dict(sorted(collections.Counter(statuses).items()))}")
+                    f"{dict(sorted(collections.Counter(statuses).items()))}; the {impl.get('reader')} "
+                    f"JSONL reader, the synchronizer {impl.get('sync')}")
+                if not timer:
+                    PHASE7_WALL[config] = (med, p90)
+                check_native_host(f"cli {name}", impl)
                 say(f"cli {name}: host syncs in step {API_SYNC_STEP} (the retirement excluded): "
                     + ("not counted: the -timer stages wait on the card by design" if timer else
                        f"{sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
@@ -1732,6 +1791,34 @@ def run_slam_sessions(dev):
             raise AssertionError(f"slam session {name}: no loop event on the card")
 
 
+def check_native_host(where, impl):
+    """Fail unless the native synchronizer and the native JSONL reader ran
+    (``impl`` as run_cli returns it): the host's g++ builds them, and a
+    run that fell back to the Python modules is not the reference's
+    default path."""
+    if impl.get("sync") != "NativeSampleSync" or impl.get("reader") != "native":
+        from hybvio_tpu_torch.utils import native
+
+        raise AssertionError(f"{where}: the host modules fell back ({impl}): "
+                             f"{native.unavailable_reason()}")
+
+
+@contextlib.contextmanager
+def torch_detector():
+    """The SLAM session on its torch keypoint detector (HYBVIO_NATIVE_ORB=0,
+    the reference's switch) inside the block: phases 8a and 8b hold the
+    torch detector on the card, phase 11d the native one beside it."""
+    old = os.environ.get("HYBVIO_NATIVE_ORB")
+    os.environ["HYBVIO_NATIVE_ORB"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HYBVIO_NATIVE_ORB"]
+        else:
+            os.environ["HYBVIO_NATIVE_ORB"] = old
+
+
 def _slam_table():
     """The SLAM worker's per-keyframe stage table (utils.timer
     SLAM_TIME_STATS), in the session's order: [(label, ms per keyframe,
@@ -1743,7 +1830,7 @@ def _slam_table():
     return [(k, ms[k], ts.counts[k]) for k in timer.SLAM_STAGES if k in ms]
 
 
-def run_vislam(dev):
+def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_dir=None):
     """Phase 8b: VioApi on synthetic_bench_params("vislam") (bench.py's
     run_vislam on the port): stereo 752x480 at one lane with the SLAM
     session on its worker thread, fed the stereo path's world (path_inputs'
@@ -1752,8 +1839,12 @@ def run_vislam(dev):
     teardown, the SLAM session's keyframes, map points, loop events, dropped
     candidates and BA runs, the ATE of the SLAM-corrected outputs, the SLAM
     stage table per keyframe, the host syncs of step VISLAM_SYNC_STEP (the
-    SLAM worker drained first) and the launches by shape. Returns (launches,
-    launches by shape, host syncs)."""
+    SLAM worker drained first) and the launches by shape. Phase 11 runs it
+    again as ``name`` over ``frames_in`` frames, with a debug ``publisher``
+    on the API (11c) or the SLAM viewers writing under ``vis_dir`` after
+    each output, as the CLI does (11d). Keeps its numbers in
+    VISLAM_STATS[name]; returns (launches, launches by shape, host
+    syncs)."""
     import torch
 
     from hybvio_tpu_torch import ops
@@ -1768,10 +1859,10 @@ def run_vislam(dev):
     params = synthetic_bench_params("vislam")
     pt = params.tracker
     W, H = int(2 * pt.principalPointX), int(2 * pt.principalPointY)
-    seq = generate_sequence(duration=VISLAM_FRAMES / 20.0, imu_rate=200.0, frame_rate=20.0,
+    seq = generate_sequence(duration=frames_in / 20.0, imu_rate=200.0, frame_rate=20.0,
                             n_landmarks=500, landmark_radius=6.0, gyro_noise=5e-4,
                             acc_noise=5e-3, seed=0)
-    F = min(VISLAM_FRAMES, len(seq.frame_sample_idx))
+    F = min(frames_in, len(seq.frame_sample_idx))
     second = np.asarray(SYNTH_IMU_TO_CAMERA).copy()
     second[0, 3] = -0.11
     f, cx, cy = pt.focalLength, pt.principalPointX, pt.principalPointY
@@ -1782,7 +1873,7 @@ def run_vislam(dev):
     frames = [render(f32(seq.landmarks[None]), f32(seq.pos[k][None]), f32(seq.quat[k][None]))[0]
               for k in seq.frame_sample_idx[:F]]  # each (2, H, W) on the card
     torch.cuda.synchronize()
-    say(f"vislam: rendered {F} stereo frames of {W}x{H} on the card in "
+    say(f"{name}: rendered {F} stereo frames of {W}x{H} on the card in "
         f"{time.perf_counter() - t0:.1f} s")
 
     ba_runs = [0]
@@ -1795,6 +1886,24 @@ def run_vislam(dev):
     api = VioApi(params, W, H, device=dev)
     outputs, wall, counted = [], [], {}
     api.on_output = outputs.append
+    if publisher is not None:
+        from hybvio_tpu_torch.odometry.debug import DebugAPI
+
+        api.debug_api = DebugAPI(publisher)
+    if vis_dir is not None:
+        from hybvio_tpu_torch.cli.main import _write_slam_visualizations, save_visualization
+
+        api.slam.slam.store_keyframe_images = True
+        seen = {}
+
+        def save_vis(view, frame):
+            save_visualization(vis_dir, view, frame)
+
+        def on_output(vo):  # the CLI's viewer pass after each output
+            outputs.append(vo)
+            _write_slam_visualizations(api.slam.slam, SLAM_VIEWERS, save_vis, seen)
+
+        api.on_output = on_output
     process, step = api._process_frame, api._step_frame
 
     def timed_process(synced):
@@ -1829,6 +1938,8 @@ def run_vislam(dev):
         t_end = time.perf_counter()
         api.finish()
         teardown = time.perf_counter() - t_end
+        if vis_dir is not None:  # the CLI's last viewer pass, after finish()
+            _write_slam_visualizations(api.slam.slam, SLAM_VIEWERS, save_vis, seen)
         torch.cuda.synchronize()
         launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
         table = _slam_table()
@@ -1848,44 +1959,50 @@ def run_vislam(dev):
     slam_pts = sum(1 for mp in slam.points.values() if mp.triangulated)
     merged = int(sum((o.point_cloud[:, 0] < 0).sum() for o in outputs))
     syncs = counted.get("syncs")
-    say(f"vislam: {F} frames in, {len(outputs)} outputs out; per-frame wall time at B=1: median "
+    say(f"{name}: {F} frames in, {len(outputs)} outputs out; per-frame wall time at B=1: median "
         f"{1e3 * statistics.median(steady_wo):.2f} ms, p90 "
         f"{1e3 * float(np.percentile(steady_wo, 90)):.2f} ms, first step {1e3 * wall[0]:.1f} ms; "
         f"{len(steady) / sum(steady):.2f} frames/s after the first two frames "
         f"({len(steady)} frames in {sum(steady):.2f} s; feeding took {t_end - t_start:.2f} s); "
         f"finish() teardown {teardown:.3f} s")
-    say(f"vislam: SLAM keyframes {len(slam.kf_order)} (submitted {coupling.frame_counter} "
+    say(f"{name}: SLAM keyframes {len(slam.kf_order)} (submitted {coupling.frame_counter} "
         f"keyframe candidates, every {coupling.interval}th SLAM frame), map points "
         f"{len(slam.points)} ({slam_pts} triangulated), loop events "
         f"{[(e.kf_id, e.matched_kf_id, e.n_matches, e.applied) for e in slam.loop_events]}, "
         f"loop edges {len(slam.loop_edges)}, dropped candidates {coupling.dropped}, local BA "
         f"runs {ba_runs[0]}; outputs carrying SLAM map points: "
         f"{sum(1 for o in outputs if (o.point_cloud[:, 0] < 0).any())} ({merged} points)")
-    say(f"vislam: ATE of the SLAM-corrected outputs {ate:.4f} m over {len(outputs)} outputs; "
+    say(f"{name}: ATE of the SLAM-corrected outputs {ate:.4f} m over {len(outputs)} outputs; "
         f"the odometry-to-SLAM transform moves the last output by "
         f"{float(np.linalg.norm(coupling.coord.T[:3, 3])):.4g} m")
     for label, ms, calls in table:
-        say(f"vislam SLAM stage (per keyframe, {timer.SLAM_TIME_STATS.frames} keyframes): "
+        say(f"{name} SLAM stage (per keyframe, {timer.SLAM_TIME_STATS.frames} keyframes): "
             f"{ms:10.3f} ms  {label} (x{calls})")
-    say(f"vislam: host syncs in step {VISLAM_SYNC_STEP} (the SLAM worker drained): "
+    say(f"{name}: host syncs in step {VISLAM_SYNC_STEP} (the SLAM worker drained): "
         f"{sum(syncs.values()) if syncs is not None else 'not counted'} "
         f"{json.dumps(dict(sorted((syncs or {}).items())))}; kernel launches {json.dumps(launches)}")
-    say("vislam: kernel launches by input shape " + json.dumps(
+    say(f"{name}: kernel launches by input shape " + json.dumps(
         {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
     if not finite:
-        raise AssertionError("vislam: a non-finite output")
+        raise AssertionError(f"{name}: a non-finite output")
     if len(outputs) < F - 3:
-        raise AssertionError(f"vislam: {len(outputs)} outputs for {F} frames")
+        raise AssertionError(f"{name}: {len(outputs)} outputs for {F} frames")
     if not ate <= ATE_LIMIT_M:
-        raise AssertionError(f"vislam: ATE {ate} m > {ATE_LIMIT_M} m")
+        raise AssertionError(f"{name}: ATE {ate} m > {ATE_LIMIT_M} m")
     if len(slam.kf_order) < 2 or not ba_runs[0] or not slam.points:
-        raise AssertionError(f"vislam: {len(slam.kf_order)} SLAM keyframes, {ba_runs[0]} local "
+        raise AssertionError(f"{name}: {len(slam.kf_order)} SLAM keyframes, {ba_runs[0]} local "
                              f"BA runs, {len(slam.points)} map points")
     if syncs is None:
-        raise AssertionError(f"vislam: step {VISLAM_SYNC_STEP} was never run")
+        raise AssertionError(f"{name}: step {VISLAM_SYNC_STEP} was never run")
     missing = [k for k in PATH_KERNELS if not launches[k]]
     if missing:
-        raise AssertionError(f"vislam: kernels not launched: {missing}")
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    kp = dict((label, ms) for label, ms, _ in table).get("multi-scale keypoints", float("nan"))
+    VISLAM_STATS[name] = dict(median=1e3 * statistics.median(steady_wo),
+                              p90=1e3 * float(np.percentile(steady_wo, 90)),
+                              keyframes=len(slam.kf_order), kp_ms=kp, finish=teardown, ate=ate,
+                              detector=slam.keypoint_detector, outputs=outputs,
+                              sync=type(api.sample_sync).__name__)
     return launches, by_shape, sum(syncs.values())
 
 
@@ -1918,7 +2035,7 @@ def run_cli_vislam(dev):
         timer.SLAM_TIME_STATS.enabled = True
         t0 = time.perf_counter()
         try:
-            launches, by_shape, syncs, wall, err = run_cli(
+            launches, by_shape, syncs, wall, err, impl = run_cli(
                 dev, "mono", ds, out_path, API_FRAMES,
                 extra=("-useSlam", f"-slamMapPosesPath={map_path}"))
             table = _slam_table()
@@ -2134,8 +2251,10 @@ def run_euroc_cli(dev):
             f"(2 images, io.video.load_image_file)")
         out_path = f"{tmp}/out.jsonl"
         t0 = time.perf_counter()
-        launches, by_shape, syncs, wall, err = run_cli(
+        launches, by_shape, syncs, wall, err, impl = run_cli(
             dev, "stereo", tmp, out_path, EUROC_FRAMES, extra=("-useRectification",))
+        if impl.get("sync") != "NativeSampleSync":
+            raise AssertionError(f"euroc cli: the synchronizer {impl.get('sync')} ran")
         secs = time.perf_counter() - t0
         lines = [json.loads(line) for line in open(out_path)]
     finally:
@@ -2385,6 +2504,200 @@ def run_zoom(dev):
     return out
 
 
+def _cli_outputs(out_path, ds):
+    """(output lines, all their floats finite, ATE against the dataset's
+    ground truth at the output times)."""
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+
+    gt = [json.loads(l) for l in open(f"{ds}/data.jsonl") if "groundTruth" in l]
+    gt_t = np.array([j["time"] for j in gt])
+    gt_p = np.array([[j["groundTruth"]["position"][a] for a in "xyz"] for j in gt])
+    lines = [json.loads(l) for l in open(out_path)]
+    floats = np.array([[*j["position"].values(), *j["orientation"].values(),
+                        *j["velocity"].values()] for j in lines])
+    finite = bool(len(lines)) and bool(np.isfinite(floats).all())
+    est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
+    t_out = np.array([j["time"] for j in lines])
+    gt_i = np.stack([np.interp(t_out, gt_t, gt_p[:, a]) for a in range(3)], axis=1)
+    ate = float(ate_rmse(est, gt_i)) if finite and len(lines) >= 3 else float("nan")
+    return lines, finite, ate
+
+
+def _sync_us_per_sample(ds):
+    """Each synchronizer alone on the host over a dataset's samples and
+    frames (read by the native reader): microseconds a sample, median of 5."""
+    from hybvio_tpu_torch.config import Parameters
+    from hybvio_tpu_torch.io import jsonl
+    from hybvio_tpu_torch.io.native_sync import NativeSampleSync
+    from hybvio_tpu_torch.odometry.sample_sync import SampleSync
+
+    events = list(jsonl.read_jsonl_events(f"{ds}/data.jsonl"))
+    n = sum(e.kind in (jsonl.GYROSCOPE, jsonl.ACCELEROMETER) for e in events)
+    out = {}
+    for cls in (NativeSampleSync, SampleSync):
+        times = []
+        for _ in range(5):
+            sync = cls(Parameters().odometry)
+            t0 = time.perf_counter()
+            for e in events:
+                if e.kind == jsonl.GYROSCOPE:
+                    sync.add_sample_leader(e.t, e.values)
+                elif e.kind == jsonl.ACCELEROMETER:
+                    sync.add_sample_follower(e.t, e.values)
+                elif e.kind == jsonl.FRAME:
+                    sync.add_frame(e.t)
+                while sync.poll_synced_sample() is not None:
+                    pass
+            times.append(time.perf_counter() - t0)
+        out[cls.__name__] = 1e6 * statistics.median(times) / n
+    return out, n
+
+
+def run_host_layers(dev):
+    """Phase 11, the host layers at full width (752x480, B=1) over phase
+    7's worlds: (a) the CLI at the reference's defaults, mono and
+    -useStereo, HOST_FRAMES frames each, through the native JSONL reader and
+    the native synchronizer, per-frame median and p90 beside phase 7's, and
+    each synchronizer alone on the host; (b) the same CLI (stereo) with
+    every -display* flag and -visualizationPath over DISPLAY_FRAMES frames:
+    each view's file for each retired output, each view's render ms, the
+    corner response's launches from the CORNER_MEASURE view; (c) vislam
+    (phase 8b's run) with a RecordingPublisher on the API, its counts
+    against the outputs'; (d) vislam on the native ORB detector with the
+    SLAM viewers on, beside phase 8b's torch detector. Fails on a module
+    that fell back, a non-finite output or view, a view file missing, a
+    host sync in a step (collected in main), an ATE over ATE_LIMIT_M or a
+    CORNER_MEASURE view that launched no corner-response kernel. Returns
+    {run: (launches, launches by shape, host syncs)}."""
+    import shutil
+    import tempfile
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.api.visualizations import VisualizationMode
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.odometry.debug import RecordingPublisher
+
+    runs = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_", dir=build)
+    try:
+        for config in API_CONFIGS:  # (a)
+            ds, out_path = f"{tmp}/{config}", f"{tmp}/{config}.jsonl"
+            write_api_dataset(ds, config, HOST_FRAMES)
+            launches, by_shape, syncs, wall, err, impl = run_cli(dev, config, ds, out_path,
+                                                                 HOST_FRAMES)
+            lines, finite, ate = _cli_outputs(out_path, ds)
+            steady = [w for i, w in enumerate(wall) if i not in (0, API_SYNC_STEP)]
+            med7, p907 = PHASE7_WALL.get(config, (float("nan"), float("nan")))
+            say(f"host {config} (11a, the CLI at the defaults): the {impl.get('reader')} JSONL "
+                f"reader, the synchronizer {impl.get('sync')}; {HOST_FRAMES} frames in, "
+                f"{len(lines)} outputs out; per-frame wall time at B=1: median "
+                f"{1e3 * statistics.median(steady):.2f} ms, p90 "
+                f"{1e3 * float(np.percentile(steady, 90)):.2f} ms (phase 7 in this call: "
+                f"{med7:.2f} ms, p90 {p907:.2f} ms); ATE {ate:.4f} m; host syncs in step "
+                f"{API_SYNC_STEP}: {sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
+            check_native_host(f"host {config}", impl)
+            if not finite:
+                raise AssertionError(f"host {config}: a non-finite output")
+            if len(lines) < HOST_FRAMES - 3 or not ate <= ATE_LIMIT_M:
+                raise AssertionError(f"host {config}: {len(lines)} outputs, ATE {ate} m")
+            missing = [k for k in PATH_KERNELS if not launches[k]]
+            if missing:
+                raise AssertionError(f"host {config}: kernels not launched: {missing}")
+            runs[f"host_{config}"] = (launches, by_shape, sum(syncs.values()))
+        us, n = _sync_us_per_sample(f"{tmp}/stereo")
+        say(f"host: each synchronizer alone over the stereo dataset's {n} samples: "
+            + ", ".join(f"{k} {v:.2f} us a sample" for k, v in us.items()))
+
+        # (b) every display flag
+        vis, out_path = f"{tmp}/vis", f"{tmp}/display.jsonl"
+        render, render_ms, corner, bad = VioApi.render_visualization, {}, [0], []
+
+        def timed_render(self, mode=None, epipolar_select=None):
+            before = ops.LAUNCHES["corner_response"]
+            t0 = time.perf_counter()
+            img = render(self, mode, epipolar_select)
+            view = VisualizationMode(int(mode)).name
+            render_ms.setdefault(view, []).append(1e3 * (time.perf_counter() - t0))
+            if view == "CORNER_MEASURE":
+                corner[0] += ops.LAUNCHES["corner_response"] - before
+            if img is not None and not np.isfinite(img).all():
+                bad.append(view)
+            return img
+
+        VioApi.render_visualization = timed_render
+        try:
+            launches, by_shape, syncs, wall, err, impl = run_cli(
+                dev, "stereo", f"{tmp}/stereo", out_path, DISPLAY_FRAMES,
+                extra=(*DISPLAY_FLAGS, f"-visualizationPath={vis}"))
+        finally:
+            VioApi.render_visualization = render
+        lines, finite, ate = _cli_outputs(out_path, f"{tmp}/stereo")
+        files = sorted(os.listdir(vis))
+        want = {f"{v}_{k:06d}" for v in DISPLAY_VIEWS for k in range(len(lines))}
+        missing = sorted(want - {f.rsplit(".", 1)[0] for f in files})
+        say(f"host display (11b, the CLI -useStereo with {len(DISPLAY_FLAGS)} -display* flags and "
+            f"-visualizationPath): {DISPLAY_FRAMES} frames in, {len(lines)} outputs out, "
+            f"{len(files)} view files ({sorted({f.rsplit('.', 1)[1] for f in files})}), missing "
+            f"{missing}; render ms a view (median over the outputs): " + ", ".join(
+                f"{v} {statistics.median(ms):.2f}" for v, ms in sorted(render_ms.items()))
+            + f"; CORNER_MEASURE launched the corner-response kernel {corner[0]} times; host "
+            f"syncs in step {API_SYNC_STEP}: {sum(syncs.values())}")
+        check_native_host("host display", impl)
+        if "failed" in err:
+            raise AssertionError(f"host display: a view failed: {err[-2000:]}")
+        if missing or bad or not finite:
+            raise AssertionError(f"host display: views missing {missing}, non-finite {bad}, "
+                                 f"outputs finite {finite}")
+        if corner[0] < len(lines):
+            raise AssertionError(f"host display: CORNER_MEASURE launched the kernel {corner[0]} "
+                                 f"times for {len(lines)} outputs")
+        runs["host_display"] = (launches, by_shape, sum(syncs.values()))
+
+        # (c) a debug publisher on vislam
+        pub = RecordingPublisher()
+        runs["vislam_publisher"] = run_vislam(dev, "vislam_publisher", PUBLISHER_FRAMES,
+                                              publisher=pub)
+        st = VISLAM_STATS["vislam_publisher"]
+        outs = st["outputs"]
+        tri = np.array(pub.triangulations).reshape(-1, 3)
+        clouds = np.concatenate(pub.point_clouds) if pub.point_clouds else np.zeros((0, 3))
+        say(f"vislam_publisher (11c): published {len(pub.frames)} frames for {len(outs)} "
+            f"outputs (times equal: {pub.frames == [o.t for o in outs]}), "
+            f"{len(pub.visual_updates)} visual updates, {len(pub.successful_updates)} "
+            f"successful, {len(tri)} triangulations, {len(pub.point_clouds)} clouds of "
+            f"{len(clouds)} points; all finite: "
+            f"{bool(np.isfinite(tri).all() and np.isfinite(clouds).all())}")
+        if pub.frames != [o.t for o in outs] or not pub.visual_updates:
+            raise AssertionError("vislam_publisher: the publisher's frames are not the outputs'")
+        if not (np.isfinite(tri).all() and np.isfinite(clouds).all()):
+            raise AssertionError("vislam_publisher: a non-finite published point")
+
+        # (d) the native ORB detector with the SLAM viewers on
+        slam_vis = f"{tmp}/slam_vis"
+        os.makedirs(slam_vis)
+        runs["vislam_native_orb"] = run_vislam(dev, "vislam_native_orb", vis_dir=slam_vis)
+        nat, tor = VISLAM_STATS["vislam_native_orb"], VISLAM_STATS.get("vislam", {})
+        files = sorted(os.listdir(slam_vis))
+        views = {v: sum(f.startswith(v + "_") for f in files) for v in SLAM_VIEWS + ("loop_match",)}
+        nan = float("nan")
+        row = lambda d: (f"keyframes {d.get('keyframes')}, keypoints {d.get('kp_ms', nan):.3f} "
+                         f"ms a keyframe, per-frame median {d.get('median', nan):.2f} ms, p90 "
+                         f"{d.get('p90', nan):.2f} ms ({d.get('p90', nan) / d.get('median', nan):.2f}"
+                         f"x), finish() {d.get('finish', nan):.3f} s, ATE {d.get('ate', nan):.4f} m")
+        say(f"vislam_native_orb (11d): the {nat['detector']} detector: {row(nat)}; phase 8b's "
+            f"{tor.get('detector')} detector in this call: {row(tor)}; SLAM viewer files "
+            f"{json.dumps(views)}")
+        if nat["detector"] != "native":
+            raise AssertionError(f"vislam_native_orb: the {nat['detector']} detector ran")
+        if not all(views[v] for v in SLAM_VIEWS):
+            raise AssertionError(f"vislam_native_orb: SLAM viewer files missing: {views}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def run_textured(dev):
     """Phase 10: the long textured runs (TEXTURED_RUNS) and the zoom."""
     runs = {name: run_long(dev, name, family, seconds, sqrt)
@@ -2422,13 +2735,19 @@ def main() -> int:
 
         from hybvio_tpu_torch.io import native_image
 
-        decoder = {}  # the image decoder (g++) builds while nvcc runs
+        from hybvio_tpu_torch.utils import native
+
+        decoder = {}  # the image decoder and the native library (g++) build while nvcc runs
 
         def build_decoder():
             try:
                 decoder["s"] = native_image.build(force=True)
             except RuntimeError as e:
                 decoder["error"] = str(e)
+            try:
+                decoder["native"] = native.build(force=True)
+            except RuntimeError as e:
+                decoder["native_error"] = str(e)
 
         decoder_build = threading.Thread(target=build_decoder)
         decoder_build.start()
@@ -2438,21 +2757,31 @@ def main() -> int:
             f"{secs:.1f} s; the image decoder (g++): "
             + (f"{decoder['s']:.1f} s, reads "
                + ("PNG and PGM" if native_image.png_supported() else "PGM only (no zlib)")
-               if "s" in decoder else f"FAILED: {decoder['error']}"))
+               if "s" in decoder else f"FAILED: {decoder['error']}")
+            + "; the native library (g++: the synchronizer, the JSONL reader, the ORB detector): "
+            + (f"{decoder['native']:.1f} s" if "native" in decoder
+               else f"FAILED: {decoder['native_error']}"))
         why = decoder.get("error") or native_image.unavailable_reason()
         if why:
             raise RuntimeError(f"the image decoder: {why}")
+        why = decoder.get("native_error") or native.unavailable_reason()
+        if why:
+            raise RuntimeError(f"the native library: {why}")
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
         runs = {config: run_path(dev, config) for config in PATHS}
         option_syncs = run_options(dev)
         runs.update(run_api_paths(dev))
-        run_slam_sessions(dev)
-        runs["vislam"] = run_vislam(dev)
+        with torch_detector():
+            run_slam_sessions(dev)
+            runs["vislam"] = run_vislam(dev)
+        if VISLAM_STATS["vislam"]["detector"] != "torch":
+            raise AssertionError("vislam: the torch detector did not run")
         runs["cli_vislam"] = run_cli_vislam(dev)
         runs.update(run_stereo_options(dev))
         runs["euroc_cli"] = run_euroc_cli(dev)
         runs.update(run_textured(dev))
+        runs.update(run_host_layers(dev))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

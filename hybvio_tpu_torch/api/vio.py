@@ -36,9 +36,13 @@ step's first camera (``geometry.cameras.with_intrinsics``). With
 ``odometry.useSquareRootEkf`` the filter carries the square-root factor of
 its covariance (``ekf/sqrt.py``), the state surgery included.
 
-Not ported (each raises ``NotImplementedError`` naming its module when asked
-for): the visualizations (``api/visualizations.py``), the debug publisher
-(``odometry/debug.py``) and the native synchronizer (``io/native_sync.py``).
+The samples ride the native (C++) synchronizer (``io/native_sync.py``)
+where its library builds, as in the reference; ``type(api.sample_sync)``
+names the one that runs. A debug publisher (``debug_api``,
+``odometry/debug.py``) sees each frame as it retires, from the packed
+output; ``set_visualization`` / ``render_visualization`` draw the last
+retired frame (``api/visualizations.py``; the corner measure runs the
+corner-response kernel on the card).
 """
 from __future__ import annotations
 
@@ -157,13 +161,27 @@ class VioApi:
         if not self.recording_only:
             self._vio = Vio(params, self.derived, self.cameras, dtype=self._dtype).to(self.device)
 
-        # sample synchronizer: the pure-Python one (the reference's
-        # native_sync=False); its native binding is not ported
+        # sample synchronizer: the native (C++) implementation by default
+        # (reference: sample_sync.cpp is C++ in-process too); native_sync=None
+        # selects it unless HYBVIO_NATIVE_SYNC=0 or the config averages a
+        # second camera's time shift (which only the Python implementation
+        # handles, in add_frame). Where the library does not load, the
+        # Python synchronizer runs, as in the reference, and utils/native.py
+        # has logged why.
+        if native_sync is None:
+            native_sync = (os.environ.get("HYBVIO_NATIVE_SYNC", "1") != "0"
+                           and params.odometry.secondImuToCameraShiftSeconds == 0.0)
+        self.sample_sync = None
         if native_sync:
-            raise NotImplementedError("native_sync: io/native_sync.py is not ported")
-        self.sample_sync = SampleSync(params.odometry)
+            from ..io.native_sync import NativeSampleSync, native_available
+
+            if native_available():
+                self.sample_sync = NativeSampleSync(params.odometry)
+        if self.sample_sync is None:
+            self.sample_sync = SampleSync(params.odometry)
         self.on_output: Optional[Callable[[VioOutput], None]] = None
         self.recorder: Optional[Recorder] = None
+        self.debug_api = None  # optional odometry.debug.DebugAPI
         self._lock = threading.Lock()
 
         # -timer profiling (reference: util/timer.hpp TIME_STATS; enabled by
@@ -202,15 +220,18 @@ class VioApi:
         self._last_reset_time = 0.0
         self.last_frame_output = None
         self._last_images: tuple = (None, None)
+        # video visualization selection (reference: InternalAPI::
+        # setVisualization, internal.hpp:287 + VisualizationMode:66-81)
+        self._visualization = 0  # VisualizationMode.NONE
         self._stage_probes = None  # built on first -timer frame
         self._frame_count = 0
         # pipelined output retirement: queue frame N's step before fetching
         # frame N-1's output, so the card's work and the copy back overlap
         # the host's (the analog of the reference's input-thread /
         # odometry-thread pipeline, api.cpp:1019). Depth 0 = fully
-        # synchronous (forced for -timer sessions). Host-side consumers
-        # (status machine, on_output) see each output exactly once, one
-        # frame late; finish()/wait_idle() flush the tail.
+        # synchronous (forced for -timer and debug-publisher sessions).
+        # Host-side consumers (status machine, on_output) see each output
+        # exactly once, one frame late; finish()/wait_idle() flush the tail.
         self._inflight = collections.deque()
         env_depth = os.environ.get("HYBVIO_PIPELINE_DEPTH")
         self._pipeline_depth = (int(env_depth) if env_depth is not None
@@ -243,18 +264,6 @@ class VioApi:
                                      camera=self.cameras[0], device=self.device)
             self._slam_running = True
             hold_precision()
-
-    @property
-    def debug_api(self):
-        """The debug publisher's API (reference: odometry/debug.py): not
-        ported, so never set."""
-        return None
-
-    @debug_api.setter
-    def debug_api(self, value):
-        if value is not None:
-            raise NotImplementedError("debug_api: the debug publisher (odometry/debug.py) is "
-                                      "not ported")
 
     # --- input (reference: VioApi::addGyro/addAcc/addFrame*) ---
 
@@ -620,7 +629,10 @@ class VioApi:
         return out
 
     def _retire_due(self) -> None:
-        depth = 0 if self.time_stats.enabled else self._pipeline_depth
+        """Retire the frames beyond the pipeline's depth: 0 with -timer and
+        with a debug publisher, whose sites read the frame just stepped."""
+        depth = (0 if (self.time_stats.enabled or self.debug_api is not None)
+                 else self._pipeline_depth)
         while len(self._inflight) > depth:
             self._retire_next()
 
@@ -680,6 +692,8 @@ class VioApi:
                                        out.track_norm, float(out.t), self._frame_count)
 
         self._handle_status_and_reset(out)
+        if self.debug_api is not None and self.debug_api.publisher is not None:
+            self._publish(out)
         if self.on_output:
             with self.time_stats.scope("output conversion"):
                 vo = self._convert_output(out)
@@ -700,6 +714,28 @@ class VioApi:
                     self.on_output(buffered)
             else:
                 self.on_output(vo)
+
+    def _publish(self, out) -> None:
+        """The debug publisher's sites (reference: the DebugPublisher hooks
+        of trackerVisualUpdate, debug.hpp:25-47; publish sites
+        backend.cpp:1061-1064,1197-1201, triangulation.cpp:148-150,181-183),
+        read from the retired frame's host output."""
+        from ..odometry.batched_update import PF_HYBRID, PF_POSE_TRAIL
+        from ..odometry.triangulation import TRI_OK
+
+        pub = self.debug_api.publisher
+        t = float(out.t)
+        pub.start_frame(t, self._state)
+        pc, ids = np.asarray(out.point_cloud), np.asarray(out.point_cloud_ids)
+        pf_status, tri_status = np.asarray(out.point_cloud_status), np.asarray(out.vu_tri_status)
+        for i in np.where(ids >= 0)[0]:
+            pub.start_visual_update(t, int(ids[i]), None)
+            if tri_status[i] == TRI_OK:
+                pub.push_triangulation_point(pc[i])
+            if pf_status[i] in (PF_POSE_TRAIL, PF_HYBRID):
+                pub.finish_successful_visual_update(t, int(ids[i]))
+        if (ids >= 0).any():
+            pub.add_point_cloud(pc[ids >= 0])
 
     def _handle_status_and_reset(self, out) -> None:
         """Status latch + auto-reset table (reference: control.cpp:117-150).
@@ -775,10 +811,68 @@ class VioApi:
         self._surgery(lambda ekf: _condition(ekf, L, self._sqrt_mode))
 
     def set_visualization(self, mode) -> None:
-        raise NotImplementedError("visualizations: api/visualizations.py is not ported")
+        """Select the per-frame video visualization (reference:
+        InternalAPI::setVisualization, internal.hpp:287; modes
+        internal.hpp:66-81 = api.visualizations.VisualizationMode)."""
+        from .visualizations import VisualizationMode
+
+        self._visualization = VisualizationMode(int(mode))
 
     def render_visualization(self, mode=None, epipolar_select=None):
-        raise NotImplementedError("visualizations: api/visualizations.py is not ported")
+        """Raster for the selected (or given) VisualizationMode from the last
+        retired frame's output and images (reference: the TaggedFrame-fed
+        visualization path, api.cpp getVisualization + visualizations.cpp).
+        Returns an (H, W, 3) float32 RGB array, or None when mode is NONE or
+        no frame has been retired yet. The images go to the API's device
+        first: the corner measure and the disparity run there."""
+        from .visualizations import VisualizationMode, render_video_visualization
+
+        mode = VisualizationMode(int(self._visualization if mode is None else mode))
+        if epipolar_select is None:
+            # reference: StereoEpipolarVisualization selection comes from
+            # tracker.saveStereoEpipolar (set by the display cmd flag)
+            sel = str(self.params.tracker.saveStereoEpipolar or "TRACKED").upper()
+            epipolar_select = sel if sel != "NONE" else "TRACKED"
+        fo = self.last_frame_output
+        gray, second = (None if i is None else self._norm_gray(torch.as_tensor(i).to(self.device))
+                        for i in self._last_images)
+        if mode == VisualizationMode.NONE or gray is None:
+            return None
+        kw = {}
+        if fo is not None:
+            px = np.asarray(fo.track_pixels)
+            kw.update(track_pixels=px[:, 0, :],
+                      track_prev_pixels=np.asarray(fo.track_prev_pixels)[:, 0, :],
+                      track_status=np.asarray(fo.track_status),
+                      track_valid=np.asarray(fo.track_ids) >= 0,
+                      stereo_pixels=px[:, 1, :] if px.shape[1] > 1 else None)
+        cam_first = self.cameras[0]
+        cam_second = self.cameras[1] if len(self.cameras) > 1 else None
+        if len(self.cameras) > 1 and (
+                self.params.tracker.useRectification
+                or mode in (VisualizationMode.STEREO_DISPARITY, VisualizationMode.STEREO_DEPTH)):
+            # with useRectification the tracker (and so fo.track_pixels) works
+            # on the RECTIFIED images and cameras, so overlays are drawn on
+            # the remapped frames with the rectified cameras; disparity and
+            # depth always need the rectified pair (reference:
+            # stereo_disparity.cpp works after rectification). The rectified
+            # cameras carry the rectifying rotation, so pixel rays stay in
+            # the ORIGINAL camera frames and T10 is unchanged.
+            from ..frontend.rectify import remap
+
+            m0, m1, Q, rc0, rc1 = self._get_display_rectify()
+            gray = remap(gray, m0)
+            if second is not None:
+                second = remap(second, m1)
+            cam_first, cam_second = rc0, rc1
+            kw["Q"] = Q.cpu().numpy()
+        if cam_second is not None:
+            i2c0 = np.asarray(self.derived.imu_to_camera, np.float64)
+            i2c1 = np.asarray(self.derived.second_imu_to_camera, np.float64)
+            kw.update(cam_first=cam_first, cam_second=cam_second,
+                      T10=i2c1 @ np.linalg.inv(i2c0))
+        return render_video_visualization(mode, gray, second_gray=second,
+                                          epipolar_select=epipolar_select, **kw)
 
     def reset(self, keep_pose: bool = False, t: Optional[float] = None) -> None:
         """(reference: Control::reset) A fresh filter with the tracker's

@@ -51,6 +51,12 @@ def state_dim(camera_trail_length: int, hybrid_map_size: int) -> int:
     return INER_DIM + POSE_DIM * camera_trail_length + MAP_POINT_DIM * hybrid_map_size
 
 
+def trail_pose_slice(i: int) -> slice:
+    """Slice of trail pose i (0 = newest historical pose) in the state's
+    last axis."""
+    return slice(CAM + POSE_DIM * i, CAM + POSE_DIM * (i + 1))
+
+
 def init_state(po, batch: int, dtype=torch.float64, device=None,
                sqrt_mode: bool = False) -> EKFState:
     """The initial filter state of ``batch`` lanes, on the card unless
@@ -109,3 +115,22 @@ def process_noise_q(po, dtype=torch.float64, device=None) -> torch.Tensor:
     if device is None:
         device = default_device()
     return torch.as_tensor(process_noise_values(po), dtype=dtype, device=device)
+
+
+STATE_PART_NAMES = ("POS", "VEL", "ORI", "BGA", "BAA", "BAT", "SFT")
+STATE_PARTS = (POS, VEL, ORI, BGA, BAA, BAT, SFT)
+STATE_PART_SIZES = (3, 3, 4, 3, 3, 3, 1)
+
+
+def state_as_string(s: EKFState, lane: int = 0) -> str:
+    """One-line digest of one lane's inertial state and the square roots of
+    its covariance's diagonal (reference: EKF::stateAsString,
+    ekf.cpp:998-1022)."""
+    m = s.m[lane].detach().cpu().numpy()
+    var = np.diagonal(s.P[lane].detach().cpu().numpy())[:INER_DIM]
+    parts = []
+    for name, off, size in zip(STATE_PART_NAMES, STATE_PARTS, STATE_PART_SIZES):
+        vals = " ".join(f"{m[off + j]:.3g}" for j in range(size))
+        v = float(np.sqrt(max(var[off:off + size].max(), 0.0)))
+        parts.append(f"{name} {vals} [{v:.2g}]")
+    return ", ".join(parts) + f", t {float(s.time[lane]):.3f}"

@@ -18,7 +18,7 @@ from ..lanes import lane_where, tuple_where
 from ..runtime import constant
 from .chi2 import CHI2INV95
 from .sqrt import sr_innovation_chi2, sr_update
-from .state import CAM, ORI, POSE_DIM, VEL, EKFState
+from .state import BGA, CAM, ORI, POS, POSE_DIM, VEL, EKFState
 
 _CHI2INV95 = tuple(CHI2INV95.tolist())
 
@@ -151,6 +151,50 @@ def update_pseudo_velocity(s: EKFState, default_speed, r, noise_scale,
     P = s.P - pdot(_t(K), HP)
     m = normalize_current_quat(m)
     return tuple_where(do, s._replace(m=m, P=P), s)
+
+
+def _symmetrize(P, sqrt_mode: bool):
+    return P if sqrt_mode else 0.5 * (P + _t(P))
+
+
+def _diag_noise(n, value, like):
+    return torch.full((n,), value, dtype=like.dtype, device=like.device)
+
+
+def update_zrupt(s: EKFState, xg, rotation_zupt_r, noise_scale,
+                 sqrt_mode: bool = False) -> EKFState:
+    """Zero-rotation update: the gyro bias toward the sample ``xg`` ((3,) or
+    (B, 3)), rate-limited to once per 0.25 s (reference: ekf.cpp:614-625)."""
+    do = s.time - s.zrupt_time >= 0.25
+    H = _block_h(s.m.shape[-1], BGA, 3, s.m)
+    m, P = kf_update(s.m, s.P, xg, H, _diag_noise(3, rotation_zupt_r * noise_scale, s.m),
+                     sqrt_mode)
+    return tuple_where(do, s._replace(m=m, P=P, zrupt_time=s.time), s)
+
+
+def update_position(s: EKFState, pos, r, noise_scale, sqrt_mode: bool = False) -> EKFState:
+    """Position measurement ``pos`` ((3,) or (B, 3))."""
+    H = _block_h(s.m.shape[-1], POS, 3, s.m)
+    m, P = kf_update(s.m, s.P, pos, H, _diag_noise(3, r * noise_scale, s.m), sqrt_mode)
+    return s._replace(m=m, P=_symmetrize(P, sqrt_mode))
+
+
+def update_zero_height(s: EKFState, r, noise_scale, sqrt_mode: bool = False) -> EKFState:
+    """Height (z) measurement of 0."""
+    H = torch.zeros((1, s.m.shape[-1]), dtype=s.m.dtype, device=s.m.device)
+    H[0, POS + 2] = 1.0
+    m, P = kf_update(s.m, s.P, torch.zeros_like(H[:, 0]), H,
+                     _diag_noise(1, r * noise_scale, s.m), sqrt_mode)
+    return s._replace(m=m, P=_symmetrize(P, sqrt_mode))
+
+
+def update_orientation(s: EKFState, q, r, noise_scale, cam_pose_count: int,
+                       sqrt_mode: bool = False) -> EKFState:
+    """Orientation measurement ``q`` ((4,) or (B, 4)); every quaternion of
+    the state renormalized after it."""
+    H = _block_h(s.m.shape[-1], ORI, 4, s.m)
+    m, P = kf_update(s.m, s.P, q, H, _diag_noise(4, r * noise_scale, s.m), sqrt_mode)
+    return s._replace(m=normalize_quaternions(m, cam_pose_count), P=_symmetrize(P, sqrt_mode))
 
 
 class VisualUpdateResult(NamedTuple):

@@ -1,5 +1,5 @@
-"""Trajectory evaluation: the umeyama-aligned ATE RMSE (the reference's
-``eval/ate.py``)."""
+"""Trajectory evaluation: the umeyama-aligned ATE RMSE and the relative
+pose error (the reference's ``eval/ate.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,4 +26,12 @@ def ate_rmse(estimated: np.ndarray, ground_truth: np.ndarray) -> float:
     assert est.shape == gt.shape
     R, t = umeyama_alignment(est, gt)
     e = (R @ est.T).T + t - gt
+    return float(np.sqrt((e * e).sum(axis=1).mean()))
+
+
+def rpe_rmse(estimated: np.ndarray, ground_truth: np.ndarray, delta: int = 1) -> float:
+    """Relative pose (translation) error RMSE over position deltas."""
+    est = np.asarray(estimated, dtype=np.float64)
+    gt = np.asarray(ground_truth, dtype=np.float64)
+    e = (est[delta:] - est[:-delta]) - (gt[delta:] - gt[:-delta])
     return float(np.sqrt((e * e).sum(axis=1).mean()))

@@ -132,8 +132,9 @@ def run_long_probe(family: str = "stereo", duration: float = 60.0, seed: int = 8
     """Run one family of the long textured protocol end to end on ``device``
     (the card unless told otherwise), the filter in ``dtype`` (float32
     unless given): {"ate_rmse_m", "frames", "duration_s", "finite",
-    "resolution", "wall_s"}; the API families add fps_steady and
-    teardown_s, vislam its SLAM counts. ``width`` (and ``height``) run a
+    "resolution", "wall_s"}; the API families add fps_steady, teardown_s
+    and native_sync (whether the native synchronizer ran), vislam its SLAM
+    counts. ``width`` (and ``height``) run a
     reduced shape with the intrinsics rescaled."""
     device = torch.device(device) if device is not None else default_device()
     dtype = torch.float32 if dtype is None else dtype
@@ -231,7 +232,8 @@ def _run_api(family, duration, seed, frame_rate, imu_rate, chunk, overrides, wid
     ate = float(ate_rmse(est, gt)) if finite else float("nan")
     out = {"ate_rmse_m": round(ate, 4) if finite else None, "frames": n_fed,
            "duration_s": round(duration, 1), "finite": finite, "resolution": f"{W}x{H}",
-           "fps_steady": round(fps, 2), "teardown_s": round(teardown_s, 2)}
+           "fps_steady": round(fps, 2), "teardown_s": round(teardown_s, 2),
+           "native_sync": type(api.sample_sync).__name__ == "NativeSampleSync"}
     if family == "vislam":
         slam = api.slam.slam if api.slam else None
         out.update({"keyframes": len(slam.kf_order) if slam else 0,

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quaternion import quat_to_rmat
+from .quaternion import quat_to_rmat, rmat_to_quat
 
 
 def _homogeneous(R, t):
@@ -30,6 +30,16 @@ def to_camera_to_world(p, q, imu_to_camera):
     b = -(A @ p[..., None])[..., 0] + imu_to_camera[..., :3, 3]
     At = A.transpose(-1, -2)
     return _homogeneous(At, -(At @ b[..., None])[..., 0])
+
+
+def to_odometry_pose(world_to_camera, imu_to_camera):
+    """World-to-camera matrix (..., 4, 4) -> the IMU position (..., 3) and
+    orientation quaternion (..., 4) (reference: util::toOdometryPose)."""
+    world_to_imu = torch.linalg.solve(imu_to_camera, world_to_camera)
+    R = world_to_imu[..., :3, :3]
+    t = world_to_imu[..., :3, 3]
+    p = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    return p, rmat_to_quat(R)
 
 
 def transform_vec3(mat4, v):

@@ -112,3 +112,13 @@ def rmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.stack([qw, qx * sign(m21 - m12), qy * sign(m02 - m20), qz * sign(m10 - m01)],
                     dim=-1)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def remove_z_tilt_rmat(R: torch.Tensor) -> torch.Tensor:
+    """The XY (yaw-only) rotation part of R (..., 3, 3) (reference:
+    src/odometry/util.cpp:76-101): the rotation about z that takes x where
+    R's first column points in the xy plane."""
+    angle = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    c, s = torch.cos(angle), torch.sin(angle)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([c, -s, z, s, c, z, z, z, o], dim=-1).reshape(R.shape[:-2] + (3, 3))

@@ -1,7 +1,7 @@
 """JSONL dataset reading/writing, reference-format compatible (port of the
-reference package's ``io/jsonl.py``: the Python reader and the legacy CSV
-reader ``read_csv_events``, without the native bulk parser
-``io/native_jsonl.py``).
+reference package's ``io/jsonl.py``: the reader, which dispatches to the
+native bulk parser ``io/native_jsonl.py`` where the library loads and to
+the Python loop elsewhere, and the legacy CSV reader ``read_csv_events``).
 
 Input format (reference: src/commandline/input_jsonl.cpp): one JSON object per
 line in ``data.jsonl``:
@@ -56,9 +56,38 @@ class InputEvent:
     raw: Optional[dict] = None
 
 
-def read_jsonl_events(path: str) -> Iterator[InputEvent]:
-    """Stream events from a data.jsonl file (reference: InputJSONL::nextType):
-    the reference package's Python loop, its behavioural spec."""
+class JsonlEvents:
+    """The events of one data.jsonl, iterated once, as a generator is;
+    ``reader`` names the parser that yields them: "native" or "python"."""
+
+    def __init__(self, path: str):
+        from .native_jsonl import iter_events
+
+        native = iter_events(path)
+        self.reader = "python" if native is None else "native"
+        self._events = python_events(path) if native is None else native
+
+    def __iter__(self) -> Iterator[InputEvent]:
+        return self._events
+
+    def __next__(self) -> InputEvent:
+        return next(self._events)
+
+
+def read_jsonl_events(path: str) -> JsonlEvents:
+    """Stream events from a data.jsonl file (reference: InputJSONL::nextType).
+
+    Dispatches to the native (C++) bulk parser where the library loads (the
+    reference parses input in C++ on the input thread, input_jsonl.cpp); it
+    also yields an echo event for every line that is neither a sample nor a
+    frame group. ``python_events`` is the behavioural spec and the
+    fallback; ``.reader`` of the result says which ran."""
+    return JsonlEvents(path)
+
+
+def python_events(path: str) -> Iterator[InputEvent]:
+    """The Python reader: samples, frame groups, and echo events for the
+    pose and GPS lines (_ECHO_KEYS) only."""
     with open(path) as f:
         for line in f:
             line = line.strip()

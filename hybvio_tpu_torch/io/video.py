@@ -1,19 +1,21 @@
-"""Frame sources: frame directories (port of the reference package's
-``io/video.py``).
+"""Frame sources: video files and frame directories (port of the reference
+package's ``io/video.py``).
 
 The reference decodes video with OpenCV or an ffmpeg subprocess on reader
 threads (reference: src/commandline/video_input.cpp). Here a FrameSource
 abstraction covers:
   * ``NpyFrameSource``: frame_xxxxxx_camN.npy files (the recorder format),
   * ``ImageDirSource``: PNG/PGM/JPG directories, through the native decoder
-    (``io/native_image.py``) first and PIL (imported lazily) after it.
-Video containers (``VideoFileSource``) are not ported: opening a video
-raises ``NotImplementedError``.
+    (``io/native_image.py``) first and PIL (imported lazily) after it,
+  * ``VideoFileSource``: .mp4/.mov/.avi decoded sequentially by cv2
+    (imported when a video is opened; without it the reference's
+    ``RuntimeError``).
 Sources yield grayscale (H, W) frames: uint8 raw 0-255 where the input is
 8-bit (PNG/PGM/JPG image dirs: the frame ships to the device raw and the
 step normalizes, 1/4 the H2D bytes), float32 in [0, 1] elsewhere (recorded
-.npy frames). Background prefetching mirrors the reference's
-BoundedInputQueue double buffering.
+.npy frames, and video frames through the reference's luma weights).
+Background prefetching mirrors the reference's BoundedInputQueue double
+buffering.
 """
 from __future__ import annotations
 
@@ -98,20 +100,54 @@ class ImageDirSource(FrameSource):
 
 
 class VideoFileSource(FrameSource):
-    """Video containers (.mp4, .mov, .avi): not ported."""
+    """Sequential video decoding via cv2; frames are read forward only, the
+    last one decoded kept (the CLI asks for each frame once, in order)."""
 
     def __init__(self, path: str):
-        raise NotImplementedError(
-            f"video input ({path}): the video decoders of io/video.py "
-            "VideoFileSource are not ported; convert to an image directory or "
-            ".npy frames")
+        self.path = path
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError(
+                "video decoding requires cv2 or ffmpeg (not available in this "
+                "environment); convert to an image directory or .npy frames") from None
+        self._cap = cv2.VideoCapture(path)
+        ok, f0 = self._cap.read()
+        if not ok:
+            raise RuntimeError(f"cannot read {path}")
+        self._cache = {0: self._gray(f0)}
+        self._next = 1
+        self._shape = self._cache[0].shape
+
+    @staticmethod
+    def _gray(frame):
+        # reference luma weights (image.cpp:345-367), on cv2's BGR order
+        f = frame.astype(np.float32) / 255.0
+        if f.ndim == 3:
+            return 0.299 * f[..., 2] + 0.587 * f[..., 1] + 0.114 * f[..., 0]
+        return f
+
+    def frame(self, number: int, camera_ind: int = 0) -> np.ndarray:
+        while self._next <= number:
+            ok, f = self._cap.read()
+            if not ok:
+                raise IndexError(number)
+            self._cache = {self._next: self._gray(f)}
+            self._next += 1
+        return self._cache[number]
+
+    @property
+    def shape(self):
+        return self._shape
 
 
 class PrefetchingSource(FrameSource):
     """Background-thread prefetch wrapper (reference: video reader threads +
     BoundedInputQueue, video_input.cpp:23-58). frame(n, cam) queues reads
     for n..n+lookahead of the same camera so the worker decodes ahead of the
-    consumer; a worker-side exception is captured and re-raised in the
+    consumer, each frame once (the reference package's copy can queue a
+    frame again while the worker decodes it, which a video source cannot
+    serve); a worker-side exception is captured and re-raised in the
     consumer (a silently dead worker would hang the pipeline forever)."""
 
     def __init__(self, inner: FrameSource, lookahead: int = 4):
@@ -129,14 +165,18 @@ class PrefetchingSource(FrameSource):
             with self.cv:
                 while not self.requested:
                     self.cv.wait()
-                number, cam = self.requested.pop(0)
+                # the key stays requested until its result is stored: a
+                # request() meanwhile must not queue it again, since a
+                # sequential source (a video) cannot go back to it
+                number, cam = self.requested[0]
             try:
                 img = self.inner.frame(number, cam)
             except Exception as e:  # re-raised in frame()
                 img = e
-            with self.lock:
-                self.results[(number, cam)] = img
             with self.cv:
+                with self.lock:
+                    self.results[(number, cam)] = img
+                self.requested.pop(0)
                 self.cv.notify_all()
 
     def request(self, number: int, camera_ind: int = 0):

@@ -1,6 +1,7 @@
 """Leader/follower/frame sample synchronization (host side): a copy of the
 reference package's ``odometry/sample_sync.py``, the pure-Python
-synchronizer (its native binding ``io/native_sync.py`` is not ported).
+synchronizer (``VioApi`` runs the native one, ``io/native_sync.py``, where
+the library builds).
 
 Port of the reference SampleSync (reference: src/odometry/sample_sync.cpp):
 gyroscope samples are the "leader" clock, accelerometer samples ("follower")

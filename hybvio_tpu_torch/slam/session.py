@@ -183,6 +183,10 @@ class Slam:
         self._kp_detector = None
         self._kp_shape = None
         self._kp_cap = 0
+        # which detector the session built: "native" (slam/native_orb.py,
+        # the C++ detector on the host) or "torch" (slam/keypoints.py, on
+        # the session's device); None before the first keyframe
+        self.keypoint_detector = None
         # kf_order index up to which a global structure sweep has already
         # run (see _global_structure_ba / end teardown amortization)
         self._clean_upto = 0
@@ -436,24 +440,35 @@ class Slam:
 
     def _add_keypoints(self, kf: KeyFrame, image) -> None:
         """Self-detected multi-scale ORB keypoints (reference: slam.orb*
-        family, parameter_definitions.c:479-484; slam/keypoints.py for the
-        detector, on the session's device). Each keypoint is aliased to the
-        nearest tracker feature within a level-scaled pixel radius, tying it
-        to that feature's map point so scale-invariant keypoint matches
-        convert to 3D-3D pairs for loop-closure verification. The
-        reference's native C++ detector (slam/native_orb.py) is not ported:
-        the torch detector always runs, and a failure raises."""
+        family, parameter_definitions.c:479-484). Each keypoint is aliased to
+        the nearest tracker feature within a level-scaled pixel radius,
+        tying it to that feature's map point so scale-invariant keypoint
+        matches convert to 3D-3D pairs for loop-closure verification.
+
+        The native C++ detector runs first, as the reference's does
+        (slam/native_orb.py: milliseconds on the host, the frame copied
+        there once); where the native library does not load (the reason
+        logged once by utils/native.py) or HYBVIO_NATIVE_ORB=0, the torch
+        detector (slam/keypoints.py) runs on the session's device, with the
+        same contract. ``keypoint_detector`` names the one built."""
         ps = self.ps
         image = self._on_device(image)
         H, W = image.shape
         if self._kp_detector is None or self._kp_shape != (H, W):
-            from .keypoints import make_multiscale_orb
+            kwargs = dict(n_levels=int(ps.orbScaleLevels),
+                          scale_factor=float(ps.orbScaleFactor),
+                          thr_init=float(ps.orbInitialFastThreshold) / 255.0,
+                          thr_min=float(ps.orbMinFastThreshold) / 255.0)
+            from .native_orb import make_native_orb, native_orb_available
 
-            self._kp_detector, self._kp_cap = make_multiscale_orb(
-                H, W, n_levels=int(ps.orbScaleLevels),
-                scale_factor=float(ps.orbScaleFactor),
-                thr_init=float(ps.orbInitialFastThreshold) / 255.0,
-                thr_min=float(ps.orbMinFastThreshold) / 255.0)
+            if native_orb_available():
+                self._kp_detector, self._kp_cap = make_native_orb(H, W, **kwargs)
+                self.keypoint_detector = "native"
+            else:
+                from .keypoints import make_multiscale_orb
+
+                self._kp_detector, self._kp_cap = make_multiscale_orb(H, W, **kwargs)
+                self.keypoint_detector = "torch"
             self._kp_shape = (H, W)
         pts, lvl, desc, ok = self._kp_detector(image)
         kf.kp_pts, kf.kp_levels = pts, lvl

@@ -373,9 +373,28 @@ def test_recording_only_records_without_running(tmp_path):
     gps = np.asarray(api.pose_histories["gps"])
     np.testing.assert_array_equal(gps, np.asarray(ref_api.pose_histories["gps"]))
     assert np.allclose(gps[0, 1:], 0.0) and 100.0 < gps[1, 1] < 120.0 and gps[1, 3] == 2.5
-    with pytest.raises(NotImplementedError, match="odometry/debug.py"):
-        api.debug_api = object()
-    with pytest.raises(NotImplementedError, match="visualizations"):
-        api.set_visualization("TRACKS")
-    with pytest.raises(NotImplementedError, match="native_sync"):
-        VioApi(Parameters(), 64, 48, recording_only=True, native_sync=True, device="cpu")
+    # a debug publisher and a visualization are accepted; a recording-only
+    # session publishes and renders nothing (no frame is ever retired)
+    from hybvio_tpu_torch.api.visualizations import VisualizationMode
+    from hybvio_tpu_torch.odometry.debug import DebugAPI, RecordingPublisher
+
+    api.debug_api = DebugAPI(RecordingPublisher())
+    api.set_visualization(VisualizationMode.TRACKS)
+    assert api.render_visualization() is None and api.debug_api.publisher.frames == []
+    # the synchronizer the reference picks: native by default, Python when
+    # asked, under HYBVIO_NATIVE_SYNC=0 or with a second camera's time shift
+    shifted = Parameters()
+    shifted.odometry.secondImuToCameraShiftSeconds = 0.01
+    r_shifted = RParams()
+    r_shifted.odometry.secondImuToCameraShiftSeconds = 0.01
+    for kw, env, (pp, rp), want in (
+            ({}, "1", (Parameters(), RParams()), "NativeSampleSync"),
+            ({"native_sync": True}, "0", (Parameters(), RParams()), "NativeSampleSync"),
+            ({"native_sync": False}, "1", (Parameters(), RParams()), "SampleSync"),
+            ({}, "0", (Parameters(), RParams()), "SampleSync"),
+            ({}, "1", (shifted, r_shifted), "SampleSync")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("HYBVIO_NATIVE_SYNC", env)
+            got = VioApi(pp, 64, 48, recording_only=True, device="cpu", **kw).sample_sync
+            ref = RVioApi(rp, 64, 48, recording_only=True, **kw).sample_sync
+        assert type(got).__name__ == type(ref).__name__ == want, (kw, env)

@@ -8,8 +8,9 @@ as it runs by default and with -timer, each frame step starting from the
 reference's state at the same point (as in tests/test_torch_api.py): every
 field of every output line equals the reference's, status, time and focal
 length exactly, floats to torch_parity.mono_step_tol; the -timer report has
-the reference's labels. Unported inputs (a video, with or without the
-legacy CSV beside it) and flags raise NotImplementedError."""
+the reference's labels. The display flags and the SLAM viewers write their
+views; a video, with the legacy CSV beside it or in a dataset folder,
+runs through VideoFileSource."""
 import contextlib
 import io
 import json
@@ -120,6 +121,21 @@ def test_cli_honours_hybvio_platform(runs, tmp_path, monkeypatch):
         run([f"-i={runs['dataset']}"])
 
 
+# the SLAM flags that make a keyframe of every frame in a few frames
+# (tests/test_torch_vislam.py's CLI run)
+SLAM_FLAGS = ("-slamThread=false", "-keyframeCandidateInterval=1", "-keyframeDecisionAlways",
+              "-orbExtraKeyPoints=false", "-minTriangulationAngleTwoObs=0.5")
+VIS_FRAMES = 5  # frames of each display run: 2 outputs
+
+
+# each case's views: a file-name pattern per flag (api/visualizations.py
+# renders them; -c = -displayVideo, -p = -displayPose)
+FLAG_VIEWS = {"-displayKeyframe": r"keyframe_\d{5}\.png", "-displayVideo": r"video_\d{6}\.png",
+              "-c": r"video_\d{6}\.png", "-p": r"pose_\d{6}\.png",
+              "-visualizeOrbMatching": r"orb_match_\d{5}\.png",
+              "-displayCovarianceMagnitude": r"cov_\d{6}\.png"}
+
+
 @pytest.mark.parametrize("flags, match", [
     (["-useSlam", "-displayKeyframe"], "visualizations"),
     (["-displayVideo"], "visualizations"),
@@ -130,29 +146,89 @@ def test_cli_honours_hybvio_platform(runs, tmp_path, monkeypatch):
     (["-displayCovarianceMagnitude"], "visualizations"),
 ])
 def test_cli_unported_flags_raise(runs, tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        run([f"-i={runs['dataset']}", f"-o={tmp_path / 'x.jsonl'}", *tp.API_FLAGS, *flags],
-            device="cpu")
+    """Each display flag and SLAM viewer, which raised before the
+    visualizations (``match``) were ported, writes its views under
+    -visualizationPath with the reference's names (one a retired output for
+    the video views, one a new keyframe or match for the viewers), and the
+    outputs are those of the run without it. -visualizationPath with no
+    display flag writes nothing and makes no directory. (The file names
+    against the reference's own run: tests/test_torch_visualizations.py.)"""
+    vis = tmp_path / "vis"
+    views = [FLAG_VIEWS[f] for f in flags if f in FLAG_VIEWS]
+    extra = list(flags) + (list(SLAM_FLAGS) if "-useSlam" in flags else [])
+    if views:
+        extra.append(f"-visualizationPath={vis}")
+    out = tmp_path / "x.jsonl"
+    err = _run(lambda a: run(a, device="cpu"),
+               [f"-i={runs['dataset']}", f"-o={out}", f"-maxFrames={VIS_FRAMES}", *tp.API_FLAGS,
+                *extra])
+    lines = [json.loads(l) for l in open(out)]
+    assert [l["time"] for l in lines] == [l["time"] for l in runs["lines"]["port"][:len(lines)]]
+    assert len(lines) == VIS_FRAMES - 3 and "failed" not in err, err
+    if not views:
+        assert not os.path.exists("/nonexistent")
+        return
+    names = sorted(os.listdir(vis))
+    assert names and all(re.fullmatch(views[0], n) for n in names), names
+    if "-useSlam" not in flags:
+        assert len(names) == len(lines)
+
+
+def _write_video(dataset, path, fourcc):
+    """The dataset's first-camera frames as a colour video, the gray value in
+    every channel."""
+    import cv2
+
+    n = 0
+    while os.path.exists(os.path.join(dataset, f"frame_{n:06d}_cam0.npy")):
+        n += 1
+    H, W = np.load(os.path.join(dataset, "frame_000000_cam0.npy")).shape
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10, (W, H))
+    for k in range(n):
+        g = tp.to_uint8(np.load(os.path.join(dataset, f"frame_{k:06d}_cam0.npy")))
+        writer.write(np.repeat(g[..., None], 3, axis=-1))
+    writer.release()
+
+
+def _write_csv(dataset, path):
+    """The dataset's samples and frames as the legacy CSV (io/jsonl.py
+    read_csv_events: t, 4 gyroscope / 3 accelerometer, x, y, z; t, 1, frame)."""
+    rows = []
+    for line in open(os.path.join(dataset, "data.jsonl")):
+        j = json.loads(line)
+        if "sensor" in j:
+            code = 4 if j["sensor"]["type"] == "gyroscope" else 3
+            rows.append(",".join(map(repr, [j["time"], code, *j["sensor"]["values"]])))
+        elif "frames" in j:
+            rows.append(f"{j['time']!r},1,{j['number']}")
+    open(path, "w").write("\n".join(rows) + "\n")
 
 
 @pytest.mark.parametrize("layout, match", [
     ("mp4_csv", "VideoFileSource"), ("mov_csv", "VideoFileSource"), ("video", "io/video.py"),
     ("video_mov", "io/video.py")])
 def test_cli_unported_inputs_raise(runs, tmp_path, layout, match):
+    """Video input, which raised before io/video.py VideoFileSource (``match``)
+    was ported: a .mp4 or .mov of the dataset's frames (mp4v), with the
+    legacy CSV beside it (-i=<video>) or in a dataset folder beside
+    data.jsonl (data.mp4 / data.mov). The outputs come at the times of the
+    run over the .npy frames, finite, as many."""
     ds = tmp_path / layout
-    if layout.endswith("_csv"):  # a video with the legacy CSV beside it
-        ds.mkdir()
-        video = ds / f"data.{layout[:3]}"
-        video.write_bytes(b"")
-        (ds / "data.csv").write_text("0.0,4,0,0,0\n")
-        with pytest.raises(NotImplementedError, match=match):
-            run([f"-i={video}"], device="cpu")
-        return
+    ds.mkdir()
+    video = ds / ("data.mov" if layout in ("mov_csv", "video_mov") else "data.mp4")
+    _write_video(runs["dataset"], video, "mp4v")
+    if layout.endswith("_csv"):
+        _write_csv(runs["dataset"], ds / "data.csv")
+        source = video
     else:
-        ds.mkdir()
-        lines = open(os.path.join(runs["dataset"], "data.jsonl")).read().splitlines()
-        (ds / ("data.mov" if layout == "video_mov" else "data.mp4")).write_bytes(b"")
-        (ds / "data.jsonl").write_text("\n".join(lines) + "\n")
-    with pytest.raises(NotImplementedError, match=match):
-        run([f"-i={ds}", f"-o={tmp_path / 'x.jsonl'}", "-maxTracks=32", "-pyrLKMaxLevel=2",
-             "-pyrLKWindowSize=13", "-cameraTrailLength=6"], device="cpu")
+        (ds / "data.jsonl").write_text(open(os.path.join(runs["dataset"], "data.jsonl")).read())
+        (ds / "parameters.txt").write_text(
+            open(os.path.join(runs["dataset"], "parameters.txt")).read())
+        source = ds
+    out = tmp_path / "x.jsonl"
+    _run(lambda a: run(a, device="cpu"),
+         [f"-i={source}", f"-o={out}", f"-maxFrames={VIS_FRAMES}", *tp.API_FLAGS])
+    lines = [json.loads(l) for l in open(out)]
+    assert len(lines) == VIS_FRAMES - 3
+    assert [l["time"] for l in lines] == [l["time"] for l in runs["lines"]["port"][:len(lines)]]
+    assert np.isfinite(np.concatenate([_values(l["position"]) for l in lines])).all()

@@ -381,9 +381,10 @@ def test_unported_options_still_raise():
     """Every estimator option builds now: the square-root filter with its
     factor (the initial diagonal's square root; tests/test_torch_sqrt_ekf.py
     holds it to the reference) and independent stereo triangulation with the
-    second-to-first camera transform its pre-triangulation uses. What the
-    port still lacks around the estimator raises: the native sample
-    synchronizer (io/native_sync.py)."""
+    second-to-first camera transform its pre-triangulation uses. Around the
+    estimator nothing raises any more: asked for, the native sample
+    synchronizer (io/native_sync.py, which used to raise) runs under either
+    option, as the reference's does."""
     from hybvio_tpu_torch.api.vio import VioApi
     from hybvio_tpu_torch.geometry.cameras import build_pinhole as port_pinhole
 
@@ -402,8 +403,8 @@ def test_unported_options_still_raise():
     dense = Backend(Parameters(), PortDerived.from_parameters(Parameters()), (cam,),
                     max_tracks=T).init_state(jr.prng_key(torch.arange(1))).ekf.P[0]
     assert sq.sqrt_mode and torch.equal(P, torch.sqrt(dense[:P.shape[0], :P.shape[0]]))
-    with pytest.raises(NotImplementedError, match="native_sync"):
-        VioApi(p, W, H, recording_only=True, native_sync=True, device="cpu")
+    api = VioApi(p, W, H, recording_only=True, native_sync=True, device="cpu")
+    assert type(api.sample_sync).__name__ == "NativeSampleSync"
     p = stereo_params("useIndependentStereoTriangulation")
     derived = PortDerived.from_parameters(p)
     backend = Backend(p, derived, (cam, cam), max_tracks=T)

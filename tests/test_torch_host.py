@@ -201,14 +201,18 @@ def _events(mod, path):
              [dataclasses.astuple(f) for f in e.frames or []]) for e in mod.read_jsonl_events(path)]
 
 
-def test_jsonl_round_trip_equals_reference(tmp_path, monkeypatch):
+@pytest.mark.parametrize("reader", ["native", "python"])
+def test_jsonl_round_trip_equals_reference(tmp_path, monkeypatch, reader):
     """The port's Recorder writes the reference's bytes and frames; the
-    port's reader gives the events of the reference's Python reader (its
-    behavioural spec; the native parser is not ported) and the same pose
-    histories."""
+    port's reader gives the events of the reference's, each on its native
+    parser (the default; echo events for the calibration lines included) or
+    each on its Python loop, and the same pose histories."""
     from hybvio_tpu.io import native_jsonl
+    from hybvio_tpu_torch.io import native_jsonl as p_native_jsonl
 
-    monkeypatch.setattr(native_jsonl, "iter_events", lambda path: None)
+    if reader == "python":
+        monkeypatch.setattr(native_jsonl, "iter_events", lambda path: None)
+        monkeypatch.setattr(p_native_jsonl, "iter_events", lambda path: None)
     p_path = _record(p_jsonl, tmp_path / "port")
     r_path = _record(r_jsonl, tmp_path / "ref")
     assert open(p_path).read() == open(r_path).read()
@@ -219,6 +223,8 @@ def test_jsonl_round_trip_equals_reference(tmp_path, monkeypatch):
                                           np.load(tmp_path / "ref" / name))
     events = _events(p_jsonl, p_path)
     assert [e[0] for e in events].count(p_jsonl.FRAME) == 3
+    assert p_jsonl.read_jsonl_events(p_path).reader == reader
+    assert [e[0] for e in events].count(p_jsonl.ECHO) == (6 if reader == "native" else 3)
     assert events == _events(r_jsonl, r_path)
     ph, rh = p_jsonl.get_pose_histories(p_path), r_jsonl.get_pose_histories(r_path)
     assert sorted(ph) == sorted(rh) == ["groundTruth"]
@@ -436,8 +442,53 @@ def test_frame_sources_equal_reference(tmp_path):
         assert p.shape == r.shape
         for n, c in ((0, 0), (1, 0), (0, 1), (2, 1)) if d == tmp_path else ((0, 0), (1, 0)):
             np.testing.assert_array_equal(p.frame(n, c), np.asarray(r.frame(n, c)))
-    with pytest.raises(NotImplementedError, match="io/video.py"):
-        p_video.open_frame_source(str(tmp_path / "data.mp4"))
+    # a video: the reference's frames through cv2, and its error for a file
+    # cv2 cannot read (tests/test_torch_visualizations.py holds the decode
+    # of .avi and .mp4 against the reference frame by frame)
+    import cv2
+
+    path = str(tmp_path / "data.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (8, 6))
+    for n in range(3):
+        writer.write((rng.rand(6, 8, 3) * 255).astype(np.uint8))
+    writer.release()
+    p, r = p_video.open_frame_source(path), r_video.open_frame_source(path)
+    assert p.shape == r.shape == (6, 8)
+    for n in range(3):
+        np.testing.assert_array_equal(p.frame(n), r.frame(n))
+    (tmp_path / "data.mp4").write_bytes(b"")
+    for mod in (p_video, r_video):
+        with pytest.raises(RuntimeError, match="cannot read"):
+            mod.open_frame_source(str(tmp_path / "data.mp4"))
+
+
+def test_prefetching_source_reads_each_frame_once():
+    """The reader thread over a sequential source (a video reads forward
+    only): each frame is decoded once, in order, however the consumer's
+    read-ahead requests interleave with the decoding (the reference
+    package's copy queues a frame again while it is being decoded: 20 of 40
+    frames twice in this set-up)."""
+    import time
+
+    class Sequential(p_video.FrameSource):
+        def __init__(self):
+            self.read = []
+
+        def frame(self, number, camera_ind=0):
+            self.read.append(number)
+            time.sleep(0.003)
+            return np.full((2, 2), number, np.float32)
+
+        @property
+        def shape(self):
+            return (2, 2)
+
+    inner = Sequential()
+    src = p_video.PrefetchingSource(inner, lookahead=4)
+    for n in range(40):
+        assert src.frame(n)[0, 0] == n
+        time.sleep(0.0015)
+    assert inner.read[:40] == list(range(40)) and len(set(inner.read)) == len(inner.read)
 
 
 def test_load_image_file_equals_reference(tmp_path):

@@ -472,9 +472,20 @@ def test_ransac_pnp_equals_reference(seed):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=SOLVE_TOL)
 
 
-def test_native_orb_is_not_ported():
+def test_native_orb_is_not_ported(monkeypatch):
+    """The native ORB detector, which raised before it was ported, builds
+    and detects the reference's native keypoints (tests/test_torch_native.py
+    holds it bit for bit), and HYBVIO_NATIVE_ORB=0 turns it off as the
+    reference's switch does."""
+    from hybvio_tpu.slam import native_orb as r_native_orb
     from hybvio_tpu_torch.slam import native_orb
 
-    assert not native_orb.native_orb_available()
-    with pytest.raises(NotImplementedError, match="slam/native_orb.py"):
-        native_orb.make_native_orb(240, 320)
+    assert native_orb.native_orb_available()
+    det, cap = native_orb.make_native_orb(240, 320)
+    rdet, rcap = r_native_orb.make_native_orb(240, 320)
+    img = np.clip(np.random.RandomState(0).rand(240, 320), 0, 1).astype(np.float32)
+    assert cap == rcap
+    for a, b in zip(det(img), rdet(img)):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setenv("HYBVIO_NATIVE_ORB", "0")
+    assert not native_orb.native_orb_available() and not r_native_orb.native_orb_available()

@@ -5,8 +5,10 @@ their observations and track aliases, loop events and loop edges exactly;
 keyframe poses and map-point positions to POSE_TOL; the end-of-run global
 adjustment and the saved map too.
 
-The reference is pinned to its JAX keypoint detector (its native C++ one,
-built in this tree, is not ported). The scenarios' frames are test_slam.py's
+The reference is pinned to its JAX keypoint detector and the port to its
+torch detector (each package's native C++ one is held by
+test_session_native_orb_on_both_sides_equals_reference and
+tests/test_torch_native.py). The scenarios' frames are test_slam.py's
 flat 0.3 images with 5x5 boxes; there a descriptor bit is rounding noise
 wherever a BRIEF pair's samples are equal up to rounding, and which way it
 falls depends on each package's float32 reduction order
@@ -41,6 +43,7 @@ from hybvio_tpu.slam.host import host_jit, np_rmat_to_quat
 from hybvio_tpu.slam.session import Slam as RSlam
 from hybvio_tpu_torch.config import Parameters
 from hybvio_tpu_torch.slam import keypoints as p_keypoints
+from hybvio_tpu_torch.slam import native_orb as p_native_orb
 from hybvio_tpu_torch.slam import orb as p_orb
 from hybvio_tpu_torch.slam.session import Slam
 from test_slam import cam_pose_cw, project_to_norm
@@ -62,13 +65,17 @@ def _cached_ref_detector(H, W, **kw):
 
 
 _REF_BA = host_jit(lambda prob: r_ba_iterate(prob, iterations=8))
+# each package's own choice of detector, before the file's fixture pins them
+_NATIVE_ORB = (r_native_orb.native_orb_available, p_native_orb.native_orb_available)
 
 
 @pytest.fixture(autouse=True)
 def reference_jax_detector(monkeypatch):
-    """The reference on its JAX detector; its detector and its local BA
-    (the same programs) compiled once per shape for the whole file."""
+    """The reference on its JAX detector, the port on its torch detector;
+    the reference's detector and its local BA (the same programs) compiled
+    once per shape for the whole file."""
     monkeypatch.setattr(r_native_orb, "native_orb_available", lambda: False)
+    monkeypatch.setattr(p_native_orb, "native_orb_available", lambda: False)
     monkeypatch.setattr(r_keypoints, "make_multiscale_orb", _cached_ref_detector)
     monkeypatch.setattr(RSlam, "_ba_fn", lambda self: _REF_BA)
 
@@ -281,6 +288,22 @@ def test_session_loop_closure_with_pose_graph_equals_reference(monkeypatch):
     _lock_descriptors(monkeypatch)
     port, _ = _run(_global_revisit_frames(), _global_setup, {}, end=True)
     assert any(e.applied for e in port.loop_events) and port.loop_edges
+
+
+def test_session_native_orb_on_both_sides_equals_reference(monkeypatch):
+    """Each package on its default, native C++ detector (the same source,
+    so the same keypoints): the textured revisit of
+    test_torch_slam_textured.py with the multi-scale keypoints on, frame by
+    frame, the loop closed."""
+    monkeypatch.setattr(r_native_orb, "native_orb_available", _NATIVE_ORB[0])
+    monkeypatch.setattr(p_native_orb, "native_orb_available", _NATIVE_ORB[1])
+    port, ref = _run(_revisit_frames(textured=True), lambda p: _loop_setup(p, keypoints=True),
+                     dict(max_ba_keyframes=8))
+    assert port.keypoint_detector == "native"
+    assert ref._kp_detector.__qualname__.startswith("make_native_orb")
+    assert port.loop_events and ref.keyframes[ref.kf_order[-1]].kp_valid.sum() > 50
+    for k in ref.kf_order:
+        np.testing.assert_array_equal(port.keyframes[k].kp_desc, ref.keyframes[k].kp_desc)
 
 
 def test_session_keyframe_culling_equals_reference():

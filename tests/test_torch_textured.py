@@ -243,4 +243,6 @@ def test_long_probe_matches_reference(monkeypatch, family):
     got = plong.run_long_probe(family, dtype=torch.float64, device="cpu", **kw)
     assert got["finite"] and got["frames"] == ref["frames"]
     assert got["resolution"] == ref["resolution"] == "192x123"
+    if family == "stereo_api":  # the synchronizer that ran (HYBVIO_NATIVE_SYNC=0: Python)
+        assert got["native_sync"] is ref["native_sync"] is False
     np.testing.assert_allclose(port_pos[0], ref_pos[0], rtol=0, atol=POS_TOL)
