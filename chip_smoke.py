@@ -158,6 +158,29 @@ Phases (any failure exits non-zero and prints no result line):
      Fails on a native module that fell back, a non-finite output or view,
      a view file missing, a host sync in a step, an ATE over 0.05 m or a
      CORNER_MEASURE view that launched no corner-response kernel.
+ 12. the multi-device layer (run_multi_device), over a Mesh of MESH_SHARDS
+     (4) shards that all list the card (placement on one card, not
+     scaling; a mesh of several cards is written and runs only where the
+     host has them): (a) mesh_stereo_per_lane, stereo_per_lane at
+     MESH_LANES (64) lanes, 16 a shard (phase 4's kernel shapes; lane b's
+     world seeded 1000 + b, so shard 0's lanes are phase 4's), MESH_STEPS
+     (10) steps: median step and aggregate frames/s beside phase 4's
+     16-lane step; (b) scan_stereo, make_batched_scan over phase 4's
+     stereo inputs (B=16, shared frames, SCAN_STEPS (20) frames), once
+     under the sync check and once timed, wall ms a frame beside phase 4's
+     median; (c) make_sharded_ba against ba_iterate on the card at NK = 20,
+     MP = 1024, float64, 8 iterations (tools/scaling_bench.py's mesh check),
+     each timed between CUDA events; (d) phase 8a's "BA on noisy odometry"
+     through a card session with set_ba_mesh against a CPU session without;
+     (e) graft_entry.dryrun_multichip over every card. Fails on a
+     non-finite lane, an ATE median over 0.05 m, a host sync in a step or
+     in scan_run, shard 0's or the scan's positions parting from phase 4's
+     by more than 1e-6 m, the sharded BA's poses or points parting from the
+     unsharded one's by more than 1e-5 / 1e-4, the session's ids differing
+     or its poses parting by more than SLAM_POSE_TOL, no sharded BA run, or
+     a dry run that raises. (a) and (b) count their launches under their
+     own path names; (c) and (d) launch no kernel, and (e)'s launches at
+     its 96x64 shapes (not timed in phase 3) are not counted.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -311,6 +334,17 @@ SLAM_VIEWERS = {"displayKeyframe", "visualizeOrbs", "visualizeOrbPyramid", "visu
                 "visualizeLoopOrbMatching", "visualizeMapPointSearch"}
 SLAM_VIEWS = ("keyframe", "orb_pyramid", "map_search", "orb_match")  # loop_match needs a loop
 STENCIL_TOL = 1e-6
+# phase 12: the multi-device layer on one card, a mesh of MESH_SHARDS shards
+# that all list the card (placement, not scaling: the host has one card)
+MESH_SHARDS = 4
+MESH_LANES = MESH_SHARDS * B  # B lanes a shard: phase 4's kernel shapes
+MESH_STEPS = 10
+MESH_POS_TOL = 1e-6  # m: shard 0 and the scan against phase 4 (bit-equal expected)
+SCAN_STEPS = 20
+BA_NK, BA_MP, BA_ITERATIONS = 20, 1024, 8  # tools/scaling_bench.py's mesh check
+BA_POSE_TOL, BA_POINT_TOL = 1e-5, 1e-4  # the same check's bounds
+BA_TIMED_RUNS = 5
+MESH_SESSION = "BA on noisy odometry"  # the phase-8a scenario run with set_ba_mesh
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
 SLEEP_CYCLES_PER_S = 2e9  # the H100's top SM clock, rounded up
@@ -338,6 +372,8 @@ CARD = ""  # nvidia-smi's "name, power limit", set in main
 PATH_MEDIAN_MS = {}  # phase 4's median step of each path
 PHASE7_WALL = {}  # phase 7's per-frame wall time at B=1 (median, p90 ms) of mono and stereo
 VISLAM_STATS = {}  # phase 8b's and 11's vislam runs: name -> their numbers
+PATH_POSITIONS = {}  # phase 4's positions (F - 1, B, 3) of each path
+STEREO_INPUTS = {}  # phase 4's stereo inputs (frames on the card, IMU), for phase 12b
 
 
 def say(msg: str) -> None:
@@ -1194,15 +1230,17 @@ def path_inputs(config, dev):
     return params, derived, cams, seq, frames, batches
 
 
-def per_lane_inputs(dev, dtype=None, frames=FRAMES):
-    """(params, derived, cameras, start time, ground truth (B, F - 1, 3),
-    frame(fi) -> (left, right) (B, H, W) views of frames rendered on the
-    card, IMU batches) of the stereo preset over B distinct worlds, built as
-    bench.py's seed-diverse leg builds them: lane b's sequence has seed
-    1000 + b and its radius, angular speed and z-wobble drawn from
-    RandomState(7000 + b); 500 landmarks 6 m out, the IMU noise of
-    path_inputs, no per-lane jitter beyond each lane's own noise. The IMU
-    batches are of ``dtype`` (default: the port's filter dtype on ``dev``)."""
+def per_lane_inputs(dev, dtype=None, frames=FRAMES, lanes=None):
+    """(params, derived, cameras, start time, ground truth (lanes, F - 1,
+    3), frame(fi) -> (left, right) (lanes, H, W) views of frames rendered
+    on the card, IMU batches) of the stereo preset over ``lanes`` (default
+    B) distinct worlds, built as bench.py's seed-diverse leg builds them: lane b's
+    sequence has seed 1000 + b and its radius, angular speed and z-wobble
+    drawn from RandomState(7000 + b); 500 landmarks 6 m out, the IMU noise
+    of path_inputs, no per-lane jitter beyond each lane's own noise. The IMU
+    batches are of ``dtype`` (default: the port's filter dtype on ``dev``).
+    Frames render B lanes a call, so lanes 0..B-1 of any ``lanes`` get the
+    same frames."""
     import torch
 
     from hybvio_tpu_torch import runtime
@@ -1214,8 +1252,9 @@ def per_lane_inputs(dev, dtype=None, frames=FRAMES):
     H, W = FRAME_HW["stereo_per_lane"]
     params, derived, cams = _finalize(synthetic_bench_params("stereo"), W, H)
     pt = params.tracker
+    lanes = B if lanes is None else lanes
     seqs = []
-    for b in range(B):
+    for b in range(lanes):
         lane_rng = np.random.RandomState(7000 + b)
         seqs.append(generate_sequence(
             duration=frames / 20.0 + 0.25, imu_rate=200.0, frame_rate=20.0,
@@ -1237,7 +1276,8 @@ def per_lane_inputs(dev, dtype=None, frames=FRAMES):
                            device=dev)
 
     def frame(fi):
-        out = render(landmarks, pos[fi], quat[fi])  # (B, 2, H, W)
+        out = torch.cat([render(landmarks[a:a + B], pos[fi, a:a + B], quat[fi, a:a + B])
+                         for a in range(0, lanes, B)])  # (lanes, 2, H, W)
         return out[:, 0], out[:, 1]
 
     S = int(np.max(np.diff(np.concatenate([[0], idx + 1]))))
@@ -1250,10 +1290,11 @@ def per_lane_inputs(dev, dtype=None, frames=FRAMES):
         t = np.pad(times[prev:k], (0, pad), constant_values=times[k - 1])
         gB = np.stack([np.pad(s.gyro[prev:k], ((0, pad), (0, 0))) for s in seqs])
         aB = np.stack([np.pad(s.acc[prev:k], ((0, pad), (0, 0))) for s in seqs])
-        batches.append(ImuBatch(fl(np.tile(t, (B, 1))), fl(gB), fl(aB),
-                                torch.as_tensor(np.tile(np.arange(S) < n, (B, 1)), device=dev)))
+        batches.append(ImuBatch(fl(np.tile(t, (lanes, 1))), fl(gB), fl(aB),
+                                torch.as_tensor(np.tile(np.arange(S) < n, (lanes, 1)),
+                                                device=dev)))
         prev = k
-    gt = np.stack([s.pos[idx[1:]] - s.pos[0] for s in seqs])  # (B, F - 1, 3)
+    gt = np.stack([s.pos[idx[1:]] - s.pos[0] for s in seqs])  # (lanes, F - 1, 3)
     return params, derived, cams, float(times[idx[0]]), gt, frame, batches
 
 
@@ -1339,6 +1380,10 @@ def run_path(dev, config):
     est = torch.stack(positions).cpu().numpy()  # (F-1, B, 3)
     if est.shape != (F - 1, B, 3):
         raise AssertionError(f"{config}: positions of shape {est.shape}")
+    PATH_POSITIONS[config] = est
+    if config == "stereo":  # phase 12b scans the same inputs
+        STEREO_INPUTS.update(params=params, derived=derived, cams=cams, start=start,
+                             frames=frames, batches=batches)
     finite = [b for b in range(B) if np.isfinite(est[:, b]).all()]
     ates = [float(ate_rmse(est[:, b], gt[b])) for b in finite]
     timed = step_ms[2:]  # the first step is the warm-up, the second counted the syncs
@@ -1371,6 +1416,13 @@ def run_path(dev, config):
     if M and not (claimed and hybrid):
         raise AssertionError(f"{config}: the hybrid map did not run: {claimed} slots claimed, "
                              f"{hybrid} PF_HYBRID points")
+    check_path_kernels(config, launches)
+    return launches, by_shape, sum(syncs.values())
+
+
+def check_path_kernels(config, launches):
+    """Fail unless the path launched each of the four kernels every path
+    runs and a port kernel of every Pallas kernel."""
     missing = [k for k in PATH_KERNELS if not launches[k]]
     if missing:
         raise AssertionError(f"{config}: kernels not launched: {missing}")
@@ -1381,7 +1433,6 @@ def run_path(dev, config):
     never = [ref for ref, names in ports.items() if not any(launches[n] for n in names)]
     if never:
         raise AssertionError(f"{config}: Pallas kernels with no port kernel launched: {never}")
-    return launches, by_shape, sum(syncs.values())
 
 
 def run_options(dev):
@@ -1736,6 +1787,25 @@ def slam_scenarios():
             ("applied loops", applied, {}, global_revisit(), True)]
 
 
+def loop_events(s):
+    return [(e.kf_id, e.matched_kf_id, e.n_matches, e.applied) for e in s.loop_events]
+
+
+def session_diff(card, cpu):
+    """(the same keyframe ids, map-point ids, track aliases and loop
+    events, max keyframe pose difference, max map point difference) of two
+    sessions over the same frames (the differences NaN unless the ids
+    match)."""
+    same = (card.kf_order == cpu.kf_order and sorted(card.points) == sorted(cpu.points)
+            and card.track_to_point == cpu.track_to_point
+            and loop_events(card) == loop_events(cpu))
+    pose_err = max(float(np.abs(card.keyframes[k].pose - cpu.keyframes[k].pose).max())
+                   for k in cpu.kf_order) if same else float("nan")
+    point_err = max([float(np.abs(card.points[i].position - cpu.points[i].position).max())
+                     for i in cpu.points] or [0.0]) if same else float("nan")
+    return same, pose_err, point_err
+
+
 def run_slam_sessions(dev):
     """Phase 8a: each scenario of slam_scenarios through a Slam session on
     the card and one on the CPU in this process, frame by frame: the same
@@ -1763,27 +1833,20 @@ def run_slam_sessions(dev):
                 s.end()
             runs.append((s, per_frame, time.perf_counter() - t0))
         (card, card_s, card_end), (cpu, cpu_s, cpu_end) = runs
-        events = lambda s: [(e.kf_id, e.matched_kf_id, e.n_matches, e.applied)
-                            for e in s.loop_events]
-        same = (card.kf_order == cpu.kf_order and sorted(card.points) == sorted(cpu.points)
-                and card.track_to_point == cpu.track_to_point and events(card) == events(cpu))
-        pose_err = max(float(np.abs(card.keyframes[k].pose - cpu.keyframes[k].pose).max())
-                       for k in cpu.kf_order) if same else float("nan")
-        point_err = max([float(np.abs(card.points[i].position - cpu.points[i].position).max())
-                         for i in cpu.points] or [0.0]) if same else float("nan")
+        same, pose_err, point_err = session_diff(card, cpu)
         say(f"slam session {name}: {len(frames)} frames, card {1e3 * sum(card_s):.1f} ms "
             f"(per frame median {1e3 * statistics.median(card_s):.1f} ms, first "
             f"{1e3 * card_s[0]:.1f} ms), CPU {1e3 * sum(cpu_s):.1f} ms"
             + (f"; end() card {card_end:.3f} s, CPU {cpu_end:.3f} s" if end else "")
             + f"; keyframes {card.kf_order}, {len(card.points)} map points, loop events "
-            f"{events(card)}, loop edges {len(card.loop_edges)}; card vs CPU: ids "
+            f"{loop_events(card)}, loop edges {len(card.loop_edges)}; card vs CPU: ids "
             f"{'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point diff "
             f"{point_err:.3g} (tol {SLAM_POSE_TOL})")
         if not same:
             raise AssertionError(f"slam session {name}: the card's ids or loop events differ "
                                  f"from the CPU's: keyframes {card.kf_order} / {cpu.kf_order}, "
                                  f"{len(card.points)} / {len(cpu.points)} points, loop events "
-                                 f"{events(card)} / {events(cpu)}")
+                                 f"{loop_events(card)} / {loop_events(cpu)}")
         if not (pose_err <= SLAM_POSE_TOL and point_err <= SLAM_POSE_TOL):
             raise AssertionError(f"slam session {name}: poses part by {pose_err}, points by "
                                  f"{point_err} > {SLAM_POSE_TOL}")
@@ -2706,6 +2769,256 @@ def run_textured(dev):
     return runs
 
 
+def run_mesh(dev, mesh):
+    """Phase 12a: stereo_per_lane at MESH_LANES lanes (lane b's world
+    seeded 1000 + b, as phase 4's) over ``mesh`` (B lanes a shard),
+    MESH_STEPS steps. Fails on a non-finite lane, an ATE median over
+    ATE_LIMIT_M, a host sync in a step, a path kernel not launched, or
+    shard 0's positions parting from phase 4's stereo_per_lane positions
+    over the same steps by more than MESH_POS_TOL. Returns (launches,
+    launches by input shape, host syncs of one step)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.eval.ate import ate_rmse
+    from hybvio_tpu_torch.parallel.batched import make_batched_vio
+
+    L, H, W = MESH_LANES, *FRAME_HW["stereo_per_lane"]
+    t0 = time.perf_counter()
+    # phase 4's sequences (their length sets their noise): lanes 0..B-1 are its lanes
+    params, derived, cams, start, gt, frame, batches = per_lane_inputs(
+        dev, frames=PATH_FRAMES.get("stereo_per_lane", FRAMES), lanes=L)
+    binit, bstep, vios = make_batched_vio(params, derived, cams, batch_size=L, mesh=mesh)
+    torch.cuda.synchronize()
+    say(f"mesh_stereo_per_lane (12a): {L} distinct worlds, {W}x{H} stereo rendered on the card "
+        f"each step, over a mesh of {mesh.size} shards on {sorted(set(map(str, mesh.devices)))} "
+        f"({L // mesh.size} lanes and one replica a shard); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    states = binit(frame(0), np.full(L, start), np.arange(L))
+    positions, step_ms = [], []
+    for fi in range(1, MESH_STEPS + 1):
+        images = frame(fi)  # rendered here, outside the timed step
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        if fi == 2:  # the host syncs of one step (not timed)
+            (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], images))
+        else:
+            states, out = bstep(states, batches[fi - 1], images)
+        torch.cuda.synchronize()
+        step_ms.append(1000.0 * (time.perf_counter() - ts))
+        positions.append(out.position)
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    est = torch.stack(positions).cpu().numpy()  # (steps, L, 3)
+    finite = [b for b in range(L) if np.isfinite(est[:, b]).all()]
+    ates = [float(ate_rmse(est[:, b], gt[b][:MESH_STEPS])) for b in finite]
+    ate_med = float(np.median(ates)) if ates else float("nan")
+    shard0 = float(np.abs(est[:, :B] - PATH_POSITIONS["stereo_per_lane"][:MESH_STEPS]).max())
+    timed = step_ms[2:]
+    med = statistics.median(timed)
+    say(f"mesh_stereo_per_lane (12a): B={L} over {mesh.size} shards, float32 filter, "
+        f"{MESH_STEPS} steps: median step {med:.2f} ms over steps 3-{MESH_STEPS} (stereo_per_lane "
+        f"at B={B} in phase 4: {PATH_MEDIAN_MS['stereo_per_lane']:.2f} ms), aggregate "
+        f"{L * len(timed) / (sum(timed) / 1000.0):.1f} frames/s, step 1 {step_ms[0]:.1f} ms; "
+        f"placement on one card, not scaling")
+    say(f"mesh_stereo_per_lane (12a): finite lanes {len(finite)}/{L}, ATE median {ate_med:.4f} m "
+        f"(max {max(ates) if ates else float('nan'):.4f} m); shard 0 against phase 4's "
+        f"stereo_per_lane over steps 1-{MESH_STEPS}: max position difference {shard0:.3g} m "
+        f"(tol {MESH_POS_TOL}); host syncs in one step (step 2): {sum(syncs.values())} "
+        f"{json.dumps(dict(sorted(syncs.items())))}")
+    say(f"mesh_stereo_per_lane (12a): kernel launches {json.dumps(launches)}")
+    if len(finite) != L:
+        raise AssertionError(f"mesh_stereo_per_lane: only {len(finite)}/{L} lanes finite")
+    if not ate_med <= ATE_LIMIT_M:
+        raise AssertionError(f"mesh_stereo_per_lane: ATE median {ate_med} m > {ATE_LIMIT_M} m")
+    if not shard0 <= MESH_POS_TOL:
+        raise AssertionError(f"mesh_stereo_per_lane: shard 0 parts from phase 4 by {shard0} m")
+    check_path_kernels("mesh_stereo_per_lane", launches)
+    return launches, by_shape, sum(syncs.values())
+
+
+def run_scan(dev):
+    """Phase 12b: make_batched_scan over phase 4's stereo inputs (B lanes,
+    shared frames, the same seeds and frames), SCAN_STEPS frames: once
+    under the sync check (its launches counted), once timed. Fails on a
+    host sync in scan_run, a path kernel not launched, or positions parting
+    from phase 4's eager ones by more than MESH_POS_TOL. Returns (launches,
+    launches by input shape, host syncs of the whole scan)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.odometry.backend import ImuBatch
+    from hybvio_tpu_torch.parallel.batched import make_batched_scan
+
+    inp, F = STEREO_INPUTS, SCAN_STEPS
+    binit, scan_run = make_batched_scan(inp["params"], inp["derived"], inp["cams"], batch_size=B,
+                                        device=dev)
+    frames = inp["frames"]
+    frames_stack = tuple(torch.stack([frames[fi][c] for fi in range(1, F + 1)]) for c in (0, 1))
+    imu_stack = ImuBatch(*(torch.stack(xs) for xs in zip(*inp["batches"][:F])))
+    t0s = np.full(B, inp["start"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    states = binit(frames[0], t0s, np.arange(B))
+    (_, checked), syncs = host_syncs(lambda: scan_run(states, imu_stack, frames_stack))
+    torch.cuda.synchronize()
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    states = binit(frames[0], t0s, np.arange(B))
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    _, positions = scan_run(states, imu_stack, frames_stack)
+    torch.cuda.synchronize()
+    wall_ms = 1000.0 * (time.perf_counter() - ts) / F
+    eager = PATH_POSITIONS["stereo"][:F]
+    diff = max(float(np.abs(p.cpu().numpy() - eager).max()) for p in (checked, positions))
+    say(f"scan_stereo (12b): make_batched_scan, B={B} shared frames, {F} frames staged on the "
+        f"card: {wall_ms:.2f} ms a frame (wall, the whole scan / {F}; phase 4's stereo median "
+        f"step {PATH_MEDIAN_MS['stereo']:.2f} ms); positions {tuple(positions.shape)} against "
+        f"phase 4's eager steps: max difference {diff:.3g} m (tol {MESH_POS_TOL}); host syncs in "
+        f"scan_run: {sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
+    say(f"scan_stereo (12b): kernel launches {json.dumps(launches)}")
+    if tuple(positions.shape) != (F, B, 3) or not diff <= MESH_POS_TOL:
+        raise AssertionError(f"scan_stereo: positions {tuple(positions.shape)} part from phase "
+                             f"4's by {diff} m")
+    check_path_kernels("scan_stereo", launches)
+    return launches, by_shape, sum(syncs.values())
+
+
+def ba_problem(dev, NK, MP, seed=0):
+    """tools/scaling_bench.py's well-posed BA problem (cameras on a line
+    looking at a point cloud, 0.002 observation noise, points off by 1%),
+    float64 tensors on ``dev``."""
+    import torch
+
+    from hybvio_tpu_torch.slam.ba import BAProblem
+
+    rng = np.random.RandomState(seed)
+    poses = np.zeros((NK, 7))
+    poses[:, 3] = 1.0
+    poses[:, 0] = np.linspace(0, 2.0, NK)
+    pts = rng.randn(MP, 3) * 2.0 + np.array([1.0, 0.0, 6.0])
+    obs_ip = np.zeros((NK, MP, 2))
+    obs_mask = np.zeros((NK, MP), bool)
+    for i in range(NK):
+        rel = pts - poses[i, :3]
+        obs_ip[i] = rel[:, :2] / rel[:, 2:3]
+        obs_mask[i] = rel[:, 2] > 1.0
+    obs_ip += 0.002 * rng.randn(*obs_ip.shape)
+    rel7 = np.zeros((NK - 1, 7))
+    rel7[:, 3] = 1.0
+    rel7[:, 0] = poses[1, 0] - poses[0, 0]
+    t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
+    return BAProblem(
+        poses=t(poses), points=t(pts * (1 + 0.01 * rng.randn(MP, 3))), obs_ip=t(obs_ip),
+        obs_mask=t(obs_mask), pose_valid=t(np.ones(NK, bool)), point_valid=t(np.ones(MP, bool)),
+        prior_rel=t(rel7), prior_mask=t(np.ones(NK - 1, bool)), prior_w_pos=t(5.0),
+        prior_w_rot=t(50.0))
+
+
+def run_sharded_ba(dev, mesh):
+    """Phase 12c: make_sharded_ba over ``mesh`` against ba_iterate on the
+    card, BA_ITERATIONS iterations at NK = BA_NK, MP = BA_MP, float64:
+    poses within BA_POSE_TOL, points within BA_POINT_TOL; each one's time
+    between CUDA events around the call, the median of BA_TIMED_RUNS after
+    a warm-up."""
+    import torch
+
+    from hybvio_tpu_torch.slam.ba import ba_iterate, make_sharded_ba
+
+    prob = ba_problem(dev, BA_NK, BA_MP)
+    sharded = make_sharded_ba(mesh, iterations=BA_ITERATIONS)
+    runs = {"sharded": lambda: sharded(prob),
+            "unsharded": lambda: ba_iterate(prob, iterations=BA_ITERATIONS)}
+    out, ms = {}, {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(BA_TIMED_RUNS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out[name] = fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms[name] = statistics.median(times)
+    (sp, sx, sc), (up, ux, uc) = out["sharded"], out["unsharded"]
+    pose_err = float((sp - up).abs().max())
+    point_err = float((sx - ux).abs().max())
+    say(f"sharded BA (12c): NK={BA_NK}, MP={BA_MP}, float64, {BA_ITERATIONS} iterations, "
+        f"{mesh.size} shards of {BA_MP // mesh.size} points on {sorted(set(map(str, mesh.devices)))}: "
+        f"{ms['sharded']:.3f} ms against ba_iterate's {ms['unsharded']:.3f} ms on the card (CUDA "
+        f"events around the call, median of {BA_TIMED_RUNS}); max pose difference "
+        f"{pose_err:.3g} (tol {BA_POSE_TOL}), max point difference {point_err:.3g} (tol "
+        f"{BA_POINT_TOL}); cost {float(sc):.6g} / {float(uc):.6g}")
+    if not (pose_err <= BA_POSE_TOL and point_err <= BA_POINT_TOL):
+        raise AssertionError(f"sharded BA: poses part by {pose_err}, points by {point_err}")
+
+
+def run_mesh_session(dev, mesh):
+    """Phase 12d: phase 8a's MESH_SESSION scenario through a card session
+    with set_ba_mesh(mesh) and a CPU session without: the same ids and loop
+    events, poses and points within SLAM_POSE_TOL, and the mesh's BA run."""
+    import torch
+
+    from hybvio_tpu_torch.config import Parameters
+    from hybvio_tpu_torch.slam.session import Slam
+
+    name, settings, kw, frames, _ = next(sc for sc in slam_scenarios() if sc[0] == MESH_SESSION)
+    sessions, calls = [], []
+    for d in (dev, torch.device("cpu")):
+        p = Parameters()
+        for k, v in settings.items():
+            setattr(p.slam, k, v)
+        s = Slam(p, device=d, **kw)
+        if d == dev:
+            s.set_ba_mesh(mesh)
+            ba = s._ba_sharded
+            s._ba_sharded = lambda prob: calls.append(1) or ba(prob)
+        t0 = time.perf_counter()
+        for img, T, ids, ip, t, k in frames:
+            s.add_frame(img, T, ids, ip, t=t, frame_num=k)
+        sessions.append((s, time.perf_counter() - t0))
+    (card, card_s), (cpu, cpu_s) = sessions
+    same, pose_err, point_err = session_diff(card, cpu)
+    say(f"slam session with set_ba_mesh (12d), {name}: {len(frames)} frames, card over "
+        f"{mesh.size} BA shards {1e3 * card_s:.1f} ms, CPU without a mesh {1e3 * cpu_s:.1f} ms; "
+        f"{len(calls)} sharded BA runs; keyframes {card.kf_order}, {len(card.points)} map "
+        f"points; ids {'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point "
+        f"diff {point_err:.3g} (tol {SLAM_POSE_TOL})")
+    if not same or not (pose_err <= SLAM_POSE_TOL and point_err <= SLAM_POSE_TOL):
+        raise AssertionError(f"slam session with set_ba_mesh: ids equal {same}, poses part by "
+                             f"{pose_err}, points by {point_err}")
+    if not calls:
+        raise AssertionError("slam session with set_ba_mesh: the sharded BA never ran")
+
+
+def run_multi_device(dev):
+    """Phase 12, the multi-device layer: (a) run_mesh, (b) run_scan, (c)
+    run_sharded_ba, (d) run_mesh_session over a mesh of MESH_SHARDS shards
+    on ``dev``, then (e) graft_entry.dryrun_multichip over every card.
+    Returns {path name: (launches, launches by shape, host syncs)} of (a)
+    and (b)."""
+    import torch
+
+    from hybvio_tpu_torch import graft_entry
+    from hybvio_tpu_torch.parallel.batched import Mesh
+
+    t0 = time.perf_counter()
+    mesh = Mesh((torch.device("cuda", torch.cuda.current_device()),) * MESH_SHARDS)
+    runs = {"mesh_stereo_per_lane": run_mesh(dev, mesh), "scan_stereo": run_scan(dev)}
+    run_sharded_ba(dev, mesh)
+    run_mesh_session(dev, mesh)
+    n = torch.cuda.device_count()
+    ts = time.perf_counter()
+    out = graft_entry.dryrun_multichip(n)
+    say(f"dryrun_multichip({n}) (12e): {time.perf_counter() - ts:.1f} s over {out['devices']}, "
+        f"positions finite {np.isfinite(out['positions']).all()}, BA cost {out['ba_cost']:.3g}; "
+        f"phase 12 {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2782,6 +3095,7 @@ def main() -> int:
         runs["euroc_cli"] = run_euroc_cli(dev)
         runs.update(run_textured(dev))
         runs.update(run_host_layers(dev))
+        runs.update(run_multi_device(dev))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

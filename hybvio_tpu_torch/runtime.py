@@ -114,6 +114,13 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def device_scope(device):
+    """A block with ``device`` current: its launches go to that device's
+    current stream in this thread. A no-op for the CPU."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def filter_dtype(device) -> torch.dtype:
     """float64 on the CPU (parity with the reference's x64 tests), float32
     on CUDA."""

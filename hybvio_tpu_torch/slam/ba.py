@@ -19,8 +19,10 @@ pose gauge-fixed), and back-substitutes points. Masked observations
 contribute zero. The solves take the ``_ex`` forms, which do not wait for
 the card to report a singular matrix.
 
-``make_sharded_ba`` (the reference's multi-chip BA over a mesh) is not
-ported: it raises.
+``make_sharded_ba`` splits the point axis over a device mesh: the per-point
+half of an iteration runs per shard (``_point_system``, the one body both
+paths share) and the pose-side partials are summed across shards where the
+reference sums them with ``psum``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from ..geometry.quaternion import quat_mul, quat_normalize, quat_to_rmat
-from ..runtime import constant
+from ..runtime import constant, device_scope
 
 POSE_DOF = 6  # se3 delta: [translation(3), rotation(3)]
 
@@ -128,18 +130,78 @@ def _solve(A, b):
     return torch.linalg.solve_ex(A, b)[0]
 
 
-def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
-               huber_delta: float = 0.01, fix_first_pose: bool = True):
-    """Run GN iterations; returns (poses, points, final_cost).
+class _PointShard(NamedTuple):
+    """One shard of the problem's point axis, on its device."""
+    points: torch.Tensor  # (m, 3)
+    obs_ip: torch.Tensor  # (NK, m, 2)
+    wmask: torch.Tensor  # (NK, m, 1) observation weights (mask x pose and point validity)
+    valid: torch.Tensor  # (m, 1) point validity, in the problem's dtype
 
-    Gauge: the first valid pose is held fixed (the odometry priors otherwise
-    leave a global 6-DOF + scale-ish gauge freedom in mono).
-    """
+
+def _point_shard(problem: BAProblem, cut: slice, device) -> _PointShard:
+    obs_w = problem.obs_mask[:, cut] & problem.pose_valid[:, None] & problem.point_valid[None, cut]
+    dtype = problem.poses.dtype
+    return _PointShard(*(x.to(device, non_blocking=True) for x in (
+        problem.points[cut], problem.obs_ip[:, cut], obs_w.to(dtype)[..., None],
+        problem.point_valid[cut, None].to(dtype))))
+
+
+def _point_system(poses, shard: _PointShard, damping, huber_delta):
+    """The per-point half of one GN iteration on one shard: its partial sums
+    of the pose-side system (U, Jc^T r, W V^-1 W^T, W V^-1 bp, the cost)
+    and what its points' back-substitution needs (V^-1, W, bp)."""
+    NK, MP = shard.obs_ip.shape[:2]
+    dtype = poses.dtype
+    # --- per-observation residuals & Jacobians ---
+    P = poses[:, None].expand(NK, MP, 7).reshape(-1, 7)
+    X = shard.points[None].expand(NK, MP, 3).reshape(-1, 3)
+    ip = shard.obs_ip.reshape(-1, 2)
+    r0, z = _residual(P, X, ip)
+    J = _obs_jacobians(P.new_zeros((NK * MP, 9)), P, X, ip)  # (NK*MP, 2, 9)
+    # Huber weights + behind-camera rejection
+    rn = torch.linalg.norm(r0, dim=-1)
+    w = torch.sqrt(torch.where(rn > huber_delta, huber_delta / torch.clamp(rn, min=1e-12),
+                               torch.ones_like(rn)))
+    w = torch.where(z > 0.01, w, torch.zeros_like(w))
+    r_all = (r0 * w[:, None]).reshape(NK, MP, 2) * shard.wmask
+    J_all = (J * w[:, None, None]).reshape(NK, MP, 2, 9) * shard.wmask[..., None]
+    Jc = J_all[..., :6]  # (NK,MP,2,6) camera blocks
+    Jp = J_all[..., 6:]  # (NK,MP,2,3) point blocks
+
+    U = torch.einsum("kmri,kmrj->kij", Jc, Jc)  # (NK,6,6)
+    V = torch.einsum("kmri,kmrj->mij", Jp, Jp)  # (MP,3,3)
+    Wkm = torch.einsum("kmri,kmrj->kmij", Jc, Jp)  # (NK,MP,6,3)
+    Jr = torch.einsum("kmri,kmr->ki", Jc, r_all)  # (NK,6); bc = -Jr
+    bp = -torch.einsum("kmri,kmr->mi", Jp, r_all)  # (MP,3)
+    V = V + damping * torch.eye(3, dtype=dtype, device=V.device)[None]
+    # --- Schur complement: the points' terms ---
+    Vinv = torch.linalg.inv_ex(V)[0]  # (MP,3,3); damped, invertible
+    WVinv = torch.einsum("kmij,mjl->kmil", Wkm, Vinv)  # (NK,MP,6,3)
+    WVW = torch.einsum("kmil,qmjl->kqij", WVinv, Wkm)  # (NK,NK,6,6)
+    WVb = torch.einsum("kmil,ml->ki", WVinv, bp)  # (NK,6)
+    return (U, Jr, WVW, WVb, torch.sum(r_all * r_all)), (Vinv, Wkm, bp)
+
+
+_POSE_FIELDS = ("poses", "pose_valid", "prior_rel", "prior_mask", "prior_w_pos", "prior_w_rot")
+
+
+def _allsum(parts, device):
+    """The shards' partials added in shard order on ``device`` (each copied
+    there after the work that made it); one shard's partial as it is."""
+    total = parts[0].to(device, non_blocking=True)
+    for p in parts[1:]:
+        total = total + p.to(device, non_blocking=True)
+    return total
+
+
+def _gauss_newton(problem: BAProblem, shards, devices, iterations, damping, huber_delta,
+                  fix_first_pose):
+    """GN over the point shards ``shards`` (shard s on ``devices[s]``); the
+    pose side of ``problem`` (its poses, priors and gauge) on its own
+    device, where the shards' partials are summed and the reduced system is
+    solved. Returns (poses, points in shard order, final cost) there."""
     NK = problem.poses.shape[0]
-    MP = problem.points.shape[0]
     dtype, dev = problem.poses.dtype, problem.poses.device
-    obs_w = problem.obs_mask & problem.pose_valid[:, None] & problem.point_valid[None, :]
-    wmask = obs_w.to(dtype)[..., None]
     w_pos = problem.prior_w_pos.expand(NK - 1)
     w_rot = problem.prior_w_rot.expand(NK - 1)
     prior_m = problem.prior_mask.to(dtype)
@@ -154,30 +216,18 @@ def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
     pin_diag = torch.diag(pin6.to(dtype))
     S_eps = 1e-12 * torch.eye(NK * 6, dtype=dtype, device=dev)
 
-    poses, points = problem.poses, problem.points
+    poses = problem.poses
     cost = None
     for _ in range(iterations):
-        # --- per-observation residuals & Jacobians ---
-        P = poses[:, None].expand(NK, MP, 7).reshape(-1, 7)
-        X = points[None].expand(NK, MP, 3).reshape(-1, 3)
-        ip = problem.obs_ip.reshape(-1, 2)
-        r0, z = _residual(P, X, ip)
-        J = _obs_jacobians(P.new_zeros((NK * MP, 9)), P, X, ip)  # (NK*MP, 2, 9)
-        # Huber weights + behind-camera rejection
-        rn = torch.linalg.norm(r0, dim=-1)
-        w = torch.sqrt(torch.where(rn > huber_delta, huber_delta / torch.clamp(rn, min=1e-12),
-                                   torch.ones_like(rn)))
-        w = torch.where(z > 0.01, w, torch.zeros_like(w))
-        r_all = (r0 * w[:, None]).reshape(NK, MP, 2) * wmask
-        J_all = (J * w[:, None, None]).reshape(NK, MP, 2, 9) * wmask[..., None]
-        Jc = J_all[..., :6]  # (NK,MP,2,6) camera blocks
-        Jp = J_all[..., 6:]  # (NK,MP,2,3) point blocks
-
-        U = torch.einsum("kmri,kmrj->kij", Jc, Jc)  # (NK,6,6)
-        V = torch.einsum("kmri,kmrj->mij", Jp, Jp)  # (MP,3,3)
-        Wkm = torch.einsum("kmri,kmrj->kmij", Jc, Jp)  # (NK,MP,6,3)
-        bc = -torch.einsum("kmri,kmr->ki", Jc, r_all)  # (NK,6)
-        bp = -torch.einsum("kmri,kmr->mi", Jp, r_all)  # (MP,3)
+        partial, backsub = [], []
+        for shard, d in zip(shards, devices):
+            with device_scope(d):
+                part, keep = _point_system(poses.to(d, non_blocking=True), shard, damping,
+                                           huber_delta)
+            partial.append(part)
+            backsub.append(keep)
+        U, Jr, WVW, WVb, cost = (_allsum(list(p), dev) for p in zip(*partial))
+        bc = -Jr
 
         # --- odometry relative-pose priors between consecutive keyframes ---
         rp, Jp2 = pair_jacobians(poses[:-1], poses[1:], problem.prior_rel, w_pos, w_rot)
@@ -191,39 +241,78 @@ def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
         bc = bc.clone()
         bc[:-1] += -torch.einsum("kri,kr->ki", Ja, rp)
         bc[1:] += -torch.einsum("kri,kr->ki", Jb, rp)
-
         U = U + damping * eye6[None]
-        V = V + damping * torch.eye(3, dtype=dtype, device=dev)[None]
 
-        # --- Schur complement: eliminate points ---
-        Vinv = torch.linalg.inv_ex(V)[0]  # (MP,3,3); damped, invertible
-        WVinv = torch.einsum("kmij,mjl->kmil", Wkm, Vinv)  # (NK,MP,6,3)
-        S_full = -torch.einsum("kmil,qmjl->kqij", WVinv, Wkm)
+        # --- Schur complement: S = U - sum_m W V^-1 W^T (with the prior coupling) ---
+        S_full = -WVW
         S_full[ar, ar] += U
         S_full[ar[:-1], ar[1:]] += W_prior
         S_full[ar[1:], ar[:-1]] += W_prior.transpose(-1, -2)
-        b_red = bc - torch.einsum("kmil,ml->ki", WVinv, bp)  # (NK,6)
+        b_red = bc - WVb  # (NK,6)
 
         S = S_full.permute(0, 2, 1, 3).reshape(NK * 6, NK * 6)
         b = b_red.reshape(NK * 6)
         # gauge fixing + invalid poses: pin their deltas to zero
         S = torch.where(pin_mat, torch.zeros_like(S), S) + pin_diag
         b = torch.where(pin6, torch.zeros_like(b), b)
-
         dc = _solve(S + S_eps, b).reshape(NK, 6)
-        dp_pts = torch.einsum("mij,mj->mi", Vinv, bp - torch.einsum("kmij,ki->mj", Wkm, dc))
 
-        cost = torch.sum(r_all * r_all)
+        # --- back-substitution, per shard ---
+        for s, ((Vinv, Wkm, bp), d) in enumerate(zip(backsub, devices)):
+            with device_scope(d):
+                dcs = dc.to(d, non_blocking=True)
+                dp_pts = torch.einsum("mij,mj->mi", Vinv,
+                                      bp - torch.einsum("kmij,ki->mj", Wkm, dcs))
+                shards[s] = shards[s]._replace(points=shards[s].points + dp_pts * shards[s].valid)
         poses = _apply_pose_delta(poses, dc)
-        points = points + dp_pts * problem.point_valid[:, None].to(dtype)
+    points = torch.cat([s.points.to(dev, non_blocking=True) for s in shards])
     return poses, points, cost
 
 
-def make_sharded_ba(*args, **kwargs):
-    """The reference's multi-chip bundle adjustment (map points sharded over
-    a mesh): not ported."""
-    raise NotImplementedError("slam/ba.py make_sharded_ba: the multi-device bundle adjustment "
-                              "is not ported")
+def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
+               huber_delta: float = 0.01, fix_first_pose: bool = True):
+    """Run GN iterations; returns (poses, points, final_cost).
+
+    Gauge: the first valid pose is held fixed (the odometry priors otherwise
+    leave a global 6-DOF + scale-ish gauge freedom in mono).
+    """
+    dev = problem.poses.device
+    shard = _point_shard(problem, slice(None), dev)
+    return _gauss_newton(problem, [shard], [dev], iterations, damping, huber_delta,
+                         fix_first_pose)
+
+
+def make_sharded_ba(mesh, iterations: int = 10, damping: float = 1e-4,
+                    huber_delta: float = 0.01, fix_first_pose: bool = True,
+                    axis: str = "data"):
+    """Bundle adjustment over a mesh (``parallel.batched.Mesh``): the
+    problem's MAP-POINT axis splits into ``mesh.size`` contiguous shards,
+    shard s on ``mesh.devices[s]``. Each shard's per-observation Jacobians,
+    V inversions, Schur products and point back-substitution run on its
+    device; the pose-side partials (U, Jc^T r, W V^-1 W^T, W V^-1 bp, the
+    cost) are copied to ``mesh.devices[0]`` and summed there in shard
+    order, where the small (NK*6)^2 system is solved once and its pose
+    delta copied back to every shard. (The reference sums with psum and
+    solves on every device: the same values.)
+
+    Returns sharded_ba(problem) -> (poses, points, cost) on
+    ``mesh.devices[0]``, the points concatenated back in point order. The
+    problem may lie anywhere; its point count must divide by the mesh size.
+    Each shard's work is queued on its device's current stream in the
+    calling thread."""
+    if axis != mesh.axis:
+        raise ValueError(f"a mesh over axis {mesh.axis!r}, not {axis!r}")
+    home = mesh.devices[0]
+
+    def sharded_ba(problem: BAProblem):
+        cuts = mesh.shards(problem.points.shape[0], "map points")
+        shards = [_point_shard(problem, cut, d) for cut, d in zip(cuts, mesh.devices)]
+        pose_side = problem._replace(**{f: getattr(problem, f).to(home, non_blocking=True)
+                                        for f in _POSE_FIELDS})
+        return _gauss_newton(pose_side, shards, mesh.devices, iterations, damping,
+                             huber_delta, fix_first_pose)
+
+    return sharded_ba
 
 
 def triangulate_points_linear(poses, obs_ip, obs_mask):

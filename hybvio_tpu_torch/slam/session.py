@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..runtime import default_device
-from .ba import BAProblem, ba_iterate
+from .ba import BAProblem, ba_iterate, make_sharded_ba
 from .host import np_quat_to_rmat as _np_quat_to_rmat, np_relative_pose, np_rmat_to_quat
 
 
@@ -173,6 +173,7 @@ class Slam:
         self.next_point_id = 1
         self.NK = max_ba_keyframes or ps.localBAProblemSize
         self.MP = max_ba_points
+        self._ba_sharded = None  # the mesh's BA (set_ba_mesh)
         self.compute_descriptors = compute_descriptors
         self.loop_events: List[LoopClosureEvent] = []
         self.loop_edges: List[LoopEdge] = []
@@ -720,18 +721,25 @@ class Slam:
     # ------------------------------------------------------------------- BA
 
     def set_ba_mesh(self, mesh) -> None:
-        """The reference's multi-chip bundle adjustment (map points sharded
-        over a mesh, slam/ba.py make_sharded_ba): not ported."""
-        raise NotImplementedError("Slam.set_ba_mesh: the multi-device bundle adjustment "
-                                  "(slam/ba.py make_sharded_ba) is not ported")
+        """Opt into the multi-device bundle adjustment: the BA problem's
+        map-point axis (self.MP slots, mask-padded) splits over the mesh
+        and the pose normal equations are summed across its shards
+        (slam/ba.py make_sharded_ba). MP must divide by the mesh size. The
+        session's own device stays; the BA's tensors live on the mesh's
+        devices."""
+        assert self.MP % mesh.size == 0, (self.MP, mesh.size)
+        self._ba_sharded = make_sharded_ba(mesh, iterations=8)
 
     def _ba_fn(self):
-        """Local BA of a numpy BAProblem on the session's device, 8
-        iterations: numpy (poses, points, cost)."""
+        """Local BA of a numpy BAProblem, 8 iterations, on the session's
+        device (or over the mesh of ``set_ba_mesh``): numpy (poses, points,
+        cost)."""
         def run(prob):
-            dev = self.device
-            out = ba_iterate(BAProblem(*(torch.as_tensor(np.asarray(v)).to(dev) for v in prob)),
-                             iterations=8)
+            prob = BAProblem(*(torch.as_tensor(np.asarray(v)) for v in prob))
+            if self._ba_sharded is not None:
+                out = self._ba_sharded(prob)
+            else:
+                out = ba_iterate(BAProblem(*(v.to(self.device) for v in prob)), iterations=8)
             return tuple(o.cpu().numpy() for o in out)
 
         return run

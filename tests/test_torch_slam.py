@@ -375,11 +375,6 @@ def test_triangulate_points_linear_equals_reference():
     np.testing.assert_allclose(pts.numpy(), np.asarray(rpts), rtol=0, atol=SOLVE_TOL)
 
 
-def test_sharded_ba_is_not_ported():
-    with pytest.raises(NotImplementedError, match="make_sharded_ba"):
-        ba.make_sharded_ba(None)
-
-
 # ------------------------------------------------------------- pose graph
 
 def test_optimize_pose_graph_equals_reference():
@@ -472,7 +467,7 @@ def test_ransac_pnp_equals_reference(seed):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=SOLVE_TOL)
 
 
-def test_native_orb_is_not_ported(monkeypatch):
+def test_native_orb_equals_reference_and_honours_the_switch(monkeypatch):
     """The native ORB detector, which raised before it was ported, builds
     and detects the reference's native keypoints (tests/test_torch_native.py
     holds it bit for bit), and HYBVIO_NATIVE_ORB=0 turns it off as the

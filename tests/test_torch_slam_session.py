@@ -333,5 +333,3 @@ def test_session_takes_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Slam(Parameters())
-    with pytest.raises(NotImplementedError, match="make_sharded_ba"):
-        Slam(Parameters(), device="cpu").set_ba_mesh(None)
