@@ -43,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
      240x320 frame (maxTracks 64: the gathers at every GATHER_ROWS row, the
      fused pyramid of one and two cameras, the corner response, greedy at
      K = 128) and the long fisheye's 512x512 gathers of 96 windows;
-  4. five paths through make_batched_vio, each B=16 lanes, a float32
+  4. five paths through make_batched_vio (its compiled step: a CUDA graph
+     captured at step 1, after the eager warm-up, and replayed from step
+     2), each B=16 lanes, a float32
      filter (float64 with the map, see FILTER_DTYPE), over 60 synthetic
      frames (io.synthetic, the benchmark's worlds; mono, fisheye and
      stereo_sequential_hybrid over 40): the stereo preset at 752x480, the mono preset at
@@ -181,6 +183,28 @@ Phases (any failure exits non-zero and prints no result line):
      a dry run that raises. (a) and (b) count their launches under their
      own path names; (c) and (d) launch no kernel, and (e)'s launches at
      its 96x64 shapes (not timed in phase 3) are not counted.
+ 13. the compiled step (graphs.CapturedStep, the card's counterpart of
+     jax.jit; the phases above step it wherever the reference jits): (a)
+     in phase 4, each path COMPILED_STEPS (5) steps from its init state,
+     eager (batched_step.eager), captured, captured, eager: every state
+     leaf and output of every step bit-equal with the first eager run,
+     no capture beyond phase 4's, the median step of each, the path's
+     captures, their seconds, the graph pool, the launches a replay counts
+     by kernel (the replays' counts equal to COMPILED_STEPS records),
+     phase 4's host syncs of a replay step; (d) after each captured step
+     the state and output of the step before unchanged, and the init state
+     unchanged; (b) phase 12b's scan replays the graph, 0 m from phase 4;
+     (c) phase 7's CLI runs again with VioApi(jit=False) over the same
+     frames: positions 0 m from the jit=True run, per-frame median and p90
+     of both, each API graph's captures and replays, the counted step a
+     replay, the -timer split from the three stage graphs; (e) phase 8b's
+     vislam steps the API's graph with the SLAM worker running; (f) phase
+     12a's shards each replay a graph of their own, shard 0 0 m from phase
+     4. A launch made while capturing is counted at every replay (the
+     capture's record), not at the capture. Fails on any difference, a
+     changed returned tensor, a capture in a counted step, or a host sync
+     in a replay. Its summary, and the script's wall time, come before the
+     kernel JSON.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -339,12 +363,17 @@ STENCIL_TOL = 1e-6
 MESH_SHARDS = 4
 MESH_LANES = MESH_SHARDS * B  # B lanes a shard: phase 4's kernel shapes
 MESH_STEPS = 10
-MESH_POS_TOL = 1e-6  # m: shard 0 and the scan against phase 4 (bit-equal expected)
+MESH_POS_TOL = 0.0  # m: shard 0 and the scan against phase 4 (the same captured step)
 SCAN_STEPS = 20
 BA_NK, BA_MP, BA_ITERATIONS = 20, 1024, 8  # tools/scaling_bench.py's mesh check
 BA_POSE_TOL, BA_POINT_TOL = 1e-5, 1e-4  # the same check's bounds
 BA_TIMED_RUNS = 5
 MESH_SESSION = "BA on noisy odometry"  # the phase-8a scenario run with set_ba_mesh
+# phase 13: the compiled step. COMPILED_STEPS steps of each phase-4 path
+# from its init state, eager and captured, in the order eager, captured,
+# captured, eager (phase 13a); the API's eager runs beside phase 7's (13c)
+COMPILED_STEPS = 5
+COMPILED = {}  # phase 13's numbers, by path
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
 SLEEP_CYCLES_PER_S = 2e9  # the H100's top SM clock, rounded up
@@ -1322,6 +1351,144 @@ def host_syncs(step):
     return out, lines
 
 
+def bit_diff(a, b):
+    """(the leaves of two trees of tensors that are not bit-equal, the
+    largest absolute difference among them; 0 and 0.0 when every leaf has
+    the same dtype, shape and bits)."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    xs, ys = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(xs) != len(ys):
+        return abs(len(xs) - len(ys)), float("inf")
+    unequal, worst = 0, 0.0
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for x, y in zip(xs, ys):
+        if not isinstance(x, torch.Tensor):
+            unequal += int(x != y)
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            unequal, worst = unequal + 1, float("inf")
+            continue
+        if x.is_floating_point():
+            view = bits[x.element_size()]
+            if torch.equal(x.contiguous().view(view), y.contiguous().view(view)):
+                continue
+            d = (x.double() - y.double()).abs().nan_to_num(nan=float("inf"))
+        elif torch.equal(x, y):
+            continue
+        else:
+            d = (x.long() - y.long()).abs()
+        unequal, worst = unequal + 1, max(worst, float(d.max()) if d.numel() else 0.0)
+    return unequal, worst
+
+
+def clone_tree(tree):
+    import torch
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def graph_stats(graphs):
+    """One line on CapturedSteps: captures (signatures), their seconds,
+    replays, the launches a replay counts by kernel, the device's graph
+    pool."""
+    from hybvio_tpu_torch.graphs import graph_pool_bytes
+
+    per = collections.Counter()
+    for g in graphs:
+        per.update(g.launches_per_replay())
+    return (f"captures {sum(g.captures for g in graphs)} (signatures "
+            f"{sum(g.keys for g in graphs)}) in {sum(g.capture_s for g in graphs):.2f} s, "
+            f"replays {sum(g.replays for g in graphs)}, launches a replay "
+            f"{json.dumps(dict(sorted(per.items())))}, the graph pool "
+            f"{graph_pool_bytes('cuda:0') / 2**20:.1f} MiB")
+
+
+def run_compiled(config, binit, bstep, first, start, images, batches, syncs):
+    """Phase 13a, one path: COMPILED_STEPS steps from the init state (the
+    first of phase 4's inputs), eager (``batched_step.eager``) and
+    captured, in the order eager, captured, captured, eager: every state
+    leaf and output of every step bit-equal with the first eager run's; no
+    capture (phase 4 captured every signature); after each captured step
+    of the first captured run, the state and output the step before
+    returned unchanged; the init state unchanged by all of it. Prints the
+    median step of each, the replays' launches (COMPILED_STEPS replays of
+    one record), the path's captures, their seconds and the graph pool,
+    and phase 4's host syncs of a replay step. Returns (launches, launches
+    by input shape, 0)."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    s0 = binit(first, np.full(B, start), np.arange(B))
+    s0_copy = clone_tree(s0)
+    graph = bstep.graphs[0]
+    captures = graph.captures
+
+    def chain(step, ref=None, own=False):
+        st, trees, ms, diff, owned, kept = s0, [], [], (0, 0.0), (0, 0.0), None
+        for k in range(COMPILED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = step(st, batches[k], images[k])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if ref is None:
+                trees.append((st, out))
+            else:
+                n, d = bit_diff(ref[k], (st, out))
+                diff = (diff[0] + n, max(diff[1], d))
+            if own:
+                if kept is not None:
+                    n, d = bit_diff(*kept)
+                    owned = (owned[0] + n, max(owned[1], d))
+                kept = ((st, out), clone_tree((st, out)))
+        return trees, ms, diff, owned
+
+    ref, e1, _, _ = chain(bstep.eager)
+    ops.reset_launch_counts()
+    _, c1, d1, owned = chain(bstep, ref, own=True)
+    torch.cuda.synchronize()
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    _, c2, d2, _ = chain(bstep, ref)
+    _, e2, d3, _ = chain(bstep.eager, ref)
+    s0_diff = bit_diff(s0, s0_copy)
+    unequal = d1[0] + d2[0] + d3[0]
+    worst = max(d1[1], d2[1], d3[1])
+    eager, captured = statistics.median(e1 + e2), statistics.median(c1 + c2)
+    COMPILED[config] = dict(eager_ms=eager, captured_ms=captured, unequal=unequal, worst=worst,
+                            captures=graph.captures, capture_s=graph.capture_s)
+    say(f"compiled {config} (13a): {COMPILED_STEPS} steps from the init state, eager / captured "
+        f"/ captured / eager: leaves not bit-equal with the first eager run {unequal} (max "
+        f"difference {worst:.3g}); median step eager {eager:.2f} ms, captured {captured:.2f} ms "
+        f"({eager / captured:.2f}x); steps (ms) eager {' '.join(f'{t:.1f}' for t in e1)} | "
+        f"captured {' '.join(f'{t:.1f}' for t in c1)} | {' '.join(f'{t:.1f}' for t in c2)} | "
+        f"eager {' '.join(f'{t:.1f}' for t in e2)}")
+    say(f"compiled {config} (13a): {graph_stats(bstep.graphs)}; the replays' kernel launches "
+        f"({COMPILED_STEPS} steps) {json.dumps(launches)}; leaves a later replay changed in a "
+        f"returned state or output {owned[0]} (max {owned[1]:.3g}); the init state changed "
+        f"{s0_diff[0]}; host syncs of a replay step (phase 4's step 2) {syncs}")
+    if unequal:
+        raise AssertionError(f"compiled {config}: the captured step parts from the eager one: "
+                             f"{unequal} leaves, max difference {worst}")
+    if owned[0] or s0_diff[0]:
+        raise AssertionError(f"compiled {config}: a replay changed what a step returned "
+                             f"({owned[0]} leaves) or the init state ({s0_diff[0]})")
+    if graph.captures != captures:
+        raise AssertionError(f"compiled {config}: {graph.captures - captures} new captures in "
+                             f"13a (a signature phase 4 did not capture)")
+    per_replay = graph.launches_per_replay()
+    wrong = {k: (launches[k], per_replay.get(k, 0)) for k in launches
+             if launches[k] != COMPILED_STEPS * per_replay.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"compiled {config}: replay launches (counted, a replay's record) "
+                             f"{wrong}")
+    check_path_kernels(f"compiled {config}", launches)
+    return launches, by_shape, 0
+
+
 def run_path(dev, config):
     """Phase 4, one path: the batched step of a preset at full width on the
     card; (launches, launches by input shape, host syncs of one step)."""
@@ -1364,8 +1531,11 @@ def run_path(dev, config):
         images = frame(fi)  # per lane: rendered here, outside the timed step
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        if fi == 2:  # the host syncs of one step (not timed: the warnings cost time)
+        if fi == 2:  # the host syncs of one step, a replay (not timed: the warnings cost time)
+            captures = bstep.graphs[0].captures
             (states, out), syncs = host_syncs(lambda: bstep(states, batches[fi - 1], images))
+            if bstep.graphs[0].captures != captures:
+                raise AssertionError(f"{config}: step 2 captured a signature step 1 did not")
         else:
             states, out = bstep(states, batches[fi - 1], images)
         torch.cuda.synchronize()
@@ -1374,6 +1544,9 @@ def run_path(dev, config):
         hybrid_points.append(torch.sum(out.point_cloud_status == PF_HYBRID))
     launches = dict(ops.LAUNCHES)
     by_shape = dict(ops.SHAPE_LAUNCHES)
+    compiled = run_compiled(config, binit, bstep, first, start,
+                            [frame(fi) for fi in range(1, COMPILED_STEPS + 1)], batches,
+                            sum(syncs.values()))
     claimed = int(torch.sum(states.backend.trail.map_point_ids >= 0))
     hybrid = int(torch.stack(hybrid_points).sum())
 
@@ -1393,8 +1566,9 @@ def run_path(dev, config):
     ate_med = float(np.median(ates)) if ates else float("nan")
     ate_p90 = float(np.percentile(ates, 90)) if ates else float("nan")
     say(f"{config}: B={B} {W}x{H}, {FILTER_DTYPE.get(config, 'float32')} filter, {F - 1} "
-        f"steps (median and frames/s over the last {len(timed)}): median step {med:.2f} ms, "
-        f"aggregate {fps:.1f} frames/s, warm-up step {step_ms[0]:.1f} ms")
+        f"steps of the captured step (median and frames/s over the last {len(timed)}, "
+        f"replays): median step {med:.2f} ms, aggregate {fps:.1f} frames/s, step 1 (the eager "
+        f"warm-up and the capture) {step_ms[0]:.1f} ms")
     say(f"{config}: finite lanes {len(finite)}/{B}, ATE median {ate_med:.4f} m, p90 "
         f"{ate_p90:.4f} m (max {max(ates) if ates else float('nan'):.4f} m); per lane "
         + " ".join(f"{a:.4f}" for a in ates))
@@ -1417,7 +1591,7 @@ def run_path(dev, config):
         raise AssertionError(f"{config}: the hybrid map did not run: {claimed} slots claimed, "
                              f"{hybrid} PF_HYBRID points")
     check_path_kernels(config, launches)
-    return launches, by_shape, sum(syncs.values())
+    return (launches, by_shape, sum(syncs.values())), compiled
 
 
 def check_path_kernels(config, launches):
@@ -1537,7 +1711,7 @@ def write_api_dataset(out_dir, config, frames):
     return rec.frame_count
 
 
-def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
+def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=(), jit=True):
     """Phase 7, one run of the port's CLI ``run()`` in-process on the card
     at the reference's defaults (stereo with -useStereo), with -maxFrames
     and -outputJsonExtras (and -timer): (launches, launches by input shape,
@@ -1549,7 +1723,9 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
     (which waits for that frame's work on the card); the host syncs are
     those of ``_step_frame`` (the step without the retirement), with the
     SLAM worker (``extra`` -useSlam) drained first: its own syncs are off
-    the step."""
+    the step; ``impl["api"]`` is the API, ``impl["captured"]`` whether the
+    counted step captured a graph. ``jit=False`` builds the API with
+    ``jit=False`` (the CLI passes none, as the reference's)."""
     import contextlib
     import io
 
@@ -1564,7 +1740,20 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
     argv += (["-useStereo"] if config == "stereo" else []) + (["-timer"] if timer else [])
     argv += list(extra)
     process, step, read = VioApi._process_frame, VioApi._step_frame, jsonl.read_jsonl_events
-    wall, counted, impl = [], {}, {}
+    from hybvio_tpu_torch.utils.timer import TimeStats
+
+    init, scope = VioApi.__init__, TimeStats.scope
+    wall, counted, impl = [], {}, {"stages": collections.defaultdict(list)}
+
+    @contextlib.contextmanager
+    def sampled_scope(self, name, probe=None):  # each -timer sample, for the split without
+        t0 = time.perf_counter()                # the frame that captured
+        with scope(self, name, probe):
+            yield
+        impl["stages"][name].append(time.perf_counter() - t0)
+
+    def eager_init(self, *a, **k):
+        init(self, *a, **{**k, "jit": False})
 
     def reader(path):
         events = read(path)
@@ -1572,7 +1761,7 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
         return events
 
     def timed_process(self, synced):
-        impl["sync"] = type(self.sample_sync).__name__
+        impl["sync"], impl["api"] = type(self.sample_sync).__name__, self
         stepped = self._state is not None
         t0 = time.perf_counter()
         process(self, synced)
@@ -1583,12 +1772,17 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
         if not timer and len(wall) == API_SYNC_STEP and "syncs" not in counted:
             if self.slam is not None:
                 self.slam.wait_idle()
+            captures = getattr(self._step, "captures", 0)
             counted["syncs"] = host_syncs(lambda: step(self, *args))[1]
+            impl["captured"] = getattr(self._step, "captures", 0) != captures
         else:
             step(self, *args)
 
     err = io.StringIO()
     VioApi._process_frame, VioApi._step_frame = timed_process, counted_step
+    TimeStats.scope = sampled_scope
+    if not jit:
+        VioApi.__init__ = eager_init
     jsonl.read_jsonl_events = reader
     try:
         torch.cuda.synchronize()
@@ -1599,6 +1793,7 @@ def run_cli(dev, config, dataset, out_path, frames, timer=False, extra=()):
         launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
     finally:
         VioApi._process_frame, VioApi._step_frame = process, step
+        VioApi.__init__, TimeStats.scope = init, scope
         jsonl.read_jsonl_events = read
     if rc != 0:
         raise RuntimeError(f"the CLI exited with {rc}: {err.getvalue()[-2000:]}")
@@ -1641,13 +1836,13 @@ def run_api_paths(dev):
             H, W = FRAME_HW[config]
             say(f"cli {config}: wrote a {n_written}-frame dataset ({W}x{H}, "
                 f"{2 if config == 'stereo' else 1} camera(s)) in {time.perf_counter() - t0:.1f} s")
-            for timer in (False, True):
+            for timer, jit in ((False, True), (True, True), (False, False)):
                 frames = API_TIMER_FRAMES if timer else API_FRAMES
-                name = f"api_{config}{'_timer' if timer else ''}"
+                name = f"api_{config}{'_timer' if timer else ''}{'' if jit else '_eager'}"
                 out_path = f"{tmp}/{name}.jsonl"
                 t0 = time.perf_counter()
                 launches, by_shape, syncs, wall, err, impl = run_cli(dev, config, ds, out_path,
-                                                                     frames, timer)
+                                                                     frames, timer, jit=jit)
                 secs = time.perf_counter() - t0
                 lines = [json.loads(l) for l in open(out_path)]
                 est = np.array([[j["position"][a] for a in "xyz"] for j in lines])
@@ -1669,9 +1864,37 @@ def run_api_paths(dev):
                     f"{len(steady)} steps; ATE {ate:.4f} m over {len(lines)} outputs; statuses "
                     f"{dict(sorted(collections.Counter(statuses).items()))}; the {impl.get('reader')} "
                     f"JSONL reader, the synchronizer {impl.get('sync')}")
-                if not timer:
+                if not timer and jit:
                     PHASE7_WALL[config] = (med, p90)
                 check_native_host(f"cli {name}", impl)
+                api = impl["api"]
+                if jit:  # 13c: the API's graphs
+                    graphs = [api._step, api._imu_only, api._track_stage, api._backend_stage]
+                    say(f"cli {name} (13c): the step's graph: captures {api._step.captures}, "
+                        f"replays {api._step.replays}; IMU-only {api._imu_only.captures} / "
+                        f"{api._imu_only.replays}, track_stage {api._track_stage.captures} / "
+                        f"{api._track_stage.replays}, backend_stage "
+                        f"{api._backend_stage.captures} / {api._backend_stage.replays} "
+                        f"(captures / replays); all: {graph_stats(graphs)}; the counted step "
+                        + ("captured: its syncs are the capture's" if impl.get("captured")
+                           else "replayed"))
+                    if not timer and impl.get("captured"):
+                        raise AssertionError(f"cli {name}: step {API_SYNC_STEP} captured a graph")
+                else:  # 13c: against the captured run over the same frames
+                    ref = [json.loads(l) for l in open(f"{tmp}/api_{config}.jsonl")]
+                    pos = lambda ls: np.array([[j["position"][a] for a in "xyz"] for j in ls])
+                    diff = (float(np.abs(pos(ref) - est).max()) if len(ref) == len(lines)
+                            else float("inf"))
+                    COMPILED[f"api_{config}"] = dict(
+                        diff=diff, eager=(med, p90), captured=PHASE7_WALL[config])
+                    say(f"cli {name} (13c): VioApi(jit=False) against jit=True over the same "
+                        f"{frames} frames: {len(lines)} / {len(ref)} outputs, max position "
+                        f"difference {diff:.3g} m; per-frame median {med:.2f} ms eager against "
+                        f"{PHASE7_WALL[config][0]:.2f} ms captured (p90 {p90:.2f} / "
+                        f"{PHASE7_WALL[config][1]:.2f} ms)")
+                    if diff != 0.0:
+                        raise AssertionError(f"cli {name}: positions part from the captured "
+                                             f"run by {diff} m")
                 say(f"cli {name}: host syncs in step {API_SYNC_STEP} (the retirement excluded): "
                     + ("not counted: the -timer stages wait on the card by design" if timer else
                        f"{sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
@@ -1682,6 +1905,11 @@ def run_api_paths(dev):
                     table = err[err.index("--- per-frame timings"):].strip().splitlines()
                     for line in table:
                         say(f"cli {name} -timer: {line.strip()}")
+                    stages = {k: v for k, v in impl["stages"].items() if len(v) > 1}
+                    say(f"cli {name} -timer (13c): each stage's median over its frames after "
+                        f"the first (which captured its graph; the table above averages it in): "
+                        + ", ".join(f"{k} {1e3 * statistics.median(v[1:]):.3f} ms"
+                                    for k, v in sorted(stages.items())))
                 if not finite:
                     raise AssertionError(f"cli {name}: a non-finite output")
                 if len(lines) < frames - 3:
@@ -1979,7 +2207,9 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
     def counted_step(*args):
         if len(wall) == VISLAM_SYNC_STEP and "syncs" not in counted:
             api.slam.wait_idle()  # the SLAM worker's own syncs are off the step
+            captures = api._step.captures
             counted["syncs"] = host_syncs(lambda: step(*args))[1]
+            counted["captured"] = api._step.captures != captures
         else:
             step(*args)
 
@@ -2046,6 +2276,12 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
         f"{json.dumps(dict(sorted((syncs or {}).items())))}; kernel launches {json.dumps(launches)}")
     say(f"{name}: kernel launches by input shape " + json.dumps(
         {f"{k} {shape_key(sh)}": v for (k, sh), v in sorted(by_shape.items())}))
+    say(f"{name} (13e): VioApi(jit=True) with the SLAM worker: the step's graph captures "
+        f"{api._step.captures}, replays {api._step.replays}; IMU-only {api._imu_only.captures} / "
+        f"{api._imu_only.replays}; all: {graph_stats([api._step, api._imu_only])}; step "
+        f"{VISLAM_SYNC_STEP} {'captured' if counted.get('captured') else 'replayed'}")
+    if counted.get("captured"):
+        raise AssertionError(f"{name}: step {VISLAM_SYNC_STEP} captured a graph")
     if not finite:
         raise AssertionError(f"{name}: a non-finite output")
     if len(outputs) < F - 3:
@@ -2826,7 +3062,11 @@ def run_mesh(dev, mesh):
         f"stereo_per_lane over steps 1-{MESH_STEPS}: max position difference {shard0:.3g} m "
         f"(tol {MESH_POS_TOL}); host syncs in one step (step 2): {sum(syncs.values())} "
         f"{json.dumps(dict(sorted(syncs.items())))}")
-    say(f"mesh_stereo_per_lane (12a): kernel launches {json.dumps(launches)}")
+    say(f"mesh_stereo_per_lane (12a, 13f): kernel launches {json.dumps(launches)}; each shard's "
+        f"graph: " + "; ".join(f"shard {i} captures {g.captures}, replays {g.replays}"
+                                for i, g in enumerate(bstep.graphs))
+        + f"; all: {graph_stats(bstep.graphs)}")
+    COMPILED["mesh"] = dict(shard0=shard0, captures=sum(g.captures for g in bstep.graphs))
     if len(finite) != L:
         raise AssertionError(f"mesh_stereo_per_lane: only {len(finite)}/{L} lanes finite")
     if not ate_med <= ATE_LIMIT_M:
@@ -2838,12 +3078,14 @@ def run_mesh(dev, mesh):
 
 
 def run_scan(dev):
-    """Phase 12b: make_batched_scan over phase 4's stereo inputs (B lanes,
-    shared frames, the same seeds and frames), SCAN_STEPS frames: once
-    under the sync check (its launches counted), once timed. Fails on a
-    host sync in scan_run, a path kernel not launched, or positions parting
-    from phase 4's eager ones by more than MESH_POS_TOL. Returns (launches,
-    launches by input shape, host syncs of the whole scan)."""
+    """Phase 12b (and 13b): make_batched_scan over phase 4's stereo inputs
+    (B lanes, shared frames, the same seeds and frames), SCAN_STEPS frames:
+    once to capture the step's graph, once under the sync check (replays;
+    its launches counted), once timed. Fails on a host sync in scan_run, a
+    path kernel not launched, or positions parting from phase 4's (the
+    captured step's, bit-equal with the eager one in 13a) by more than
+    MESH_POS_TOL. Returns (launches, launches by input shape, host syncs of
+    the whole scan)."""
     import torch
 
     from hybvio_tpu_torch import ops
@@ -2857,7 +3099,10 @@ def run_scan(dev):
     frames_stack = tuple(torch.stack([frames[fi][c] for fi in range(1, F + 1)]) for c in (0, 1))
     imu_stack = ImuBatch(*(torch.stack(xs) for xs in zip(*inp["batches"][:F])))
     t0s = np.full(B, inp["start"])
+    ts = time.perf_counter()
+    _, first = scan_run(binit(frames[0], t0s, np.arange(B)), imu_stack, frames_stack)
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - ts
     ops.reset_launch_counts()
     states = binit(frames[0], t0s, np.arange(B))
     (_, checked), syncs = host_syncs(lambda: scan_run(states, imu_stack, frames_stack))
@@ -2870,12 +3115,15 @@ def run_scan(dev):
     torch.cuda.synchronize()
     wall_ms = 1000.0 * (time.perf_counter() - ts) / F
     eager = PATH_POSITIONS["stereo"][:F]
-    diff = max(float(np.abs(p.cpu().numpy() - eager).max()) for p in (checked, positions))
-    say(f"scan_stereo (12b): make_batched_scan, B={B} shared frames, {F} frames staged on the "
-        f"card: {wall_ms:.2f} ms a frame (wall, the whole scan / {F}; phase 4's stereo median "
-        f"step {PATH_MEDIAN_MS['stereo']:.2f} ms); positions {tuple(positions.shape)} against "
-        f"phase 4's eager steps: max difference {diff:.3g} m (tol {MESH_POS_TOL}); host syncs in "
-        f"scan_run: {sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}")
+    diff = max(float(np.abs(p.cpu().numpy() - eager).max()) for p in (first, checked, positions))
+    COMPILED["scan"] = dict(ms=wall_ms, diff=diff, first_s=first_s)
+    say(f"scan_stereo (12b, 13b): make_batched_scan, B={B} shared frames, {F} frames staged on "
+        f"the card: {wall_ms:.2f} ms a frame (wall, the whole scan / {F}, replays; phase 4's "
+        f"stereo median step {PATH_MEDIAN_MS['stereo']:.2f} ms; the first scan, with the "
+        f"capture, {first_s:.2f} s); positions {tuple(positions.shape)} of the three scans "
+        f"against phase 4's: max difference {diff:.3g} m (tol {MESH_POS_TOL}); host syncs in "
+        f"scan_run: {sum(syncs.values())} {json.dumps(dict(sorted(syncs.items())))}; "
+        f"{graph_stats(scan_run.step.graphs)}")
     say(f"scan_stereo (12b): kernel launches {json.dumps(launches)}")
     if tuple(positions.shape) != (F, B, 3) or not diff <= MESH_POS_TOL:
         raise AssertionError(f"scan_stereo: positions {tuple(positions.shape)} part from phase "
@@ -3019,7 +3267,29 @@ def run_multi_device(dev):
     return runs
 
 
+def report_compiled(seconds):
+    """Phase 13's summary: each path's eager and captured median step
+    (13a), the scan (13b), the API at B=1 (13c) and the mesh's shard 0
+    (13f), and the script's wall time."""
+    for config in PATHS:
+        c = COMPILED[config]
+        say(f"phase 13a {config}: median step eager {c['eager_ms']:.2f} ms, captured "
+            f"{c['captured_ms']:.2f} ms ({c['eager_ms'] / c['captured_ms']:.2f}x); "
+            f"{c['captures']} capture(s) in {c['capture_s']:.2f} s; leaves not bit-equal "
+            f"{c['unequal']}")
+    sc = COMPILED["scan"]
+    say(f"phase 13b scan: {sc['ms']:.2f} ms a frame, {sc['diff']:.3g} m from phase 4")
+    for config in API_CONFIGS:
+        a = COMPILED[f"api_{config}"]
+        say(f"phase 13c api_{config}: per-frame median (p90) eager {a['eager'][0]:.2f} "
+            f"({a['eager'][1]:.2f}) ms, captured {a['captured'][0]:.2f} ({a['captured'][1]:.2f}) "
+            f"ms; positions {a['diff']:.3g} m apart")
+    say(f"phase 13f mesh: shard 0 {COMPILED['mesh']['shard0']:.3g} m from phase 4, "
+        f"{COMPILED['mesh']['captures']} captures; the script {seconds:.1f} s")
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -3082,7 +3352,9 @@ def main() -> int:
             raise RuntimeError(f"the native library: {why}")
         ops._lib.library()
         kern, floor_ms = check_kernels(dev)
-        runs = {config: run_path(dev, config) for config in PATHS}
+        runs = {}
+        for config in PATHS:
+            runs[config], runs[f"compiled_{config}"] = run_path(dev, config)
         option_syncs = run_options(dev)
         runs.update(run_api_paths(dev))
         with torch_detector():
@@ -3120,6 +3392,7 @@ def main() -> int:
     synced = [c for c in paths if runs[c][2]] + [o for o, n in option_syncs.items() if n]
     if synced:
         return fail(f"host syncs in the step of {synced}")
+    report_compiled(time.perf_counter() - t_script)
     for which, ranking in rankings.items():
         say(f"ranking, {which} (sum over input shapes of launches x (device - bound) per "
             f"run; launch floor {floor_ms:.5f} ms): " + "; ".join(

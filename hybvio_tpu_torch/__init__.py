@@ -27,7 +27,8 @@ Layout:
   slam/        the SLAM session: keyframes, ORB, vocabulary, BA, pose graph,
                loop closure (coupled to the VIO by odometry/slam_coupling.py)
   ops/         CUDA kernels (csrc/) with their plain PyTorch versions
-  parallel/    the batched shared-frame step
+  parallel/    the batched step, over one device or a mesh, and the scan
+  graphs.py    the compiled step: CUDA graphs of a step, the card's jax.jit
   convert.py   state exchange with the reference package
 """
 

@@ -149,11 +149,17 @@ extern "C" int hv_greedy_nms(const float* d2, long long batch_stride,
   if (K > 32 * kMaxWords) return (int)cudaErrorInvalidValue;
   const int nw = (K + 31) / 32;
   const size_t smem = sizeof(unsigned) * ((size_t)K * nw + 2 * nw);
-  if (smem > 48 * 1024) {
+  // More than 48 KB of dynamic shared memory (K > 612) needs an opt-in,
+  // made once for the largest K, at the first such launch: no attribute call
+  // is made while a CUDA graph is captured after it (the main path's K <= 400
+  // stays below).
+  static bool opted_in = false;
+  if (smem > 48 * 1024 && !opted_in) {
+    const int most = (int)(sizeof(unsigned) * (32 * kMaxWords * kMaxWords + 2 * kMaxWords));
     const cudaError_t err = cudaFuncSetAttribute(
-        greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return (int)err;
+    opted_in = true;
   }
   greedy_nms_kernel<<<B * kCluster, kThreads, smem, (cudaStream_t)stream>>>(
       d2, batch_stride, ok, K, min_d2, taken);

@@ -12,7 +12,7 @@ reference's real-dataset protocol (full EuRoC / TUM-VI sequences).
 
 Frames render on the device (``io/textured_device.py``) a chunk at a time
 and never leave it. The mono, stereo and fisheye families run ``Vio.step``
-at one lane; stereo_api (the same stereo run through ``VioApi`` and its
+at one lane (on the card its CUDA graph, replayed each frame); stereo_api (the same stereo run through ``VioApi`` and its
 sample synchronizer) and vislam (``VioApi`` with the SLAM worker) run the
 host entry point. The reference's compilation-cache lines and its
 ``HYBVIO_LONG_SCAN`` chunked-scan driver have no counterpart here.
@@ -150,8 +150,10 @@ def run_long_probe(family: str = "stereo", duration: float = 60.0, seed: int = 8
 def _run_step(family, duration, seed, frame_rate, imu_rate, chunk, overrides, width, height,
               fx, scene_kwargs, dtype, device) -> dict:
     """The one-lane ``Vio.step`` loop over the device-rendered frames (the
-    reference's ``_run_jitted``); positions stay on the device until the
-    end (no host read per frame)."""
+    reference's ``_run_jitted``): on the card the compiled step of
+    ``make_batched_vio``, a CUDA graph replayed each frame, as the reference
+    jits its step; positions stay on the device until the end (no host read
+    per frame)."""
     p, W, H, FX, coeffs = _geometry(family, overrides, width, height, fx)
     cams = [build_camera_from_params(p.tracker, W, H)]
     if p.tracker.useStereo:

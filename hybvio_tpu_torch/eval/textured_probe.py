@@ -80,7 +80,9 @@ def run_textured_probe(duration: float = 6.0, seed: int = 8, width: int = 320,
     """Run mono, stereo or fisheye VIO (one lane) end to end on the
     textured world: {"ate_rmse_m", "frames", "finite"}, deterministic for a
     seed. ``dtype`` is the filter's (float32 unless given); fisheye renders
-    through the KB4 model at 320x320 with a 120 px focal length."""
+    through the KB4 model at 320x320 with a 120 px focal length. On the card
+    the step is the compiled one of ``make_batched_vio`` (a CUDA graph
+    replayed each frame), as the reference jits its step."""
     device = torch.device(device) if device is not None else default_device()
     dtype = torch.float32 if dtype is None else dtype
     if fisheye:

@@ -332,7 +332,7 @@ class Tracker(nn.Module):
             prev_iy=tuple(_lanes([g[1] for g in cur_grads], B)),
             mask_scale=mscale, next_track_id=next_id, last_kf_px=last_kf_px,
             last_kf_id=last_kf_id, frame_num=ts.frame_num + 1,
-            prev_time=t.to(torch.float32))
+            prev_time=t.to(torch.float32).clone(memory_format=torch.contiguous_format))
 
         status = torch.where(alive, ST_FAILED_FLOW, -1)
         status = torch.where(alive & (flow_status == FLOW_OUT_OF_RANGE), ST_FLOW_OUT_OF_RANGE, status)

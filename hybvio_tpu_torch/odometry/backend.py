@@ -115,6 +115,14 @@ class FrameOutput(NamedTuple):
     sft: torch.Tensor
 
 
+def bucket_n_valid(n: int, S: int) -> int:
+    """``n`` valid IMU columns rounded up to the next power of two, at most
+    ``S``: the loop of ``Backend.imu_scan`` over that many columns gives the
+    same state bit for bit (an invalid column leaves a lane's state as it
+    was) with a few loop lengths, so a captured step has a few signatures."""
+    return min(1 << max(int(n) - 1, 0).bit_length(), S) if n > 0 else 0
+
+
 def _set_lane_pos(a, pos, v):
     """a[b, pos[b]] = v[b]."""
     return a.scatter(1, pos[:, None].to(torch.int64), v[:, None].to(a.dtype))
@@ -295,7 +303,9 @@ class Backend(nn.Module):
             vu_prepare_status=pc[4],
             sft=m[:, SFT],
         )
-        return state, out
+        # the key handed on in the init state's layout, whichever draw left
+        # it (a column of a split): a captured step then has one signature
+        return state._replace(rng=state.rng.contiguous()), out
 
     def _stereo_rows(self, norm0, norm1, depth, valid):
         """Each track's stereo triangulation in its left camera's inverse-

@@ -6,13 +6,21 @@ plain C interface under ``build/`` at the repository root, and ``ctypes``
 loads it. Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``. Nothing here runs at import: the
 CPU tests import every module and never build.
+
+A launch made while a CUDA graph is captured (``recording_launches``, in
+the capturing thread) runs at each replay, not then: it is recorded, not
+counted, and the graph adds its record to the counts at every replay
+(``add_launches``).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -103,12 +111,38 @@ def library():
     return _loaded["lib"]
 
 
+_capture = threading.local()  # .record: the Counter of the capture this thread makes
+
+
 def launch(kernel: str, fn_name: str, *args, shape: tuple) -> None:
     """Call a C entry point on the current stream; raise if the launch
-    failed; count it, in total and for its input ``shape``."""
+    failed; count it, in total and for its input ``shape`` (or, inside
+    ``recording_launches``, record it)."""
     _call(fn_name, *args)
-    LAUNCHES[kernel] += 1
-    SHAPE_LAUNCHES[(kernel, shape)] = SHAPE_LAUNCHES.get((kernel, shape), 0) + 1
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record[(kernel, shape)] += 1
+        return
+    add_launches({(kernel, shape): 1})
+
+
+def add_launches(record) -> None:
+    """Count the launches of a record ((kernel, shape) -> launches)."""
+    for (kernel, shape), n in record.items():
+        LAUNCHES[kernel] += n
+        SHAPE_LAUNCHES[(kernel, shape)] = SHAPE_LAUNCHES.get((kernel, shape), 0) + n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """A block whose launches in this thread are recorded in the Counter it
+    yields ((kernel, shape) -> launches), not counted: a graph capture's."""
+    saved = getattr(_capture, "record", None)
+    _capture.record = collections.Counter()
+    try:
+        yield _capture.record
+    finally:
+        _capture.record = saved
 
 
 def launch_empty() -> None:

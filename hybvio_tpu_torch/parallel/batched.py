@@ -17,6 +17,12 @@ communication between shards. A mesh may list one device more than once
 (several shards on one device). ``make_batched_scan`` folds a staged
 sequence of frames through the step (the reference's ``lax.scan`` mode) as
 a Python loop over the frames.
+
+On the card the step is compiled, as the reference jits it: a CUDA graph of
+``Vio.step`` captured once for each input signature and replayed
+(``graphs.CapturedStep``), each shard's replica with a graph of its own;
+``batched_step.eager`` is the step without the graph (the reference's
+``batched_step.vstep``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import dataclasses
 import torch
 
 from .. import random as jr
+from ..graphs import CapturedStep
 from ..odometry.backend import ImuBatch
 from ..odometry.vio import Vio
 from ..runtime import default_device, device_scope, filter_dtype
@@ -96,6 +103,14 @@ def make_batched_vio(params, derived, cameras, batch_size: int, max_tracks=None,
     batched_init(frame, t0s (B,), seeds (B,)) -> state
     batched_step(state, imu, frame) -> (state, FrameOutput)
 
+    On the card ``batched_step`` replays a CUDA graph of the step, captured
+    at the first call with each input signature (that call runs the step
+    eagerly, then captures it: a host sync); the state and output it
+    returns are the caller's, unchanged by later steps.
+    ``batched_step.eager`` is the same step without the graph, and
+    ``batched_step.graphs`` the ``CapturedStep`` of each replica (their
+    capture counts). On the CPU both are the eager step.
+
     A frame is a (left, right) pair of images in stereo and one image in
     mono; an image is (B, H, W), one per lane, or with ``shared_frames``
     one (H, W) image for every lane. Integer (e.g. uint8) images are
@@ -141,13 +156,18 @@ def make_batched_vio(params, derived, cameras, batch_size: int, max_tracks=None,
 
     if mesh is None:
         vio = vio.to(device)
+        captured = CapturedStep(vio.step, "batched step")
 
         def batched_init(first_images, t0s, seeds):
             return init_lanes(vio, *frame(first_images), t0s, seeds, batch_size)
 
         def batched_step(states, imu, frames):
+            return captured(states, imu, *frame(frames))
+
+        def eager(states, imu, frames):
             return vio.step(states, imu, *frame(frames))
 
+        batched_step.eager, batched_step.graphs = eager, (captured,)
         return batched_init, batched_step, vio
 
     # one replica a shard, built on the host once and copied to its device
@@ -172,17 +192,23 @@ def make_batched_vio(params, derived, cameras, batch_size: int, max_tracks=None,
                                          t0s[lanes[s]], seeds[lanes[s]], batch_size // mesh.size))
         return tuple(states)
 
-    def batched_step(states, imu, frames):
-        left, right = frame(frames)
-        new, outs = [], []
-        for s, d in enumerate(mesh.devices):
-            with device_scope(d):
-                shard_imu = ImuBatch(*(x[lanes[s]].to(d, non_blocking=True) for x in imu))
-                st, out = vios[s].step(states[s], shard_imu, take(left, s), take(right, s))
-            new.append(st)
-            outs.append(out)
-        return tuple(new), gather_lanes(outs, device)
+    captured = tuple(CapturedStep(v.step, f"batched step, shard {s}") for s, v in enumerate(vios))
 
+    def stepper(steps):
+        def batched_step(states, imu, frames):
+            left, right = frame(frames)
+            new, outs = [], []
+            for s, d in enumerate(mesh.devices):
+                with device_scope(d):
+                    shard_imu = ImuBatch(*(x[lanes[s]].to(d, non_blocking=True) for x in imu))
+                    st, out = steps[s](states[s], shard_imu, take(left, s), take(right, s))
+                new.append(st)
+                outs.append(out)
+            return tuple(new), gather_lanes(outs, device)
+        return batched_step
+
+    batched_step = stepper(captured)
+    batched_step.eager, batched_step.graphs = stepper(tuple(v.step for v in vios)), captured
     return batched_init, batched_step, vios
 
 
@@ -199,10 +225,12 @@ def make_batched_scan(params, derived, cameras, batch_size: int, max_tracks=None
       positions     (F, B, 3), in a tensor allocated on the IMU's device
                     before the loop
 
-    The fold is a Python loop over the frames of the eager step (the same
-    step, so the same trajectories); it makes no host sync. A CUDA graph of
-    the step, the card's counterpart of what the scan does for the TPU, is
-    not part of it.
+    The fold is a Python loop over the frames of the step of
+    ``make_batched_vio``: on the card it replays that step's CUDA graph once
+    a frame (captured at the first frame, a host sync), the card's
+    counterpart of the reference's one program; the replays make no host
+    sync. The same step, so the same trajectories as the eager steps.
+    ``scan_run.step`` is that batched step.
     """
     batched_init, batched_step, vio = make_batched_vio(
         params, derived, cameras, batch_size, max_tracks=max_tracks, dtype=dtype,
@@ -218,4 +246,5 @@ def make_batched_scan(params, derived, cameras, batch_size: int, max_tracks=None
             positions[f] = out.position
         return states, positions
 
+    scan_run.step = batched_step
     return batched_init, scan_run
