@@ -205,6 +205,36 @@ Phases (any failure exits non-zero and prints no result line):
      changed returned tensor, a capture in a counted step, or a host sync
      in a replay. Its summary, and the script's wall time, come before the
      kernel JSON.
+ 14. the compiled SLAM side (each keyframe-rate program of the SLAM session
+     and its coupling a graphs.CapturedStep named "slam ...", SLAM_PROGRAMS,
+     captured per session into the session's own graph pools; phases 8,
+     11c, 11d and 12 run them captured): (b) phase 8b's vislam with every
+     SLAM program's .eager form (the VIO step captured), then captured,
+     captured and eager again: per-frame median and p90, finish() s and
+     ATE of the four; of the first two the SLAM stage table per
+     keyframe of both, keyframes, BA runs, loop events, dropped
+     candidates, ATE, each local BA call's ms; the captured session equal
+     to the eager one (ids, loop events, poses within SLAM_POSE_TOL) where
+     their keyframes came from the same frames; in the captured run
+     every step after step VISLAM_SYNC_STEP under the sync check, the
+     stepping thread's syncs counted (the worker's not), and the steps
+     beside a busy worker; (a)
+     phase 8a's SLAM_RECORD_SCENARIOS through eager card sessions, held to
+     8a's CPU sessions (8a holds its captured card sessions the same way),
+     plus seeded direct calls of the programs no session called (the PnP
+     and similarity RANSACs, the matcher, k-means, the sharded BA at 12c's
+     problem), and every call recorded in (a) and (b)'s eager runs
+     replayed through its captured program: every output leaf bit-equal;
+     (c) at vislam's and phase 12c's problem sizes, ba_iterate and the
+     sharded BA over 4 shards of the card, captured (replays) and eager,
+     between CUDA events, and ba_iterate on the host CPU (the reference's
+     placement, host clock); (d) each program's captures (signatures),
+     capture s and replays, the SLAM pools' MiB beside the VIO steps'
+     pool. Fails on a leaf not bit-equal, ids or loop events that differ
+     from the CPU session's, poses more than SLAM_POSE_TOL apart, a
+     signature captured twice, a program in SLAM_PROGRAMS that never
+     replayed, an ATE over 0.05 m, a host sync of the stepping thread in a
+     VIO step or no watched step beside a busy worker.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -374,6 +404,18 @@ MESH_SESSION = "BA on noisy odometry"  # the phase-8a scenario run with set_ba_m
 # captured, eager (phase 13a); the API's eager runs beside phase 7's (13c)
 COMPILED_STEPS = 5
 COMPILED = {}  # phase 13's numbers, by path
+# phase 14: the compiled SLAM side. The programs a session captures (each a
+# graphs.CapturedStep named "slam ..."; the sharded BA's is made by
+# make_sharded_ba); phase 8a's scenarios whose eager card sessions are
+# recorded for 14a; the CPU runs of each BA problem timed in 14c
+SLAM_PROGRAMS = ("slam ORB descriptors", "slam multi-scale keypoints", "slam descriptor matcher",
+                 "slam local BA", "slam pose graph", "slam similarity RANSAC", "slam PnP RANSAC",
+                 "slam vocabulary k-means", "slam ray_to_pixel", "slam uint8 quantizer",
+                 "slam sharded BA")
+SLAM_RECORD_SCENARIOS = ("revisit", "applied loops")
+BA_CPU_RUNS = 3
+SLAM_SESSIONS = {}  # phase 8a: scenario -> (its card session, its CPU session)
+COMPILED_SLAM = {}  # phase 14's numbers
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
 SLEEP_CYCLES_PER_S = 2e9  # the H100's top SM clock, rounded up
@@ -2061,6 +2103,7 @@ def run_slam_sessions(dev):
                 s.end()
             runs.append((s, per_frame, time.perf_counter() - t0))
         (card, card_s, card_end), (cpu, cpu_s, cpu_end) = runs
+        SLAM_SESSIONS[name] = (card, cpu)
         same, pose_err, point_err = session_diff(card, cpu)
         say(f"slam session {name}: {len(frames)} frames, card {1e3 * sum(card_s):.1f} ms "
             f"(per frame median {1e3 * statistics.median(card_s):.1f} ms, first "
@@ -2069,7 +2112,8 @@ def run_slam_sessions(dev):
             + f"; keyframes {card.kf_order}, {len(card.points)} map points, loop events "
             f"{loop_events(card)}, loop edges {len(card.loop_edges)}; card vs CPU: ids "
             f"{'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point diff "
-            f"{point_err:.3g} (tol {SLAM_POSE_TOL})")
+            f"{point_err:.3g} (tol {SLAM_POSE_TOL}); the card's programs (14): "
+            + program_line(card.graph_pools.programs))
         if not same:
             raise AssertionError(f"slam session {name}: the card's ids or loop events differ "
                                  f"from the CPU's: keyframes {card.kf_order} / {cpu.kf_order}, "
@@ -2121,7 +2165,8 @@ def _slam_table():
     return [(k, ms[k], ts.counts[k]) for k in timer.SLAM_STAGES if k in ms]
 
 
-def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_dir=None):
+def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_dir=None,
+               watch=False):
     """Phase 8b: VioApi on synthetic_bench_params("vislam") (bench.py's
     run_vislam on the port): stereo 752x480 at one lane with the SLAM
     session on its worker thread, fed the stereo path's world (path_inputs'
@@ -2133,7 +2178,10 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
     SLAM worker drained first) and the launches by shape. Phase 11 runs it
     again as ``name`` over ``frames_in`` frames, with a debug ``publisher``
     on the API (11c) or the SLAM viewers writing under ``vis_dir`` after
-    each output, as the CLI does (11d). Keeps its numbers in
+    each output, as the CLI does (11d). With ``watch`` (phase 14b) every
+    step after step VISLAM_SYNC_STEP runs under the sync check too, the
+    syncs of this thread counted (the worker's own are not), and the steps
+    during which the SLAM worker was busy are counted. Keeps its numbers in
     VISLAM_STATS[name]; returns (launches, launches by shape, host
     syncs)."""
     import torch
@@ -2144,7 +2192,6 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
     from hybvio_tpu_torch.io.synthetic import SYNTH_IMU_TO_CAMERA, generate_sequence
     from hybvio_tpu_torch.io.synthetic_device import make_blob_renderer
     from hybvio_tpu_torch.models import synthetic_bench_params
-    from hybvio_tpu_torch.slam import session
     from hybvio_tpu_torch.utils import timer
 
     params = synthetic_bench_params("vislam")
@@ -2167,14 +2214,21 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
     say(f"{name}: rendered {F} stereo frames of {W}x{H} on the card in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    ba_runs = [0]
-    ba_iterate = session.ba_iterate
-
-    def counted_ba(*a, **k):
-        ba_runs[0] += 1
-        return ba_iterate(*a, **k)
-
     api = VioApi(params, W, H, device=dev)
+    ba_runs, ba_program, ba_calls = [0], api.slam.slam._ba_program, []
+
+    def counted_ba(*a, **k):  # each local BA call: how it ran, ms to its result on the host
+        ba_runs[0] += 1
+        before = (ba_program.captures, ba_program.replays)
+        t0 = time.perf_counter()
+        out = ba_program(*a, **k)
+        torch.cuda.current_stream().synchronize()
+        kind = ("capture" if ba_program.captures > before[0] else
+                "replay" if ba_program.replays > before[1] else "eager")
+        ba_calls.append((kind, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    api.slam.slam._ba_program = counted_ba
     outputs, wall, counted = [], [], {}
     api.on_output = outputs.append
     if publisher is not None:
@@ -2204,17 +2258,25 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
         if stepped:
             wall.append(time.perf_counter() - ts)
 
+    watched = collections.Counter()  # 14b: this thread's syncs in the steps after the counted one
+
     def counted_step(*args):
         if len(wall) == VISLAM_SYNC_STEP and "syncs" not in counted:
             api.slam.wait_idle()  # the SLAM worker's own syncs are off the step
             captures = api._step.captures
             counted["syncs"] = host_syncs(lambda: step(*args))[1]
             counted["captured"] = api._step.captures != captures
+        elif watch and "syncs" in counted:
+            busy = any(not p.future.done() for p in api.slam.pending)
+            captures = api._step.captures
+            watched.update(thread_syncs(lambda: step(*args))[1])
+            watched["(steps)"] += 1
+            watched["(steps beside a busy worker)"] += busy
+            watched["(steps that captured)"] += api._step.captures != captures
         else:
             step(*args)
 
     api._process_frame, api._step_frame = timed_process, counted_step
-    session.ba_iterate = counted_ba
     timer.SLAM_TIME_STATS.reset()
     timer.SLAM_TIME_STATS.enabled = True
     try:
@@ -2237,7 +2299,6 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
         launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
         table = _slam_table()
     finally:
-        session.ba_iterate = ba_iterate
         timer.SLAM_TIME_STATS.enabled = False
     slam, coupling = api.slam.slam, api.slam
     est = np.stack([o.position for o in outputs]) if outputs else np.zeros((0, 3))
@@ -2301,7 +2362,11 @@ def run_vislam(dev, name="vislam", frames_in=VISLAM_FRAMES, publisher=None, vis_
                               p90=1e3 * float(np.percentile(steady_wo, 90)),
                               keyframes=len(slam.kf_order), kp_ms=kp, finish=teardown, ate=ate,
                               detector=slam.keypoint_detector, outputs=outputs,
-                              sync=type(api.sample_sync).__name__)
+                              sync=type(api.sample_sync).__name__, table=table,
+                              ba_runs=ba_runs[0], ba_calls=ba_calls, dropped=coupling.dropped,
+                              session=slam,
+                              loops=loop_events(slam), watched=dict(watched),
+                              programs=slam.graph_pools.programs + [coupling._quantize_u8])
     return launches, by_shape, sum(syncs.values())
 
 
@@ -3267,6 +3332,334 @@ def run_multi_device(dev):
     return runs
 
 
+def thread_syncs(fn):
+    """Run ``fn()`` under torch.cuda.set_sync_debug_mode("warn"): (its
+    result, the host syncs this thread made, by the Python line that made
+    each); another thread's (the SLAM worker's) are not counted."""
+    import threading
+    import warnings
+
+    import torch
+
+    me, lines = threading.get_ident(), collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        text = str(message)
+        if (threading.get_ident() == me and "synchroniz" in text
+                and "prototype feature" not in text):
+            lines[f"{filename.rsplit('/', 1)[-1]}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, lines
+
+
+def program_line(programs):
+    """One line on SLAM programs: each one's captures (signatures),
+    capture seconds and replays."""
+    return "; ".join(f"{p.name[5:]} {p.captures} ({p.keys}) in {p.capture_s:.2f} s, "
+                     f"{p.replays} replays" for p in programs if p.captures or p.replays) \
+        or "none called"
+
+
+def double_captures(programs):
+    """The programs that captured one signature (shapes, dtypes, host
+    values) twice: a layout that changed between calls."""
+    from hybvio_tpu_torch.graphs import describe
+
+    return [p.name for p in programs
+            if len({describe(k) for k in p._graphs}) < p.captures]
+
+
+@contextlib.contextmanager
+def eager_slam_programs(record=None):
+    """Inside the block every SLAM program (a CapturedStep named "slam
+    ...") runs its eager form, in any thread; with ``record`` (a dict),
+    each call's program, inputs and outputs (cloned) are appended under the
+    program's name. The VIO step stays captured."""
+    from hybvio_tpu_torch import graphs
+
+    call = graphs.CapturedStep.__call__
+
+    def eager_call(self, *args, **kwargs):
+        if not self.name.startswith("slam"):
+            return call(self, *args, **kwargs)
+        out = self.eager(*args, **kwargs)
+        if record is not None:
+            record.setdefault(self.name, []).append(
+                (self, clone_tree((args, kwargs)), clone_tree(out)))
+        return out
+
+    graphs.CapturedStep.__call__ = eager_call
+    try:
+        yield
+    finally:
+        graphs.CapturedStep.__call__ = call
+
+
+def slam_direct_calls(dev, session, mesh):
+    """Phase 14a's inputs for the programs an eager session may not call
+    (no loop in vislam, no 2D-3D fallback, no vocabulary training, no
+    mesh): {name: (program, (args, kwargs))}, made from seeds: a PnP and a
+    similarity problem with outliers, random descriptors for the matcher
+    and k-means, phase 12c's BA problem for the sharded BA (a program of
+    its own, into pools of its own)."""
+    import torch
+
+    from hybvio_tpu_torch import random as jr
+    from hybvio_tpu_torch.graphs import GraphPools, capturing_into
+    from hybvio_tpu_torch.slam.ba import make_sharded_ba
+
+    rng = np.random.RandomState(14)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(dev)
+    P, M = 256, 60
+    X = rng.randn(P, 3) + np.array([0.0, 0.0, 6.0])
+    yaw = 0.1
+    Rm = np.array([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
+                   [0.0, 0.0, 1.0]])
+    pc = X @ Rm.T + np.array([0.1, -0.2, 0.3])
+    obs = pc[:, :2] / pc[:, 2:] + 1e-3 * rng.randn(P, 2)
+    obs[:10] += 0.3  # outliers
+    dst = 1.05 * X @ Rm.T + 0.5 + 0.01 * rng.randn(P, 3)
+    dst[:10] += 2.0
+    valid = torch.as_tensor(np.arange(P) < M).to(dev)
+    key = jr.prng_key(torch.as_tensor(7).to(dev))
+    desc = lambda n: torch.as_tensor(np.sign(rng.randn(n, 256)).astype(np.float32)).to(dev)
+    with capturing_into(GraphPools("slam sharded BA (14a)")):
+        sharded = make_sharded_ba(mesh, iterations=BA_ITERATIONS)
+    return {
+        "slam PnP RANSAC": (session._pnp_program, ((f64(X), f64(obs), valid, key),
+                                                   dict(n_hyp=100, threshold=f64(0.02)))),
+        "slam similarity RANSAC": (session._similarity_program, (
+            (f64(X), f64(dst), valid, key), dict(n_hyp=100, threshold=f64(0.1),
+                                                 with_scale=True))),
+        "slam descriptor matcher": (session._match_program, (
+            (desc(256), torch.ones(256, dtype=torch.bool, device=dev), desc(256),
+             torch.ones(256, dtype=torch.bool, device=dev)), dict(lowe_ratio=0.7))),
+        "slam vocabulary k-means": (session.vocabulary.kmeans_program, (
+            (desc(512), desc(2048), torch.as_tensor(np.arange(2048) < 1900).to(dev), 8), {})),
+        "slam sharded BA": (sharded.programs[0], ((ba_problem(dev, BA_NK, BA_MP),), {})),
+    }
+
+
+def replay_recorded(record):
+    """Phase 14a: each recorded eager call replayed through its captured
+    program (captured first where its signature is new): {name: (calls,
+    leaves not bit-equal, largest difference)}."""
+    import torch
+
+    torch.cuda.synchronize()
+    rows = {}
+    for name, calls in record.items():
+        unequal, worst = 0, 0.0
+        for program, (args, kwargs), want in calls:
+            before = program.replays
+            for _ in range(3):  # a warm-up, a capture, then a replay at the latest
+                got = program(*args, **kwargs)
+                if program.replays > before:
+                    break
+            n, w = bit_diff(got, want)
+            unequal, worst = unequal + n, max(worst, w)
+        rows[name] = (len(calls), unequal, worst)
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_ba(dev, mesh, NK, MP):
+    """Phase 14c at one problem size (ba_problem's, float64,
+    BA_ITERATIONS iterations): ba_iterate and the sharded BA over ``mesh``,
+    each captured (replays, in pools that capture at a signature's second
+    call, as a session's) and eager, between CUDA events, the median of
+    BA_TIMED_RUNS after two calls (a warm-up and the capture); ba_iterate on the host
+    CPU (device="cpu", the reference's placement, host clock, the median of
+    BA_CPU_RUNS). The captured results bit-equal with the eager ones, the
+    CPU's within BA_POSE_TOL / BA_POINT_TOL. Returns {variant: ms}."""
+    import torch
+
+    from hybvio_tpu_torch.graphs import CapturedStep, GraphPools, capturing_into
+    from hybvio_tpu_torch.slam.ba import BAProblem, ba_iterate, make_sharded_ba
+
+    prob = ba_problem(dev, NK, MP)
+    pools = GraphPools("slam BA (14c)", eager_calls=1)  # as a session's
+    with capturing_into(pools):
+        ba = CapturedStep(lambda p: ba_iterate(p, iterations=BA_ITERATIONS), "slam BA (14c)")
+        sharded = make_sharded_ba(mesh, iterations=BA_ITERATIONS)
+    runs = {"ba_iterate captured": lambda: ba(prob), "ba_iterate eager": lambda: ba.eager(prob),
+            "sharded captured": lambda: sharded(prob),
+            "sharded eager": lambda: sharded.programs[0].eager(prob)}
+    out, ms = {}, {}
+    for name, fn in runs.items():
+        fn()
+        fn()  # the captured ones: a warm-up, then the capture
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(BA_TIMED_RUNS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out[name] = fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms[name] = statistics.median(times)
+    cpu_prob = BAProblem(*(x.cpu() for x in prob))
+    times = []
+    for _ in range(BA_CPU_RUNS):
+        t0 = time.perf_counter()
+        cpu_out = ba_iterate(cpu_prob, iterations=BA_ITERATIONS)
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms["ba_iterate on the CPU"] = statistics.median(times)
+    diffs = {what: bit_diff(out[f"{what} captured"], out[f"{what} eager"])
+             for what in ("ba_iterate", "sharded")}
+    pose_err = float((cpu_out[0] - out["ba_iterate eager"][0].cpu()).abs().max())
+    point_err = float((cpu_out[1] - out["ba_iterate eager"][1].cpu()).abs().max())
+    say(f"phase 14c BA at NK={NK}, MP={MP}, float64, {BA_ITERATIONS} iterations: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" (CUDA events on the card, median of {BA_TIMED_RUNS}; host clock on the CPU, "
+        f"{torch.get_num_threads()} threads, median of {BA_CPU_RUNS}); captured vs eager: "
+        f"leaves not bit-equal ba_iterate {diffs['ba_iterate'][0]}, sharded "
+        f"{diffs['sharded'][0]}; CPU vs card: poses {pose_err:.3g}, points {point_err:.3g}; "
+        f"captures ba_iterate {ba.captures} in {ba.capture_s:.2f} s, sharded "
+        f"{sharded.programs[0].captures} in {sharded.programs[0].capture_s:.2f} s; pool "
+        f"{pools.nbytes() / 2**20:.1f} MiB")
+    if any(n for n, _ in diffs.values()):
+        raise AssertionError(f"phase 14c: captured BA differs from eager: {diffs}")
+    if not (pose_err <= BA_POSE_TOL and point_err <= BA_POINT_TOL):
+        raise AssertionError(f"phase 14c: the CPU's BA parts from the card's by {pose_err} / "
+                             f"{point_err}")
+    return ms
+
+
+def run_compiled_slam(dev):
+    """Phase 14, the compiled SLAM side: (b) vislam (8b) with every SLAM
+    program eager (its calls recorded), then captured, with the steps after
+    step VISLAM_SYNC_STEP watched for host syncs of the stepping thread,
+    then captured and eager again (the medians of all four);
+    (a) phase 8a's SLAM_RECORD_SCENARIOS through eager card sessions
+    (recorded, held to 8a's CPU sessions), direct calls of the programs no
+    session called, and every recorded call replayed through its captured
+    program, bit-equal; (c) time_ba at vislam's and phase 12c's problem
+    sizes; (d) each program's captures, seconds, replays and signatures,
+    the SLAM pools beside the step's. Returns {path: (launches, by shape,
+    host syncs)} of the four vislam runs."""
+    import torch
+
+    from hybvio_tpu_torch.config import Parameters
+    from hybvio_tpu_torch.graphs import graph_pool_bytes
+    from hybvio_tpu_torch.parallel.batched import Mesh
+    from hybvio_tpu_torch.slam.session import Slam
+
+    t0 = time.perf_counter()
+    record = {}
+    runs = {}
+    with eager_slam_programs(record):
+        runs["vislam_eager_slam"] = run_vislam(dev, "vislam_eager_slam")
+    runs["vislam_captured_slam"] = run_vislam(dev, "vislam_captured_slam", watch=True)
+    runs["vislam_captured_slam_2"] = run_vislam(dev, "vislam_captured_slam_2")
+    with eager_slam_programs():
+        runs["vislam_eager_slam_2"] = run_vislam(dev, "vislam_eager_slam_2")
+    four = [VISLAM_STATS[n] for n in runs]
+    say("phase 14b vislam in the order eager, captured, captured, eager SLAM programs: "
+        "per-frame median " + " / ".join(f"{st['median']:.2f}" for st in four) + " ms, p90 "
+        + " / ".join(f"{st['p90']:.2f}" for st in four) + " ms, finish() "
+        + " / ".join(f"{st['finish']:.3f}" for st in four) + " s, ATE "
+        + " / ".join(f"{st['ate']:.4f}" for st in four) + " m")
+    eager, captured = VISLAM_STATS["vislam_eager_slam"], VISLAM_STATS["vislam_captured_slam"]
+    for name, st in (("eager", eager), ("captured", captured)):
+        say(f"phase 14b vislam, SLAM programs {name}: per-frame median {st['median']:.2f} ms, "
+            f"p90 {st['p90']:.2f} ms (p90/median {st['p90'] / st['median']:.2f}), finish() "
+            f"{st['finish']:.3f} s, keyframes {st['keyframes']}, BA runs {st['ba_runs']}, loop "
+            f"events {st['loops']}, dropped candidates {st['dropped']}, ATE {st['ate']:.4f} m; "
+            f"each local BA call (how it ran, ms to its result on the worker): "
+            + ", ".join(f"{kind} {ms:.1f}" for kind, ms in st["ba_calls"]))
+    stage = {label: (ms_e, [ms for lb, ms, _ in captured["table"] if lb == label])
+             for label, ms_e, _ in eager["table"]}
+    say("phase 14b SLAM stages, ms a keyframe, eager / captured: " + "; ".join(
+        f"{label} {e:.3f} / {c[0] if c else float('nan'):.3f}" for label, (e, c) in stage.items()))
+    watched = captured["watched"]
+    syncs = {k: v for k, v in watched.items() if not k.startswith("(")}
+    say(f"phase 14b host syncs of the stepping thread in {watched.get('(steps)', 0)} steps after "
+        f"step {VISLAM_SYNC_STEP} ({watched.get('(steps beside a busy worker)', 0)} beside a busy "
+        f"SLAM worker, {watched.get('(steps that captured)', 0)} captured): "
+        f"{sum(syncs.values())} {json.dumps(syncs)}")
+    if syncs:
+        raise AssertionError(f"phase 14b: host syncs in a VIO step beside the SLAM worker: {syncs}")
+    if not watched.get("(steps beside a busy worker)"):
+        raise AssertionError("phase 14b: no watched step ran beside a busy SLAM worker")
+    # a dropped candidate that would not have become a keyframe leaves the
+    # session as it was: two runs whose keyframes came from the same frames
+    # saw the same session inputs
+    se, sc = eager["session"], captured["session"]
+    frames_of = lambda s: [s.keyframes[k].frame_num for k in s.kf_order]
+    if frames_of(sc) == frames_of(se):
+        same, pose_err, point_err = session_diff(sc, se)
+        say(f"phase 14b captured vs eager session (keyframes of frames {frames_of(sc)}): ids "
+            f"{'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point diff "
+            f"{point_err:.3g}")
+        if not same or not (pose_err <= SLAM_POSE_TOL and point_err <= SLAM_POSE_TOL):
+            raise AssertionError(f"phase 14b: the captured session parts from the eager one: "
+                                 f"ids equal {same}, {pose_err}, {point_err}")
+    else:
+        say(f"phase 14b captured vs eager session: not compared (keyframes of frames "
+            f"{frames_of(sc)} / {frames_of(se)}: the worker dropped other candidates)")
+
+    for name, settings, kw, frames, end in slam_scenarios():
+        if name not in SLAM_RECORD_SCENARIOS:
+            continue
+        p = Parameters()
+        for k, v in settings.items():
+            setattr(p.slam, k, v)
+        s = Slam(p, device=dev, **kw)
+        with eager_slam_programs(record):
+            for img, T, ids, ip, t, k in frames:
+                s.add_frame(img, T, ids, ip, t=t, frame_num=k)
+            if end:
+                s.end()
+        card, cpu = SLAM_SESSIONS[name]
+        same, pose_err, point_err = session_diff(s, cpu)
+        say(f"phase 14a eager card session {name}: against 8a's CPU session ids "
+            f"{'equal' if same else 'DIFFER'}, max pose diff {pose_err:.3g}, max point diff "
+            f"{point_err:.3g}; 8a's captured card session: {program_line(card.graph_pools.programs)}")
+        if not same or not (pose_err <= SLAM_POSE_TOL and point_err <= SLAM_POSE_TOL):
+            raise AssertionError(f"phase 14a: the eager card session {name} parts from the CPU's")
+    mesh = Mesh((torch.device("cuda", torch.cuda.current_device()),) * MESH_SHARDS)
+    for name, (program, (args, kwargs)) in slam_direct_calls(dev, se, mesh).items():
+        if name not in record:
+            record[name] = [(program, (args, kwargs), clone_tree(program.eager(*args, **kwargs)))]
+    replayed = replay_recorded(record)
+    say("phase 14a recorded calls replayed through the captured programs (calls, leaves not "
+        "bit-equal, largest difference): " + "; ".join(
+            f"{name[5:]} {n} / {u} / {w:.3g}" for name, (n, u, w) in sorted(replayed.items())))
+    missing = [n for n in SLAM_PROGRAMS if n not in replayed]
+    if missing:
+        raise AssertionError(f"phase 14a: programs never replayed: {missing}")
+    bad = {n: r for n, r in replayed.items() if r[1]}
+    if bad:
+        raise AssertionError(f"phase 14a: replays not bit-equal with the eager calls: {bad}")
+    programs = list({id(p): p for calls in record.values() for p, _, _ in calls}.values())
+    doubled = double_captures(programs + captured["programs"])
+    if doubled:
+        raise AssertionError(f"phase 14: a signature captured twice in {doubled}")
+
+    ba = {"vislam": time_ba(dev, mesh, sc.NK, sc.MP), "12c": time_ba(dev, mesh, BA_NK, BA_MP)}
+    progs = captured["programs"]
+    say("phase 14d vislam's programs (captures (signatures) in s, replays): " + program_line(progs)
+        + f"; the session's SLAM pools {sc.graph_pools.nbytes() / 2**20:.1f} MiB, the VIO "
+        f"steps' pool {graph_pool_bytes('cuda:0') / 2**20:.1f} MiB; phase 14 "
+        f"{time.perf_counter() - t0:.1f} s")
+    idle = [p.name for p in progs if p.captures and not p.replays]
+    say(f"phase 14d vislam's programs captured and never replayed: {idle or 'none'}")
+    COMPILED_SLAM.update(eager=eager, captured=captured, four=four, ba=ba, replayed=replayed,
+                         capture_s=sum(p.capture_s for p in progs), idle=idle)
+    return runs
+
+
 def report_compiled(seconds):
     """Phase 13's summary: each path's eager and captured median step
     (13a), the scan (13b), the API at B=1 (13c) and the mesh's shard 0
@@ -3368,6 +3761,8 @@ def main() -> int:
         runs.update(run_textured(dev))
         runs.update(run_host_layers(dev))
         runs.update(run_multi_device(dev))
+        with torch_detector():
+            runs.update(run_compiled_slam(dev))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

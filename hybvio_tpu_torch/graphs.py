@@ -1,33 +1,53 @@
-"""The compiled step: a step function captured in a CUDA graph once for
-each input signature and replayed, the card's counterpart of ``jax.jit``,
-which the JAX package applies to its batched step and scan, to VioApi's
-step and its three ``-timer`` stages and to the probes' steps (``jax.jit``
+"""The compiled programs: a function captured in a CUDA graph once for each
+input signature and replayed, the card's counterpart of ``jax.jit``, which
+the JAX package applies to its batched step and scan, to VioApi's step and
+its three ``-timer`` stages, to the probes' steps and to every
+keyframe-rate program of its SLAM side (local and sharded BA, the pose
+graph, the loop-closure RANSACs, ORB descriptors, matching, the keypoint
+detector, the vocabulary's k-means and the coupling's helpers; ``jax.jit``
 lives in JAX itself: the JAX package has no file for it).
 
 ``CapturedStep(fn)`` is called as ``fn`` is. On the card, the first call
 with a signature
 
-1. runs ``fn`` eagerly on the device's capture stream (the warm-up). That
-   fills the first-use caches (``runtime.constant``, the five-point
-   solver's constants, the kernel library, the cuBLAS and cuSOLVER
-   workspaces). Its result is the call's result: no input is stepped twice;
-2. captures ``fn`` on static copies of the inputs into a graph of the
-   device's shared pool (``runtime.graph_pool``), with
+1. runs ``fn`` eagerly on its pools' capture stream for the device (the
+   warm-up). That fills the first-use caches (``runtime.constant``, the
+   five-point solver's constants, the kernel library, the cuBLAS and
+   cuSOLVER workspaces). Its result is the call's result: no input is
+   stepped twice;
+2. captures ``fn`` on static copies of the inputs into a graph of its
+   pools' memory pool for the device, with
    ``capture_error_mode="thread_local"``, so that another thread's work on
-   its own stream (the SLAM worker's) does not break the capture, and with
-   Python's cyclic collector paused: CUDA refuses to destroy a graph (a
-   dead step's, freed by the collector) in the capturing thread. A capture
-   synchronizes the device; ``captures`` and ``capture_s`` count them. The
-   kernels launched while capturing are recorded, not counted, and every
-   replay adds them to the ``ops`` launch counts.
+   its own stream does not break the capture, and with Python's cyclic
+   collector paused (``collector_paused``, counted across threads): CUDA
+   refuses to destroy a graph (a dead program's, freed by the collector)
+   in a capturing thread. A capture synchronizes its stream; ``captures``
+   and ``capture_s`` count them. The kernels launched while capturing are
+   recorded, not counted, and every replay adds them to the ``ops`` launch
+   counts.
+
+Programs whose pools say so (``GraphPools(eager_calls=1)``: the SLAM
+session's, whose signatures are often called once, such as the pose graph
+of a map size or the end of a session) capture at the second call of a
+signature instead: the first runs the warm-up alone and returns its
+result, the second captures and replays, so a signature called once costs
+its eager call only.
 
 A later call with the signature copies its inputs into the static buffers,
 replays the graph on the current stream (the same kernels in the same
-order as the eager step, so the same bits) and returns copies of the
+order as the eager run, so the same bits) and returns copies of the
 outputs that the caller owns: no later replay writes into them. A replay
 makes no host sync. A capture or a replay that fails raises, naming the
-signature; nothing falls back to the eager step, which stays reachable as
-``.eager``. On the CPU a call is the eager step.
+signature; nothing falls back to the eager function, which stays reachable
+as ``.eager``. On the CPU a call is the eager call.
+
+Pools (``GraphPools``): graphs that share a memory pool must never replay
+at once. The VIO steps of a card replay one after another on the caller's
+stream and share ``STEP_POOLS``; the SLAM session's programs replay on its
+worker's stream beside them, so each session captures into pools of its
+own (``Slam.graph_pools``), with capture streams of their own. A program
+takes the pools of the ``capturing_into`` block it is made in, else
+``STEP_POOLS``.
 
 The signature is the tree of the arguments (tuples, lists, NamedTuples,
 dicts, dataclasses such as a per-frame ``Camera``), each tensor's shape,
@@ -39,42 +59,129 @@ image or camera.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import threading
 import time
+import weakref
 from typing import NamedTuple
 
 import torch
 
 from .ops import _lib
-from .runtime import graph_pool
 
-MAX_KEYS = 32  # signatures one step may capture before a new one raises
+MAX_KEYS = 32  # signatures one program may capture before a new one raises
 _ALIGN_BYTES = 16  # the widest vector load of a kernel
 
-_STREAMS = {}  # card index -> its capture stream
-_STREAMS_LOCK = threading.Lock()
+_GC_LOCK = threading.Lock()
+_gc_pause = [0, False]  # blocks under way, whether the collector ran before the first
 
 
-def _capture_stream(device) -> torch.cuda.Stream:
-    """The stream the warm-ups and captures of ``device`` run on."""
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic collector off inside the block, counted across
+    threads: the first block to begin turns it off, the last to end turns
+    it back on if it was on before the first. (Each capture saving and
+    restoring ``gc.isenabled()`` for itself would let the first of two
+    captures in two threads re-enable it while the other still captures.)"""
+    with _GC_LOCK:
+        if _gc_pause[0] == 0:
+            _gc_pause[1] = gc.isenabled()
+            gc.disable()
+        _gc_pause[0] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _gc_pause[0] -= 1
+            if _gc_pause[0] == 0 and _gc_pause[1]:
+                gc.enable()
+
+
+def _card_index(device) -> int:
     index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    with _STREAMS_LOCK:
-        if index not in _STREAMS:
-            _STREAMS[index] = torch.cuda.Stream(device=index)
-        return _STREAMS[index]
+    return torch.cuda.current_device() if index is None else index
+
+
+class _CardPool(NamedTuple):
+    handle: tuple  # the graph memory pool
+    keep: torch.cuda.CUDAGraph  # a one-kernel graph that keeps the pool alive
+    stream: torch.cuda.Stream  # the warm-ups and captures
+
+
+class GraphPools:
+    """CUDA graph memory pools, one a card, made at first use, each with
+    the stream its programs' warm-ups and captures run on; ``programs``
+    lists the live CapturedSteps made for them, ``eager_calls`` the calls
+    of a signature that run the warm-up alone before one captures (0: the
+    first call warms up and captures). A one-kernel graph captured into
+    each pool at once keeps it alive: PyTorch frees a pool (and refuses its
+    id) once no graph that uses it is left."""
+
+    def __init__(self, name: str, eager_calls: int = 0):
+        self.name = name
+        self.eager_calls = eager_calls
+        self._cards = {}
+        self._lock = threading.Lock()
+        self._programs = []  # weak references, in the order made
+
+    def card(self, device) -> _CardPool:
+        index = _card_index(device)
+        with self._lock:
+            if index not in self._cards:
+                with torch.cuda.device(index):
+                    handle, keep = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+                    stream = torch.cuda.Stream()
+                    stream.wait_stream(torch.cuda.current_stream())
+                    with collector_paused(), torch.cuda.stream(stream):
+                        keep.capture_begin(pool=handle, capture_error_mode="thread_local")
+                        torch.zeros(1, device=torch.device("cuda", index))
+                        keep.capture_end()
+                    torch.cuda.current_stream().wait_stream(stream)
+                self._cards[index] = _CardPool(handle, keep, stream)
+            return self._cards[index]
+
+    def add(self, program) -> None:
+        self._programs = [r for r in self._programs if r() is not None] + [weakref.ref(program)]
+
+    @property
+    def programs(self) -> list:
+        live = [r() for r in self._programs]
+        self._programs = [r for r, p in zip(self._programs, live) if p is not None]
+        return [p for p in live if p is not None]
+
+    def nbytes(self, device=None) -> int:
+        """The device memory the pools hold (their segments in the caching
+        allocator's snapshot), on ``device`` or on every card used."""
+        cards = dict(self._cards)
+        if device is not None:
+            index = _card_index(device)
+            cards = {index: cards[index]} if index in cards else {}
+        pools = {(i, tuple(c.handle)) for i, c in cards.items()}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if (seg["device"], tuple(seg.get("segment_pool_id", ()))) in pools)
+
+
+STEP_POOLS = GraphPools("step")  # the VIO steps' pools, shared by every step of a card
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing_into(pools: GraphPools):
+    """CapturedSteps made inside the block, in this thread, capture into
+    ``pools``."""
+    saved = getattr(_SCOPE, "pools", None)
+    _SCOPE.pools = pools
+    try:
+        yield pools
+    finally:
+        _SCOPE.pools = saved
 
 
 def graph_pool_bytes(device) -> int:
-    """The device memory the graph pool of ``device`` holds (its segments
-    in the caching allocator's snapshot)."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    pool = tuple(graph_pool(index))
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg["device"] == index and tuple(seg.get("segment_pool_id", ())) == pool)
+    """The device memory the VIO steps' graph pool of ``device`` holds."""
+    return STEP_POOLS.nbytes(device)
 
 
 def _layout(t: torch.Tensor):
@@ -180,17 +287,17 @@ def _copy(dsts, srcs) -> None:
         torch._foreach_copy_(ds, ss)
 
 
-def _abandon_capture(graph, device) -> None:
+def _abandon_capture(graph, device, pool) -> None:
     """End a capture that failed: the stream leaves capture mode and the
     allocator stops routing its allocations to the graph pool (which an
     invalidated capture's ``capture_end`` skips), so a later capture starts
-    clean. The step's own error is raised after."""
+    clean. The program's own error is raised after."""
     try:
         graph.capture_end()
     except RuntimeError:
         end = getattr(torch._C, "_cuda_endAllocateToPool", None)
         if end is not None:
-            end(torch.device(device).index, graph_pool(device))
+            end(torch.device(device).index, pool)
 
 
 class _Graph(NamedTuple):
@@ -203,12 +310,16 @@ class _Graph(NamedTuple):
 
 class CapturedStep:
     """``fn`` captured in a CUDA graph once for each input signature and
-    replayed (the module docstring); ``eager`` is ``fn`` itself."""
+    replayed (the module docstring); ``eager`` is ``fn`` itself, ``pools``
+    the GraphPools it captures into."""
 
     def __init__(self, fn, name: str = None):
         self.eager = fn
         self.name = name or getattr(fn, "__qualname__", "step")
+        self.pools = getattr(_SCOPE, "pools", None) or STEP_POOLS
+        self.pools.add(self)
         self._graphs = {}
+        self._warmed = {}  # signature -> its warm-ups so far (pools with eager_calls)
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
@@ -221,53 +332,66 @@ class CapturedStep:
             return self.eager(*args, **kwargs)
         if len(devices) != 1:
             raise ValueError(f"{self.name}: inputs on {sorted(map(str, devices))}; a captured "
-                             f"step takes the tensors of one card")
+                             f"program takes the tensors of one card")
         entry = self._graphs.get(key)
         with torch.cuda.device(leaves[0].device):
-            if entry is None:
-                return self._capture(key, leaves, args, kwargs)
-            return self._replay(key, entry, leaves)
+            if entry is not None:
+                return self._replay(key, entry, leaves)
+            warmed = self._warmed.get(key, 0)
+            if warmed < self.pools.eager_calls:
+                self._warmed[key] = warmed + 1
+                return self._warm_up(leaves[0].device, args, kwargs)
+            if not warmed:  # the warm-up, then the capture: the warm-up is the result
+                result = self._warm_up(leaves[0].device, args, kwargs)
+                self._capture(key, leaves)
+                return result
+            del self._warmed[key]
+            return self._replay(key, self._capture(key, leaves), leaves)
 
-    def _capture(self, key, leaves, args, kwargs):
+    def _warm_up(self, device, args, kwargs):
+        """``fn`` run eagerly on the pools' capture stream (filling the
+        first-use caches there): this call's result."""
+        stream, current = self.pools.card(device).stream, torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            result = self.eager(*args, **kwargs)
+        current.wait_stream(stream)
+        return result
+
+    def _capture(self, key, leaves) -> _Graph:
+        """Capture ``fn`` on static copies of ``leaves`` (their values are
+        not read: a replay copies the inputs in first)."""
         if len(self._graphs) >= MAX_KEYS:
             raise RuntimeError(f"{self.name}: a signature beyond the {MAX_KEYS} captured: "
                                f"{describe(key)}")
         device = leaves[0].device
-        stream = _capture_stream(device)
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            result = self.eager(*args, **kwargs)  # the warm-up: this call's result
-        current.wait_stream(stream)
-
+        card = self.pools.card(device)
+        stream, current = card.stream, torch.cuda.current_stream(device)
         t0 = time.perf_counter()
         static_in = [_empty_like(x) for x in leaves]
         s_args, s_kwargs = _unflatten(key, iter(static_in))
-        graph, pool = torch.cuda.CUDAGraph(), graph_pool(device)
-        torch.cuda.synchronize(device)
-        collecting = gc.isenabled()
-        gc.disable()  # a dead step's graph freed inside the capture would invalidate it
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(current)
+        stream.synchronize()  # the stream only: a device-wide sync would wait on other captures
         try:
-            with _lib.recording_launches() as launches, torch.cuda.stream(stream):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            with collector_paused(), _lib.recording_launches() as launches, \
+                    torch.cuda.stream(stream):
+                graph.capture_begin(pool=card.handle, capture_error_mode="thread_local")
                 try:
                     out = self.eager(*s_args, **s_kwargs)
                 except BaseException:
-                    _abandon_capture(graph, device)
+                    _abandon_capture(graph, device, card.handle)
                     raise
                 graph.capture_end()
         except Exception as e:
             raise RuntimeError(f"{self.name}: the capture of {describe(key)} failed: {e}") from e
-        finally:
-            if collecting:
-                gc.enable()
         out_leaves = []
         out_spec = _flatten(out, out_leaves)
-        self._graphs[key] = _Graph(graph, [_compact(s) for s in static_in], out_spec, out_leaves,
-                                   dict(launches))
+        entry = self._graphs[key] = _Graph(graph, [_compact(s) for s in static_in], out_spec,
+                                           out_leaves, dict(launches))
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
-        return result
+        return entry
 
     def _replay(self, key, entry: _Graph, leaves):
         _copy(entry.inputs, [_compact(x) for x in leaves])

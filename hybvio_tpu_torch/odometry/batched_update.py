@@ -266,8 +266,10 @@ def make_batched_visual_update(po, prepare, d, NV, n_cams, visual_r, rmse_thr0, 
             m, P = lane_where(do_ins, m_ins, m), lane_where(do_ins, P_ins, P)
             ids = torch.where(can_promote, torch.gather(track_ids, 1, order).to(mp_ids.dtype),
                               torch.full_like(mp_ids[:, :1], -1))
+            # column M: dropped; contiguous, so that the stepped state keeps the
+            # init state's layout (one captured graph, graphs.py)
             mp_ids = torch.cat([mp_ids, torch.full_like(mp_ids[:, :1], -1)], dim=1).scatter(
-                1, torch.where(can_promote, slot_of, M), ids)[:, :M]  # column M: dropped
+                1, torch.where(can_promote, slot_of, M), ids)[:, :M].contiguous()
         if not sqrt_mode:
             P = 0.5 * (P + P.transpose(-1, -2))
 

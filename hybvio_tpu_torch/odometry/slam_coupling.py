@@ -15,7 +15,11 @@ uint8 on the caller's stream into a tensor of the coupling's own (the
 caller's frame buffers are reused once their frame retires), and an event
 is recorded after it; the worker runs on a CUDA stream of its own, which
 waits on that event before it reads the frame, so the session's work
-overlaps the next VIO steps.
+overlaps the next VIO steps. On the card the quantizer and the worker's
+``ray_to_pixel`` run as captured CUDA graphs (``graphs.CapturedStep``, as
+the reference jits both): the quantizer in the VIO steps' pools (it replays
+on the caller's stream, between the steps), ``ray_to_pixel`` in the
+session's (it replays on the worker's stream).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..geometry import cameras
+from ..graphs import CapturedStep, capturing_into
 from ..runtime import default_device
 from ..slam.host import np_quat_to_rmat, np_rmat_to_quat
 from ..slam.session import Slam
@@ -101,6 +107,9 @@ class SlamCoupling:
         self.ps = ps
         self.device = torch.device(device) if device is not None else default_device()
         self.slam = Slam(params, device=self.device)
+        self._quantize_u8 = CapturedStep(quantize_u8, "slam uint8 quantizer")
+        with capturing_into(self.slam.graph_pools):
+            self._ray_to_pixel = CapturedStep(cameras.ray_to_pixel, "slam ray_to_pixel")
         self.i2c = np.asarray(imu_to_camera)
         # the real camera model: ORB descriptor patches go to the TRUE pixel
         # positions of the tracker features (a nominal-focal reconstruction
@@ -131,15 +140,13 @@ class SlamCoupling:
         (reference: the SLAM module samples ORB on the distorted image at the
         feature's actual pixel), float32 on the coupling's device, padded to
         the reference's static count."""
-        from ..geometry.cameras import ray_to_pixel
-
         n = len(norm_pts)
         P = 256
         while P < n:
             P *= 2
         rays = np.ones((P, 3), np.float32)
         rays[:n, :2] = norm_pts
-        pix, _ok = ray_to_pixel(self.camera, torch.as_tensor(rays).to(self.device))
+        pix, _ok = self._ray_to_pixel(self.camera, torch.as_tensor(rays).to(self.device))
         return pix.cpu().numpy()[:n]
 
     def imu_pose_to_camera_cw(self, pos, quat) -> np.ndarray:
@@ -160,7 +167,7 @@ class SlamCoupling:
         card). A numpy frame passes as it is."""
         if not isinstance(image, torch.Tensor):
             return image, None
-        frame = quantize_u8(image) if image.is_floating_point() else image.clone()
+        frame = self._quantize_u8(image) if image.is_floating_point() else image.clone()
         if self.stream is None or not frame.is_cuda:
             return frame, None
         frame.record_stream(self.stream)  # the worker's stream uses it last

@@ -19,14 +19,11 @@
   cuBLAS, never to MAGMA, whose routines wait on the host and cannot be
   captured in a CUDA graph: the eager and the captured step run the same
   library (``graphs.py``).
-* The captured steps of a device share one graph memory pool
-  (``graph_pool``): their replays run one after another on one stream.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import gc
 import threading
 
 import numpy as np
@@ -118,38 +115,6 @@ def constant(values, dtype, device) -> torch.Tensor:
     tensor of ``dtype`` on ``device``, copied there once per (values,
     dtype, device) and shared by every later call: never write into it."""
     return _constant(values, dtype, torch.device(device))
-
-
-_GRAPH_POOLS = {}  # card index -> (its graph pool, the graph that keeps it)
-_GRAPH_POOLS_LOCK = threading.Lock()
-
-
-def graph_pool(device):
-    """The CUDA graph memory pool of ``device`` (a card), made at first use
-    and shared by every captured step there. A one-kernel graph captured
-    into it at once keeps it alive: PyTorch frees a pool (and refuses its
-    id) once no graph that uses it is left."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    with _GRAPH_POOLS_LOCK:
-        if index not in _GRAPH_POOLS:
-            with torch.cuda.device(index):
-                pool, keep = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
-                stream = torch.cuda.Stream()
-                stream.wait_stream(torch.cuda.current_stream())
-                collecting = gc.isenabled()
-                gc.disable()  # no graph may be destroyed inside a capture
-                try:
-                    with torch.cuda.stream(stream):
-                        keep.capture_begin(pool=pool, capture_error_mode="thread_local")
-                        torch.zeros(1, device=torch.device("cuda", index))
-                        keep.capture_end()
-                finally:
-                    if collecting:
-                        gc.enable()
-                torch.cuda.current_stream().wait_stream(stream)
-            _GRAPH_POOLS[index] = (pool, keep)
-        return _GRAPH_POOLS[index][0]
 
 
 def default_device() -> torch.device:

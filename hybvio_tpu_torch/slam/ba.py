@@ -22,7 +22,9 @@ the card to report a singular matrix.
 ``make_sharded_ba`` splits the point axis over a device mesh: the per-point
 half of an iteration runs per shard (``_point_system``, the one body both
 paths share) and the pose-side partials are summed across shards where the
-reference sums them with ``psum``.
+reference sums them with ``psum``. The session captures ``ba_iterate`` in a
+CUDA graph on the card (``slam/session.py``); ``make_sharded_ba`` captures
+its own.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from ..geometry.quaternion import quat_mul, quat_normalize, quat_to_rmat
+from ..graphs import CapturedStep
 from ..runtime import constant, device_scope
 
 POSE_DOF = 6  # se3 delta: [translation(3), rotation(3)]
@@ -182,7 +185,19 @@ def _point_system(poses, shard: _PointShard, damping, huber_delta):
     return (U, Jr, WVW, WVb, torch.sum(r_all * r_all)), (Vinv, Wkm, bp)
 
 
-_POSE_FIELDS = ("poses", "pose_valid", "prior_rel", "prior_mask", "prior_w_pos", "prior_w_rot")
+class _PoseSide(NamedTuple):
+    """The problem's pose side: its poses, priors and gauge, on one device."""
+    poses: torch.Tensor
+    pose_valid: torch.Tensor
+    prior_rel: torch.Tensor
+    prior_mask: torch.Tensor
+    prior_w_pos: torch.Tensor
+    prior_w_rot: torch.Tensor
+
+
+def _pose_side(problem: BAProblem, device) -> _PoseSide:
+    return _PoseSide(*(getattr(problem, f).to(device, non_blocking=True)
+                       for f in _PoseSide._fields))
 
 
 def _allsum(parts, device):
@@ -194,77 +209,93 @@ def _allsum(parts, device):
     return total
 
 
-def _gauss_newton(problem: BAProblem, shards, devices, iterations, damping, huber_delta,
-                  fix_first_pose):
-    """GN over the point shards ``shards`` (shard s on ``devices[s]``); the
-    pose side of ``problem`` (its poses, priors and gauge) on its own
-    device, where the shards' partials are summed and the reduced system is
-    solved. Returns (poses, points in shard order, final cost) there."""
-    NK = problem.poses.shape[0]
-    dtype, dev = problem.poses.dtype, problem.poses.device
-    w_pos = problem.prior_w_pos.expand(NK - 1)
-    w_rot = problem.prior_w_rot.expand(NK - 1)
-    prior_m = problem.prior_mask.to(dtype)
+def _pose_update(side: _PoseSide, poses, U, Jr, WVW, WVb, damping, fix_first_pose):
+    """The pose half of one GN iteration, on the pose side's device: the
+    odometry priors added to the shards' summed partials (U, Jc^T r,
+    W V^-1 W^T, W V^-1 bp), the reduced (NK*6) system gauge-fixed and
+    solved. Returns (the pose delta dc (NK, 6), the updated poses)."""
+    NK = poses.shape[0]
+    dtype, dev = poses.dtype, poses.device
+    w_pos = side.prior_w_pos.expand(NK - 1)
+    w_rot = side.prior_w_rot.expand(NK - 1)
+    prior_m = side.prior_mask.to(dtype)
     ar = torch.arange(NK, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    pin = ~problem.pose_valid
-    if fix_first_pose:
-        pin = pin.clone()
-        pin[torch.argmax(problem.pose_valid.to(torch.int32))] = True
+    pin = ~side.pose_valid
+    if fix_first_pose:  # compared on the device: a 0-d index would be read back to the host
+        pin = pin | (ar == torch.argmax(side.pose_valid.to(torch.int32)))
     pin6 = torch.repeat_interleave(pin, 6)
     pin_mat = pin6[:, None] | pin6[None, :]
     pin_diag = torch.diag(pin6.to(dtype))
     S_eps = 1e-12 * torch.eye(NK * 6, dtype=dtype, device=dev)
+    bc = -Jr
 
-    poses = problem.poses
-    cost = None
+    # --- odometry relative-pose priors between consecutive keyframes ---
+    rp, Jp2 = pair_jacobians(poses[:-1], poses[1:], side.prior_rel, w_pos, w_rot)
+    rp = rp * prior_m[:, None]
+    Jp2 = Jp2 * prior_m[:, None, None]
+    Ja, Jb = Jp2[..., :6], Jp2[..., 6:]
+    U = U.clone()
+    U[:-1] += torch.einsum("kri,krj->kij", Ja, Ja)
+    U[1:] += torch.einsum("kri,krj->kij", Jb, Jb)
+    W_prior = torch.einsum("kri,krj->kij", Ja, Jb)  # coupling k,k+1 (6,6)
+    bc = bc.clone()
+    bc[:-1] += -torch.einsum("kri,kr->ki", Ja, rp)
+    bc[1:] += -torch.einsum("kri,kr->ki", Jb, rp)
+    U = U + damping * eye6[None]
+
+    # --- Schur complement: S = U - sum_m W V^-1 W^T (with the prior coupling) ---
+    S_full = -WVW
+    S_full[ar, ar] += U
+    S_full[ar[:-1], ar[1:]] += W_prior
+    S_full[ar[1:], ar[:-1]] += W_prior.transpose(-1, -2)
+    b_red = bc - WVb  # (NK,6)
+
+    S = S_full.permute(0, 2, 1, 3).reshape(NK * 6, NK * 6)
+    b = b_red.reshape(NK * 6)
+    # gauge fixing + invalid poses: pin their deltas to zero
+    S = torch.where(pin_mat, torch.zeros_like(S), S) + pin_diag
+    b = torch.where(pin6, torch.zeros_like(b), b)
+    dc = _solve(S + S_eps, b).reshape(NK, 6)
+    return dc, _apply_pose_delta(poses, dc)
+
+
+def _back_substitute(points, valid, Vinv, Wkm, bp, dc):
+    """One shard's points after the pose delta dc: the Schur
+    back-substitution."""
+    dp_pts = torch.einsum("mij,mj->mi", Vinv, bp - torch.einsum("kmij,ki->mj", Wkm, dc))
+    return points + dp_pts * valid
+
+
+_STAGES = (_point_system, _pose_update, _back_substitute)
+
+
+def _gauss_newton(side: _PoseSide, shards, devices, iterations, damping, huber_delta,
+                  fix_first_pose, stages=_STAGES):
+    """GN over the point shards ``shards`` (shard s on ``devices[s]``); the
+    pose side (its poses, priors and gauge) on its own device, where the
+    shards' partials are summed and the reduced system is solved. Each
+    iteration runs ``stages`` (the per-shard point system, the pose update,
+    the per-shard back-substitution: the plain functions, or captured forms
+    of them). Returns (poses, points in shard order, final cost) there."""
+    point_system, pose_update, back_substitute = stages
+    dev = side.poses.device
+    poses, cost = side.poses, None
     for _ in range(iterations):
         partial, backsub = [], []
         for shard, d in zip(shards, devices):
             with device_scope(d):
-                part, keep = _point_system(poses.to(d, non_blocking=True), shard, damping,
-                                           huber_delta)
+                part, keep = point_system(poses.to(d, non_blocking=True), shard, damping,
+                                          huber_delta)
             partial.append(part)
             backsub.append(keep)
         U, Jr, WVW, WVb, cost = (_allsum(list(p), dev) for p in zip(*partial))
-        bc = -Jr
-
-        # --- odometry relative-pose priors between consecutive keyframes ---
-        rp, Jp2 = pair_jacobians(poses[:-1], poses[1:], problem.prior_rel, w_pos, w_rot)
-        rp = rp * prior_m[:, None]
-        Jp2 = Jp2 * prior_m[:, None, None]
-        Ja, Jb = Jp2[..., :6], Jp2[..., 6:]
-        U = U.clone()
-        U[:-1] += torch.einsum("kri,krj->kij", Ja, Ja)
-        U[1:] += torch.einsum("kri,krj->kij", Jb, Jb)
-        W_prior = torch.einsum("kri,krj->kij", Ja, Jb)  # coupling k,k+1 (6,6)
-        bc = bc.clone()
-        bc[:-1] += -torch.einsum("kri,kr->ki", Ja, rp)
-        bc[1:] += -torch.einsum("kri,kr->ki", Jb, rp)
-        U = U + damping * eye6[None]
-
-        # --- Schur complement: S = U - sum_m W V^-1 W^T (with the prior coupling) ---
-        S_full = -WVW
-        S_full[ar, ar] += U
-        S_full[ar[:-1], ar[1:]] += W_prior
-        S_full[ar[1:], ar[:-1]] += W_prior.transpose(-1, -2)
-        b_red = bc - WVb  # (NK,6)
-
-        S = S_full.permute(0, 2, 1, 3).reshape(NK * 6, NK * 6)
-        b = b_red.reshape(NK * 6)
-        # gauge fixing + invalid poses: pin their deltas to zero
-        S = torch.where(pin_mat, torch.zeros_like(S), S) + pin_diag
-        b = torch.where(pin6, torch.zeros_like(b), b)
-        dc = _solve(S + S_eps, b).reshape(NK, 6)
-
-        # --- back-substitution, per shard ---
+        dc, poses = pose_update(side, poses, U, Jr, WVW, WVb, damping, fix_first_pose)
         for s, ((Vinv, Wkm, bp), d) in enumerate(zip(backsub, devices)):
             with device_scope(d):
-                dcs = dc.to(d, non_blocking=True)
-                dp_pts = torch.einsum("mij,mj->mi", Vinv,
-                                      bp - torch.einsum("kmij,ki->mj", Wkm, dcs))
-                shards[s] = shards[s]._replace(points=shards[s].points + dp_pts * shards[s].valid)
-        poses = _apply_pose_delta(poses, dc)
+                shard = shards[s]
+                shards[s] = shard._replace(points=back_substitute(
+                    shard.points, shard.valid, Vinv, Wkm, bp, dc.to(d, non_blocking=True)))
     points = torch.cat([s.points.to(dev, non_blocking=True) for s in shards])
     return poses, points, cost
 
@@ -278,8 +309,8 @@ def ba_iterate(problem: BAProblem, iterations: int = 10, damping: float = 1e-4,
     """
     dev = problem.poses.device
     shard = _point_shard(problem, slice(None), dev)
-    return _gauss_newton(problem, [shard], [dev], iterations, damping, huber_delta,
-                         fix_first_pose)
+    return _gauss_newton(_pose_side(problem, dev), [shard], [dev], iterations, damping,
+                         huber_delta, fix_first_pose)
 
 
 def make_sharded_ba(mesh, iterations: int = 10, damping: float = 1e-4,
@@ -299,19 +330,40 @@ def make_sharded_ba(mesh, iterations: int = 10, damping: float = 1e-4,
     ``mesh.devices[0]``, the points concatenated back in point order. The
     problem may lie anywhere; its point count must divide by the mesh size.
     Each shard's work is queued on its device's current stream in the
-    calling thread."""
+    calling thread.
+
+    Compiled as the reference compiles its ``shard_map`` (``graphs``
+    ``CapturedStep``s, ``sharded_ba.programs``): a mesh whose shards all
+    lie on one card runs as one CUDA graph, the problem copied there first;
+    over several cards each part of an iteration is a graph on its card
+    (the point system and the back-substitution a shard, the pose update
+    on ``mesh.devices[0]``), the cross-card copies and sums between the
+    replays (written and unverified: the card host has one card)."""
     if axis != mesh.axis:
         raise ValueError(f"a mesh over axis {mesh.axis!r}, not {axis!r}")
     home = mesh.devices[0]
 
-    def sharded_ba(problem: BAProblem):
+    def run(problem: BAProblem, stages=_STAGES):
         cuts = mesh.shards(problem.points.shape[0], "map points")
         shards = [_point_shard(problem, cut, d) for cut, d in zip(cuts, mesh.devices)]
-        pose_side = problem._replace(**{f: getattr(problem, f).to(home, non_blocking=True)
-                                        for f in _POSE_FIELDS})
-        return _gauss_newton(pose_side, shards, mesh.devices, iterations, damping,
-                             huber_delta, fix_first_pose)
+        return _gauss_newton(_pose_side(problem, home), shards, mesh.devices, iterations,
+                             damping, huber_delta, fix_first_pose, stages)
 
+    if len({torch.device(d) for d in mesh.devices}) == 1:
+        whole = CapturedStep(run, "slam sharded BA")
+
+        def sharded_ba(problem: BAProblem):
+            return whole(BAProblem(*(x.to(home) for x in problem)))
+
+        sharded_ba.programs = [whole]
+    else:
+        parts = tuple(CapturedStep(fn, f"slam sharded BA: {what}") for fn, what in zip(
+            _STAGES, ("point system", "pose update", "back-substitution")))
+
+        def sharded_ba(problem: BAProblem):
+            return run(problem, parts)
+
+        sharded_ba.programs = list(parts)
     return sharded_ba
 
 

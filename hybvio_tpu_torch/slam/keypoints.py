@@ -24,6 +24,8 @@ import torch
 
 from ..frontend.fast import fast_score
 from ..frontend.gftt import block_max_packed
+from ..graphs import CapturedStep
+from ..runtime import constant
 from .orb import orb_descriptors
 
 
@@ -83,7 +85,9 @@ def make_multiscale_orb(H: int, W: int, n_levels: int = 8,
     Returns (fn, N): fn(image) -> (pts (N,2) level-0 pixel xy, level (N,)
     int32, desc (N,256) +/-1 float32, valid (N,)) as numpy arrays (one copy
     from the image's device), computed on the device of ``image`` (an (H,
-    W) float tensor); N is the keypoint capacity (sum of per-level budgets).
+    W) float tensor), on the card by one captured program (``fn.program``,
+    a ``graphs.CapturedStep``); N is the keypoint capacity (sum of
+    per-level budgets).
     """
     geom = _level_geometry(H, W, n_levels, scale_factor, total_kps)
     N = sum(k for _, _, k in geom)
@@ -104,7 +108,7 @@ def make_multiscale_orb(H: int, W: int, n_levels: int = 8,
         top_s, top_i = top_s[:kk], top_i[:kk]
         top_xy = xy[top_i].to(dtype)
         desc, ok = orb_descriptors(img_l, top_xy, torch.isfinite(top_s))
-        pts0 = top_xy * torch.as_tensor(np.array([W / Wl, H / Hl]), dtype=dtype).to(img_l.device)
+        pts0 = top_xy * constant((W / Wl, H / Hl), dtype, img_l.device)
         if kk < k:  # pad (tiny levels with fewer cells than budget)
             pad = k - kk
             pts0 = torch.cat([pts0, pts0.new_zeros((pad, 2))])
@@ -122,7 +126,7 @@ def make_multiscale_orb(H: int, W: int, n_levels: int = 8,
                             for l, (Hl, Wl, _) in enumerate(geom) if l > 0]
         return mats[device]
 
-    def detect(img):
+    def levels(img):
         pts_all, desc_all, ok_all = [], [], []
         level_img = img
         resize = level_matrices(img.device)
@@ -133,10 +137,15 @@ def make_multiscale_orb(H: int, W: int, n_levels: int = 8,
             pts_all.append(pts0)
             desc_all.append(desc)
             ok_all.append(ok)
-        pts = torch.cat(pts_all).cpu().numpy()
-        desc = torch.cat(desc_all).cpu().numpy()
-        ok = torch.cat(ok_all).cpu().numpy()
-        lvl = np.concatenate([np.full((k,), l, np.int32) for l, (_, _, k) in enumerate(geom)])
-        return pts, lvl, desc, ok
+        return torch.cat(pts_all), torch.cat(desc_all), torch.cat(ok_all)
 
+    # every level in one CUDA graph on the card (the reference jits each)
+    program = CapturedStep(levels, "slam multi-scale keypoints")
+    lvl = np.concatenate([np.full((k,), l, np.int32) for l, (_, _, k) in enumerate(geom)])
+
+    def detect(img):
+        pts, desc, ok = program(img)
+        return pts.cpu().numpy(), lvl, desc.cpu().numpy(), ok.cpu().numpy()
+
+    detect.program = program
     return detect, N

@@ -9,14 +9,77 @@ refit on its inliers. The draws come from the port's threefry
 the reference's ``jax.random``, so a seed gives the reference's samples;
 the valid entries are ordered first by a stable argsort, as
 ``jnp.argsort`` is stable.
+
+The singular value decompositions are a one-sided Jacobi (``_svd``, a
+fixed number of sweeps) in plain tensor operations: ``torch.linalg.svd``
+reads its convergence flags back to the host, which a CUDA graph cannot
+hold (``slam/session.py`` captures each RANSAC). The factors agree with
+LAPACK's to rounding; the results do not depend on the factors' signs.
+The threshold and the random key are tensors, so that one captured graph
+serves every call of a shape.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from .. import random as jr
-from ..runtime import default_device, random_int_bits
+from ..runtime import constant, default_device, random_int_bits
+
+_SWEEPS = {3: 6, 12: 10}  # Jacobi sweeps by column count (to rounding; the tests hold them)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounds(n: int):
+    """The column pairs (p, q) of a round-robin tournament over n columns:
+    each round's pairs are disjoint, every pair meets once over the rounds."""
+    cols = list(range(n)) + ([-1] if n % 2 else [])
+    m, out = len(cols), []
+    for _ in range(m - 1):
+        pairs = sorted((min(a, b), max(a, b))
+                       for a, b in zip(cols[:m // 2], reversed(cols[m // 2:])) if min(a, b) >= 0)
+        out.append(tuple(zip(*pairs)))
+        cols = [cols[0], cols[-1]] + cols[1:-1]
+    return tuple(out)
+
+
+def _svd(A):
+    """Thin SVD of A (..., m, n), m >= n, by one-sided Jacobi (Hestenes):
+    rotate column pairs of A until they are orthogonal, accumulating V.
+    Returns (U (..., m, n), S (..., n) descending, V (..., n, n)); for
+    m == n == 3 the third column of U is completed as U1 x U2 with the sign
+    of A v3, so that U is orthonormal when A is rank-deficient."""
+    m, n = A.shape[-2:]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (n, n))
+    UV = torch.cat([A, eye], dim=-2)  # U above V: each rotation turns both
+    for _ in range(_SWEEPS[n]):
+        for p, q in _rounds(n):
+            p, q = constant(p, torch.int64, A.device), constant(q, torch.int64, A.device)
+            wp, wq = UV.index_select(-1, p), UV.index_select(-1, q)
+            up, uq = wp[..., :m, :], wq[..., :m, :]
+            a = torch.sum(up * up, dim=-2, keepdim=True)
+            b = torch.sum(uq * uq, dim=-2, keepdim=True)
+            g = torch.sum(up * uq, dim=-2, keepdim=True)
+            zero = g == 0
+            zeta = (b - a) / (2.0 * torch.where(zero, torch.ones_like(g), g))
+            t = torch.copysign(1.0 / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta)), zeta)
+            c = torch.where(zero, torch.ones_like(t), 1.0 / torch.sqrt(1.0 + t * t))
+            sn = torch.where(zero, torch.zeros_like(t), c * t)
+            UV = UV.index_copy(-1, p, c * wp - sn * wq).index_copy(-1, q, sn * wp + c * wq)
+    U, V = UV[..., :m, :], UV[..., m:, :]
+    S = torch.linalg.norm(U, dim=-2)
+    order = torch.argsort(S, dim=-1, descending=True, stable=True)
+    S = S.gather(-1, order)
+    U = U.gather(-1, order[..., None, :].expand(U.shape))
+    V = V.gather(-1, order[..., None, :].expand(V.shape))
+    U = U / torch.where(S > 0, S, torch.ones_like(S))[..., None, :]
+    if U.shape[-2:] == (3, 3):
+        u3 = torch.linalg.cross(U[..., 0], U[..., 1])
+        flip = torch.sum(u3 * U[..., 2], dim=-1, keepdim=True) < 0
+        U = torch.cat([U[..., :2], torch.where(flip, -u3, u3)[..., None]], dim=-1)
+    return U, S, V
 
 
 def _proper(U, Vt, dtype):
@@ -36,8 +99,8 @@ def _kabsch(src, dst, w, with_scale):
     xs = src - mu_s[..., None, :]
     xd = dst - mu_d[..., None, :]
     C = (xd * w[..., None]).transpose(-1, -2) @ xs / wsum[..., None, None]
-    U, S, Vt = torch.linalg.svd(C)
-    D, R = _proper(U, Vt, C.dtype)
+    U, S, V = _svd(C)
+    D, R = _proper(U, V.transpose(-1, -2), C.dtype)
     var_s = torch.sum(w[..., None] * xs * xs, dim=(-2, -1)) / wsum
     if with_scale:
         s = (torch.sum(S * torch.diagonal(D, dim1=-2, dim2=-1), dim=-1)
@@ -60,8 +123,10 @@ def _draw(key, n_hyp, k, valid, nv, dtype):
 
 
 def _best(scores, *models):
-    best = torch.argmax(scores)
-    return tuple(m[best] for m in models)
+    """Each model of the best score (the first among equals), indexed on
+    the device: a 0-d index tensor would be read back to the host."""
+    best = torch.argmax(scores).reshape(1)
+    return tuple(m.index_select(0, best)[0] for m in models)
 
 
 def ransac_similarity(src, dst, valid, key, n_hyp: int = 100,
@@ -105,16 +170,16 @@ def _dlt_pose(pts3, obs2, w):
     r1 = torch.cat([X, z, -obs2[..., :1] * X], dim=-1)
     r2 = torch.cat([z, X, -obs2[..., 1:2] * X], dim=-1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
-    Vt = torch.linalg.svd(A, full_matrices=True)[2]
-    m = Vt[..., -1, :].reshape(Vt.shape[:-2] + (3, 4))
+    V = _svd(A)[2]
+    m = V[..., :, -1].reshape(V.shape[:-2] + (3, 4))
     # sign: the majority of weighted points must sit in front of the camera
     zc = torch.einsum("...mj,...j->...m", X, m[..., 2, :])
     sgn = torch.where(torch.sum(torch.sign(zc) * w, dim=-1) < 0, -1.0, 1.0).to(dtype)
     m = m * sgn[..., None, None]
     # orthonormalize the rotation block; its singular values carry the
     # projective scale of the whole solution
-    U, S, Vr = torch.linalg.svd(m[..., :3])
-    D, R = _proper(U, Vr, dtype)
+    U, S, Vr = _svd(m[..., :3])
+    D, R = _proper(U, Vr.transpose(-1, -2), dtype)
     scale = torch.sum(S * torch.diagonal(D, dim1=-2, dim2=-1), dim=-1) / 3.0
     t = m[..., 3] / torch.clamp(scale, min=1e-12)[..., None]
     return R, t
@@ -133,7 +198,8 @@ def ransac_pnp(pts3, obs2, valid, key, n_hyp: int = 100, threshold: float = 0.02
     their 2D NORMALIZED observations (the 2D-3D loop-closure fallback).
     Each hypothesis draws 6 correspondences and solves the DLT; the best
     model is refit by a weighted DLT on its inliers. Returns (R (3,3), t
-    (3,), inlier_mask (M,), n_inliers ())."""
+    (3,), inlier_mask (M,), n_inliers ()); ``threshold`` and ``key`` as
+    ransac_similarity's."""
     dtype = pts3.dtype
     nv = torch.clamp(torch.sum(valid), min=1)
     sel, distinct = _draw(key, n_hyp, 6, valid, nv, dtype)
@@ -153,9 +219,10 @@ def ransac_pnp(pts3, obs2, valid, key, n_hyp: int = 100, threshold: float = 0.02
     return R, t, inl, torch.sum(inl)
 
 
-def _padded(arrays, pad: int, device):
+def _padded(arrays, pad: int, seed: int, threshold: float, device):
     """The (M, d) float64 arrays zero-padded to P rows (pad doubled until it
-    holds M) on ``device``, and the validity mask (P,)."""
+    holds M) on ``device``, the validity mask (P,), the threefry key of
+    ``seed`` and the threshold as a float64 0-d tensor there."""
     M = arrays[0].shape[0]
     P = pad
     while P < M:
@@ -165,7 +232,33 @@ def _padded(arrays, pad: int, device):
         p = np.zeros((P, a.shape[1]))
         p[:M] = a
         out.append(torch.as_tensor(p).to(device))
-    return out, torch.as_tensor(np.arange(P) < M).to(device)
+    key = jr.prng_key(torch.as_tensor(seed).to(device))
+    return (out, torch.as_tensor(np.arange(P) < M).to(device), key,
+            torch.as_tensor(np.float64(threshold)).to(device))
+
+
+def pnp_on_host(ransac, pts3, obs2, seed: int, n_hyp: int, threshold: float, pad: int, device):
+    """``ransac`` (ransac_pnp or a captured form of it) on numpy inputs, as
+    ransac_pnp_np runs it: numpy (R, t, inliers (M,), n_inliers)."""
+    pts3 = np.asarray(pts3, np.float64)
+    M = pts3.shape[0]
+    (pp, op), vp, key, thr = _padded([pts3, np.asarray(obs2, np.float64)], pad, seed, threshold,
+                                     device)
+    R, t, inl, n = ransac(pp, op, vp, key, n_hyp=n_hyp, threshold=thr)
+    return R.cpu().numpy(), t.cpu().numpy(), inl.cpu().numpy()[:M], int(n)
+
+
+def similarity_on_host(ransac, src, dst, seed: int, n_hyp: int, threshold: float,
+                       with_scale: bool, pad: int, device):
+    """``ransac`` (ransac_similarity or a captured form of it) on numpy
+    inputs, as ransac_similarity_np runs it: numpy (R, t, s, inliers (M,),
+    n_inliers)."""
+    src = np.asarray(src, np.float64)
+    M = src.shape[0]
+    (sp, dp), vp, key, thr = _padded([src, np.asarray(dst, np.float64)], pad, seed, threshold,
+                                     device)
+    R, t, s, inl, n = ransac(sp, dp, vp, key, n_hyp=n_hyp, threshold=thr, with_scale=with_scale)
+    return (R.cpu().numpy(), t.cpu().numpy(), float(s), inl.cpu().numpy()[:M], int(n))
 
 
 def ransac_pnp_np(pts3, obs2, seed: int = 0, n_hyp: int = 100,
@@ -174,12 +267,7 @@ def ransac_pnp_np(pts3, obs2, seed: int = 0, n_hyp: int = 100,
     (float64, padded to a power-of-two multiple of ``pad`` as the reference
     pads for its jit)."""
     device = default_device() if device is None else device
-    pts3 = np.asarray(pts3, np.float64)
-    M = pts3.shape[0]
-    (pp, op), vp = _padded([pts3, np.asarray(obs2, np.float64)], pad, device)
-    key = jr.prng_key(torch.as_tensor(seed).to(device))
-    R, t, inl, n = ransac_pnp(pp, op, vp, key, n_hyp=n_hyp, threshold=threshold)
-    return R.cpu().numpy(), t.cpu().numpy(), inl.cpu().numpy()[:M], int(n)
+    return pnp_on_host(ransac_pnp, pts3, obs2, seed, n_hyp, threshold, pad, device)
 
 
 def ransac_similarity_np(src, dst, seed: int = 0, n_hyp: int = 100,
@@ -188,10 +276,5 @@ def ransac_similarity_np(src, dst, seed: int = 0, n_hyp: int = 100,
     """Host wrapper for ransac_similarity on ``device``, the card unless
     given (float64, padded as ransac_pnp_np)."""
     device = default_device() if device is None else device
-    src = np.asarray(src, np.float64)
-    M = src.shape[0]
-    (sp, dp), vp = _padded([src, np.asarray(dst, np.float64)], pad, device)
-    key = jr.prng_key(torch.as_tensor(seed).to(device))
-    R, t, s, inl, n = ransac_similarity(sp, dp, vp, key, n_hyp=n_hyp, threshold=threshold,
-                                        with_scale=with_scale)
-    return (R.cpu().numpy(), t.cpu().numpy(), float(s), inl.cpu().numpy()[:M], int(n))
+    return similarity_on_host(ransac_similarity, src, dst, seed, n_hyp, threshold, with_scale,
+                              pad, device)

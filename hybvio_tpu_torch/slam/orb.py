@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..frontend.pyramid import _sep_conv2d, bilinear_sample
+from ..runtime import constant
 
 N_BITS = 256
 _PATCH_R = 15  # BRIEF sampling radius (31x31 patch like ORB)
@@ -35,6 +36,8 @@ _rng = np.random.RandomState(20240401)
 _PAIRS_A = np.clip(_rng.randn(N_BITS, 2) * _PATCH_R / 2.5, -_PATCH_R, _PATCH_R)
 _PAIRS_B = np.clip(_rng.randn(N_BITS, 2) * _PATCH_R / 2.5, -_PATCH_R, _PATCH_R)
 _SMOOTH = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+# the pairs as nested tuples, for runtime.constant (copied to a device once)
+_PAIRS = tuple(tuple(map(tuple, p.tolist())) for p in (_PAIRS_A, _PAIRS_B))
 
 
 def _rotate(pairs, c, s):
@@ -59,8 +62,7 @@ def orb_descriptors(image: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor)
     ox, oy = torch.meshgrid(ax, ax, indexing="xy")
     circf = ((ox * ox + oy * oy) <= r * r).reshape(-1).to(dtype)
     offs = torch.stack([ox, oy], dim=-1).reshape(-1, 2)
-    pa = torch.as_tensor(_PAIRS_A, dtype=dtype).to(dev)
-    pb = torch.as_tensor(_PAIRS_B, dtype=dtype).to(dev)
+    pa, pb = (constant(p, dtype, dev) for p in _PAIRS)
 
     patch = bilinear_sample(img, pts[:, None, :] + offs) * circf  # (T, 961)
     patch = patch.to(torch.float64)  # exact sums of float32 x integer offsets

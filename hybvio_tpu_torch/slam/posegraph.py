@@ -7,7 +7,10 @@ E padded relative-pose edges (consecutive odometry constraints +
 loop-closure constraints). Each iteration builds the edge Jacobians by
 autodiff (``ba.pair_jacobians``), assembles the dense (6N, 6N) normal equations with
 scatter-adds, and solves with the first pose gauge-fixed. N is padded to
-the next power of two, as in the reference.
+the next power of two, as in the reference. The scatter-adds are
+``index_put_(accumulate=True)``, which adds a row's terms in edge order on
+every device (``index_add_`` adds them in any order on the card), so the
+captured and the eager solve give the same bits.
 """
 from __future__ import annotations
 
@@ -38,8 +41,10 @@ def optimize_pose_graph(problem: PoseGraphProblem, iterations: int = 10,
     N = problem.poses.shape[0]
     dtype, dev = problem.poses.dtype, problem.poses.device
     ii, jj = problem.edge_i.long(), problem.edge_j.long()
-    pin = ~problem.pose_valid
-    pin[torch.argmax(problem.pose_valid.to(torch.int32))] = True
+    # the first valid pose, compared on the device (a 0-d index would be
+    # read back to the host)
+    pin = ~problem.pose_valid | (torch.arange(N, device=dev)
+                                 == torch.argmax(problem.pose_valid.to(torch.int32)))
     pin6 = torch.repeat_interleave(pin, 6)
     pin_mat = pin6[:, None] | pin6[None, :]
     diag = torch.diag(torch.where(pin6, 1.0, damping).to(dtype))
@@ -57,8 +62,8 @@ def optimize_pose_graph(problem: PoseGraphProblem, iterations: int = 10,
         H.index_put_((jj, jj), torch.einsum("eri,erj->eij", Jb, Jb), accumulate=True)
         H.index_put_((ii, jj), torch.einsum("eri,erj->eij", Ja, Jb), accumulate=True)
         H.index_put_((jj, ii), torch.einsum("eri,erj->eij", Jb, Ja), accumulate=True)
-        b.index_add_(0, ii, -torch.einsum("eri,er->ei", Ja, r))
-        b.index_add_(0, jj, -torch.einsum("eri,er->ei", Jb, r))
+        b.index_put_((ii,), -torch.einsum("eri,er->ei", Ja, r), accumulate=True)
+        b.index_put_((jj,), -torch.einsum("eri,er->ei", Jb, r), accumulate=True)
 
         Hf = H.permute(0, 2, 1, 3).reshape(N * 6, N * 6)
         bf = b.reshape(N * 6)

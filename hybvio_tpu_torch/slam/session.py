@@ -16,7 +16,15 @@ per parameter comments). Architecture:
     (slam/keypoints.py), the vocabulary's k-means (slam/vocabulary.py),
     local bundle adjustment (slam/ba.py: GN + Schur), pose-graph
     optimization (slam/posegraph.py) and loop-closure RANSAC
-    (slam/loopclosure.py), with fixed shapes.
+    (slam/loopclosure.py), with fixed shapes. On the card each runs as a
+    CUDA graph captured once per input signature (``graphs.CapturedStep``,
+    as the reference jits each; ``.eager`` is the plain program), in graph
+    pools of the session's own (``graph_pools``): they replay on the SLAM
+    worker's stream while the VIO step's graphs replay on the caller's. A
+    signature is captured at its second call (the pose graph of a map size
+    and the end of a session's programs are often called once). The numpy
+    padding, the copies to and from the device and the bookkeeping stay
+    outside the graphs.
 
 Loop-closure pipeline (reference: DBoW2 retrieval + feature matching +
 RANSAC + drift gates + correction, parameter_definitions.c:369-388,459-466):
@@ -39,7 +47,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..graphs import CapturedStep, GraphPools, capturing_into
 from ..runtime import default_device
+from . import loopclosure, orb, posegraph
 from .ba import BAProblem, ba_iterate, make_sharded_ba
 from .host import np_quat_to_rmat as _np_quat_to_rmat, np_relative_pose, np_rmat_to_quat
 
@@ -205,15 +215,32 @@ class Slam:
         self.store_keyframe_images = False
         self.last_adjacent_matches = None  # (kf_a, kf_b, [(i, j)])
 
-        # BoW vocabulary database (reference: DBoW2 + vocabularyPath; ours
-        # trains online and can load/save an .npy codebook)
-        from .vocabulary import Vocabulary
+        # the keyframe-rate programs, captured on the card into the
+        # session's own graph pools (the module docstring)
+        self.graph_pools = GraphPools("slam", eager_calls=1)
+        with capturing_into(self.graph_pools):
+            # looked up at each call: tests give the session other descriptors
+            self._orb_program = CapturedStep(
+                lambda image, pts, valid: orb.orb_descriptors(image, pts, valid),
+                "slam ORB descriptors")
+            self._match_program = CapturedStep(orb.match_descriptors, "slam descriptor matcher")
+            self._ba_program = CapturedStep(lambda problem: ba_iterate(problem, iterations=8),
+                                            "slam local BA")
+            self._pose_graph_program = CapturedStep(posegraph.optimize_pose_graph,
+                                                    "slam pose graph")
+            self._similarity_program = CapturedStep(loopclosure.ransac_similarity,
+                                                    "slam similarity RANSAC")
+            self._pnp_program = CapturedStep(loopclosure.ransac_pnp, "slam PnP RANSAC")
 
-        vocab_path = None
-        if ps.vocabularyPath and str(ps.vocabularyPath).endswith(".npy"):
-            vocab_path = str(ps.vocabularyPath)
-        self.vocabulary = Vocabulary(n_words=vocabulary_words, path=vocab_path,
-                                     device=self.device)
+            # BoW vocabulary database (reference: DBoW2 + vocabularyPath;
+            # ours trains online and can load/save an .npy codebook)
+            from .vocabulary import Vocabulary
+
+            vocab_path = None
+            if ps.vocabularyPath and str(ps.vocabularyPath).endswith(".npy"):
+                vocab_path = str(ps.vocabularyPath)
+            self.vocabulary = Vocabulary(n_words=vocabulary_words, path=vocab_path,
+                                         device=self.device)
 
     # ---------------------------------------------------------------- input
 
@@ -399,8 +426,6 @@ class Slam:
 
     def _add_descriptors(self, kf: KeyFrame, image,
                          pix_pts: Optional[np.ndarray] = None) -> None:
-        from .orb import orb_descriptors
-
         F = kf.norm_pts.shape[0]
         if F == 0:
             return
@@ -425,8 +450,8 @@ class Slam:
         n = min(F, PAD)
         ppad[:n] = pts[:n]
         vpad[:n] = True
-        desc, ok = orb_descriptors(image, torch.as_tensor(ppad).to(self.device),
-                                   torch.as_tensor(vpad).to(self.device))
+        desc, ok = self._orb_program(image, torch.as_tensor(ppad).to(self.device),
+                                     torch.as_tensor(vpad).to(self.device))
         kf.descriptors = desc[:n].cpu().numpy()
         kf.desc_valid = ok[:n].cpu().numpy()
         kf.pix_pts = np.asarray(pts[:n], np.float32)
@@ -468,7 +493,8 @@ class Slam:
             else:
                 from .keypoints import make_multiscale_orb
 
-                self._kp_detector, self._kp_cap = make_multiscale_orb(H, W, **kwargs)
+                with capturing_into(self.graph_pools):
+                    self._kp_detector, self._kp_cap = make_multiscale_orb(H, W, **kwargs)
                 self.keypoint_detector = "torch"
             self._kp_shape = (H, W)
         pts, lvl, desc, ok = self._kp_detector(image)
@@ -489,10 +515,8 @@ class Slam:
     def _match(self, da, va, db, vb) -> np.ndarray:
         """The mutual/Lowe descriptor matcher (slam/orb.py) of padded numpy
         descriptor banks on the session's device: match_idx (P,) numpy."""
-        from .orb import match_descriptors
-
         dev = self.device
-        midx, _ = match_descriptors(
+        midx, _ = self._match_program(
             torch.as_tensor(da).to(dev), torch.as_tensor(va).to(dev),
             torch.as_tensor(db).to(dev), torch.as_tensor(vb).to(dev),
             lowe_ratio=float(self.ps.loopClosureFeatureMatchLoweRatio))
@@ -728,7 +752,8 @@ class Slam:
         session's own device stays; the BA's tensors live on the mesh's
         devices."""
         assert self.MP % mesh.size == 0, (self.MP, mesh.size)
-        self._ba_sharded = make_sharded_ba(mesh, iterations=8)
+        with capturing_into(self.graph_pools):
+            self._ba_sharded = make_sharded_ba(mesh, iterations=8)
 
     def _ba_fn(self):
         """Local BA of a numpy BAProblem, 8 iterations, on the session's
@@ -739,7 +764,7 @@ class Slam:
             if self._ba_sharded is not None:
                 out = self._ba_sharded(prob)
             else:
-                out = ba_iterate(BAProblem(*(v.to(self.device) for v in prob)), iterations=8)
+                out = self._ba_program(BAProblem(*(v.to(self.device) for v in prob)))
             return tuple(o.cpu().numpy() for o in out)
 
         return run
@@ -947,8 +972,6 @@ class Slam:
 
         Tk = pose_to_mat(kf.pose)
         if len(pa) >= max(ps.loopClosureRansacMinInliers, 3):
-            from .loopclosure import ransac_similarity_np
-
             pa = np.asarray(pa)
             pb = np.asarray(pb)
             # RANSAC threshold: loopClosureInlierThreshold is relative (reference
@@ -957,10 +980,10 @@ class Slam:
             scene = float(np.median(np.linalg.norm(pa - kf.pose[:3], axis=1)))
             thr = max(ps.loopClosureInlierThreshold * max(scene, 1.0), 1e-3)
             self._loop_seed += 1
-            R, tvec, s, inl, n_inl = ransac_similarity_np(
-                pa, pb, seed=self._loop_seed,
+            R, tvec, s, inl, n_inl = loopclosure.similarity_on_host(
+                self._similarity_program, pa, pb, seed=self._loop_seed,
                 n_hyp=ps.loopClosureRansacIterations, threshold=thr,
-                with_scale=not ps.loopClosureRansacFixScale, device=self.device)
+                with_scale=not ps.loopClosureRansacFixScale, pad=256, device=self.device)
             if n_inl < ps.loopClosureRansacMinInliers:
                 return False
             # corrected pose: positions use the full similarity s*R; the
@@ -984,14 +1007,12 @@ class Slam:
             if len(p3d) < max(ps.loopClosureRansacMinInliers, 6):
                 return False
 
-            from .loopclosure import ransac_pnp_np
-
             self._loop_seed += 1
             thr2d = float(getattr(ps, "relativeReprojectionErrorThreshold",
                                   0.02))
-            R_wc, t_wc, inl, n_inl = ransac_pnp_np(
-                p3d, n2d, seed=self._loop_seed,
-                n_hyp=ps.loopClosureRansacIterations, threshold=thr2d,
+            R_wc, t_wc, inl, n_inl = loopclosure.pnp_on_host(
+                self._pnp_program, p3d, n2d, seed=self._loop_seed,
+                n_hyp=ps.loopClosureRansacIterations, threshold=thr2d, pad=256,
                 device=self.device)
             if n_inl < max(ps.loopClosureRansacMinInliers, 6):
                 return False
@@ -1134,7 +1155,7 @@ class Slam:
         keyframe (OpenVSLAM-style global consistency). Returns the largest
         keyframe position correction in meters (0 when nothing ran) so
         callers can tell whether the solve actually moved the map."""
-        from .posegraph import PoseGraphProblem, next_pow2, optimize_pose_graph
+        from .posegraph import PoseGraphProblem, next_pow2
 
         n = len(self.kf_order)
         if n < 3:
@@ -1172,7 +1193,7 @@ class Slam:
 
         prob = PoseGraphProblem(*(torch.as_tensor(a).to(self.device) for a in (
             poses, np.arange(N) < n, ei, ej, erel, ewp, ewr)))
-        new_poses = optimize_pose_graph(prob, iterations).cpu().numpy()
+        new_poses = self._pose_graph_program(prob, iterations).cpu().numpy()
         if not np.isfinite(new_poses[:n]).all():
             return 0.0
         moved = float(np.max(np.linalg.norm(

@@ -8,8 +8,9 @@ saved to, a ``.npy`` at ``vocabularyPath``), with TF-IDF weighted,
 L1-normalized BoW vectors scored by DBoW2's L1 metric (s(v, w) = sum_i
 min(v_i, w_i)) and an inverted index (word -> keyframe ids) on the host.
 
-The bookkeeping is the reference's numpy, copied. The k-means step (a
-``jax.jit`` on the host CPU there) runs as torch on the session's device:
+The bookkeeping is the reference's numpy, copied. The k-means steps (a
+``jax.jit`` on the host CPU there) run as torch on the session's device,
+captured in a CUDA graph on the card (``graphs.CapturedStep``):
 its +/-1 dot products are exact integers, so argmax ties are exact ties,
 and the first index wins as in the reference.
 """
@@ -21,15 +22,39 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from ..graphs import CapturedStep
 from ..runtime import default_device
 
 N_BITS = 256
 
 
-def _kmeans(desc: np.ndarray, n_words: int, iters: int, seed: int, device) -> np.ndarray:
+def _kmeans_iterations(cb: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
+                       iters: int) -> torch.Tensor:
+    """``iters`` k-means steps of the codebook cb (W, 256) over the
+    descriptors d (n, 256), of which the rows ``valid`` (n,) count: the
+    padding rows add exact zeros to the exact integer sums and counts."""
+    words = torch.arange(cb.shape[0], device=cb.device)
+    w = valid.to(d.dtype)[:, None]
+    for _ in range(iters):
+        # assign: nearest centroid by dot product (== min Hamming for +/-1)
+        a = torch.argmax(d @ cb.T, dim=1)  # (n,)
+        one_hot = (a[:, None] == words[None, :]).to(d.dtype) * w  # (n, W)
+        sums = one_hot.T @ d  # (W, 256)
+        counts = one_hot.sum(dim=0)[:, None]
+        # empty clusters keep their previous centroid
+        new = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), cb)
+        cb = torch.sign(torch.where(new == 0, cb, new))
+    return cb
+
+
+def _kmeans(desc: np.ndarray, n_words: int, iters: int, seed: int, device,
+            iterate=_kmeans_iterations) -> np.ndarray:
     """Deterministic k-means over {-1,+1} descriptors on ``device``; returns
     (W, 256) float32 centroids (sign-quantized so word assignment is a
-    Hamming nearest-neighbour, like DBoW2's binary node centroids)."""
+    Hamming nearest-neighbour, like DBoW2's binary node centroids). The
+    descriptors are padded to the next power of two (at least 256) rows,
+    so that a training pool that grows reuses a few captured programs
+    (``iterate``, ``_kmeans_iterations`` or a captured form of it)."""
     rng = np.random.RandomState(seed)
     n = desc.shape[0]
     if n >= n_words:
@@ -37,18 +62,13 @@ def _kmeans(desc: np.ndarray, n_words: int, iters: int, seed: int, device) -> np
     else:  # top up with random hyperplane words
         extra = np.sign(rng.randn(n_words - n, N_BITS)).astype(np.float32)
         init = np.concatenate([desc, extra], axis=0)
-
-    cb = torch.as_tensor(np.asarray(init, np.float32)).to(device)
-    d = torch.as_tensor(np.asarray(desc, np.float32)).to(device)
-    for _ in range(iters):
-        # assign: nearest centroid by dot product (== min Hamming for +/-1)
-        a = torch.argmax(d @ cb.T, dim=1)  # (n,)
-        one_hot = torch.nn.functional.one_hot(a, n_words).to(d.dtype)  # (n, W)
-        sums = one_hot.T @ d  # (W, 256)
-        counts = one_hot.sum(dim=0)[:, None]
-        # empty clusters keep their previous centroid
-        new = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), cb)
-        cb = torch.sign(torch.where(new == 0, cb, new))
+    rows = 256
+    while rows < n:
+        rows *= 2
+    padded = np.zeros((rows, N_BITS), np.float32)
+    padded[:n] = desc
+    on = lambda a: torch.as_tensor(a).to(device)
+    cb = iterate(on(np.asarray(init, np.float32)), on(padded), on(np.arange(rows) < n), iters)
     return cb.cpu().numpy().astype(np.float32)
 
 
@@ -68,6 +88,8 @@ class Vocabulary:
                  reservoir_size: int = 4096,
                  retrain_every_docs: int = 32, device=None):
         self.device = torch.device(device) if device is not None else default_device()
+        # the k-means steps, captured on the card (the reference jits them)
+        self.kmeans_program = CapturedStep(_kmeans_iterations, "slam vocabulary k-means")
         self.n_words = n_words
         self.train_size = train_size
         self.kmeans_iters = kmeans_iters
@@ -156,7 +178,7 @@ class Vocabulary:
         if self.frozen or pool.shape[0] < self.n_words // 4:
             return
         self.codebook = _kmeans(pool, self.n_words, self.kmeans_iters, self.seed,
-                               self.device)
+                                self.device, self.kmeans_program)
         self.trained = True
         self._docs_at_train = self.n_docs
         self._rebuild_all()
