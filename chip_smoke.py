@@ -235,6 +235,33 @@ Phases (any failure exits non-zero and prints no result line):
      signature captured twice, a program in SLAM_PROGRAMS that never
      replayed, an ATE over 0.05 m, a host sync of the stepping thread in a
      VIO step or no watched step beside a busy worker.
+ 15. the repository's tools on the card (hybvio_tpu_torch/tools/), each
+     through its module API, each tool's kernel launches counted from 0
+     just before it and read just after: (a) make_synthetic_dataset: three
+     textured 5 s datasets (320x240, seeds 0 / 1 / 2), a zooming blob one
+     and a stereo mav0 tree, each timed, made in spawned worker processes
+     while (c) runs on the card; (b) run_benchmark.main over
+     the three with tests/test_benchmark_runner.py's flags: each
+     sequence's outputs, frames/s, ATE, captures and the steps' graph pool
+     after it; (c) profile_step, stereo, B=16, 20 replays a stage, every
+     ablation, each stage's captured outputs against its eager run, full
+     beside phase 4's stereo median; (d) slam_cost_curve at 200 keyframes
+     with descriptors on the card (each program's signatures), and its
+     first SLAM_CURVE_CPU_KF on the host CPU (a spawned process while (e)
+     and (f) run on the card), both timed a keyframe; (e)
+     scaling_bench's BA sweep over its grid (the peak allocated memory of
+     each row) and mesh-check over 1 / 2 / 4 / 8 shards of the card; (f)
+     run_long_probe.main, mono and stereo, 3 s, one override; (g) two
+     VioApis built under two CUDA streams and stepped from two threads over
+     the first TWO_STREAM_FRAMES frames of dataset (a)'s first, each output
+     against the API alone, bit for bit; then each kernel input shape a
+     tool launched that phase 3 did not time is timed as phase 3 times its
+     rows. Fails unless every sequence completes with an ATE median under
+     0.12 m, on a pool more than 5% larger after sequence 3 than after 1, a
+     non-finite stage or a stage not bit-equal with its eager run, no loop
+     closure or a program past 24 signatures, a mesh not ok, a probe family
+     not finite, two-stream outputs that part, or a tool that launched none
+     of the path kernels.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -416,6 +443,29 @@ SLAM_RECORD_SCENARIOS = ("revisit", "applied loops")
 BA_CPU_RUNS = 3
 SLAM_SESSIONS = {}  # phase 8a: scenario -> (its card session, its CPU session)
 COMPILED_SLAM = {}  # phase 14's numbers
+# phase 15: the repository's tools on the card (hybvio_tpu_torch/tools/),
+# each through its module API: (a) datasets, (b) the multi-sequence runner
+# with the flags of tests/test_benchmark_runner.py, (c) the B=16 stage
+# profiler, (d) the SLAM cost curve on the card and the CPU, (e) the BA
+# sweep and the mesh check, (f) the long probe, (g) two VioApis on two
+# streams from two threads against each alone
+TOOLS_SEEDS = (0, 1, 2)  # the three textured datasets, the tool's defaults otherwise
+TOOLS_SECONDS = 5.0
+TOOLS_ZOOM = 0.3
+TOOLS_FLAGS = ("-odometry.visualR=0.3", "-tracker.maxTracks=48", "-odometry.cameraTrailLength=8",
+               "-tracker.gfttMinDistance=25", "-tracker.pyrLKMaxLevel=2")
+TOOLS_ATE_LIMIT_M = 0.12  # tests/test_benchmark_runner.py's bound on 5 s sequences
+POOL_GROWTH_LIMIT = 1.05  # the steps' pool after sequence 3 against after sequence 1
+PROFILE_BATCH = 16
+PROFILE_REPS = 20
+SLAM_CURVE_KF = 200
+SLAM_CURVE_CPU_KF = 50  # the host CPU's keyframes, in a process beside (e) and (f)
+SLAM_CURVE_WARM_KF = 5  # the tool's first keyframes, left out of its means
+SIGNATURE_LIMIT = 24  # three quarters of graphs.MAX_KEYS
+PROBE_ARGV = ("mono", "stereo", "--duration", "3", "--override", "odometry.visualR=0.4")
+MESH_CHECK_SHARDS = (1, 2, 4, 8)
+TWO_STREAM_FRAMES = 12  # of dataset (a)'s first 50 (cut for time)
+TOOLS = {}  # phase 15's numbers
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
 SLEEP_CYCLES_PER_S = 2e9  # the H100's top SM clock, rounded up
@@ -636,6 +686,32 @@ def shape_key(shape) -> str:
     return "x".join(map(str, shape))
 
 
+def timed(label, err, tol, kernel, library, nbytes, nops, plain=None, plain_reps=R):
+    """Check err against tol, time kernel / library / plain (the plain
+    version over ``plain_reps`` calls a run), print a line; the row's
+    numbers."""
+    if not err <= tol:
+        raise AssertionError(f"{label}: max abs error {err} > {tol}")
+    ms, ahead = device_ms(kernel)
+    library_ms = device_ms(library)[0] if library is not None else None
+    plain_ms, plain_ahead = (device_ms(plain, plain_reps) if plain is not None
+                             else (None, True))
+    bound_ms, bound_by = bound(nbytes, nops)
+    lib = f"{library_ms:.5f} ms" if library_ms is not None else "none"
+    plain_s = (f", plain {plain_ms:.5f} ms{'' if plain_ahead else ' (host-bound)'}"
+               if plain is not None else "")
+    say(f"kernel {label}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
+        f"{'' if ahead else ' (card caught up with the host)'}, bound {bound_ms:.5f} ms "
+        f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}{plain_s}")
+    return {"max_abs_err": float(err), "ms": ms, "device_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def shape_row(r):
+    """The numbers of a shape's row in a kernel's shape table."""
+    return {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version at main-path shapes,
     timed on the card beside its bound, its plain version and, where one
@@ -660,29 +736,6 @@ def check_kernels(dev):
     floor_ms, _ = device_ms(ops.launch_empty)
     say(f"launch floor: {floor_ms:.5f} ms per launch of an empty kernel (one thread), "
         f"the least any row below can read")
-
-    def timed(label, err, tol, kernel, library, nbytes, nops, plain=None, plain_reps=R):
-        """Check err against tol, time kernel / library / plain (the plain
-        version over ``plain_reps`` calls a run), print a line; the row's
-        numbers."""
-        if not err <= tol:
-            raise AssertionError(f"{label}: max abs error {err} > {tol}")
-        ms, ahead = device_ms(kernel)
-        library_ms = device_ms(library)[0] if library is not None else None
-        plain_ms, plain_ahead = (device_ms(plain, plain_reps) if plain is not None
-                                 else (None, True))
-        bound_ms, bound_by = bound(nbytes, nops)
-        lib = f"{library_ms:.5f} ms" if library_ms is not None else "none"
-        plain_s = (f", plain {plain_ms:.5f} ms{'' if plain_ahead else ' (host-bound)'}"
-                   if plain is not None else "")
-        say(f"kernel {label}: max_abs_err {err:.3g} (tol {tol}); device {ms:.5f} ms"
-            f"{'' if ahead else ' (card caught up with the host)'}, bound {bound_ms:.5f} ms "
-            f"({bound_by}, {100 * bound_ms / ms:.1f}% of it), library {lib}{plain_s}")
-        return {"max_abs_err": float(err), "ms": ms, "device_ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-
-    def shape_row(r):
-        return {k: r[k] for k in ("ms", "bound_ms", "library_ms", "max_abs_err")}
 
     # patch gather at every shape key (images, B, N, ps, H, W) the paths
     # launch, on the levels of a frame and their gradients shared by the
@@ -3681,6 +3734,507 @@ def report_compiled(seconds):
         f"{COMPILED['mesh']['captures']} captures; the script {seconds:.1f} s")
 
 
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Counts every CapturedStep capture inside the block (captures,
+    seconds) into the dict it yields."""
+    from hybvio_tpu_torch import graphs
+
+    seen = {"captures": 0, "capture_s": 0.0}
+    original = graphs.CapturedStep._capture
+
+    def capture(self, key, leaves):
+        t0 = time.perf_counter()
+        entry = original(self, key, leaves)
+        seen["captures"] += 1
+        seen["capture_s"] += time.perf_counter() - t0
+        return entry
+
+    graphs.CapturedStep._capture = capture
+    try:
+        yield seen
+    finally:
+        graphs.CapturedStep._capture = original
+
+
+def tool_output(fn, *args, **kwargs):
+    """(fn's result, the lines it printed), each line also said."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kwargs)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        say(f"  | {ln}")
+    return result, lines
+
+
+def _timed_dataset(maker, out, kwargs):
+    """(frames, seconds) of one make_synthetic_dataset call (phase 15a, in
+    a worker process)."""
+    from hybvio_tpu_torch.tools import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    _, n = getattr(make_synthetic_dataset, maker)(out, **kwargs)
+    return n, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def tool_datasets(root):
+    """Phase 15a: the textured datasets, a zooming blob one and a stereo
+    mav0 tree, made at once in worker processes (spawned: this process
+    holds the card) while the block runs; yields a function that waits for
+    them and returns the textured datasets' directories."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = {f"textured seed {seed}": ("make_dataset", os.path.join(root, f"textured_{seed}"),
+                                      {"duration": TOOLS_SECONDS, "seed": seed})
+            for seed in TOOLS_SEEDS}
+    jobs[f"blobs, zoom {TOOLS_ZOOM}"] = ("make_dataset", os.path.join(root, "blobs_zoom"),
+                                         {"duration": TOOLS_SECONDS, "world": "blobs",
+                                          "zoom": TOOLS_ZOOM})
+    jobs["EuRoC mav0, stereo"] = ("make_euroc_dataset",
+                                  os.path.join(root, "euroc_stereo", "mav0"), {"stereo": True})
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {name: pool.submit(_timed_dataset, *job) for name, job in jobs.items()}
+
+        def wait():
+            done = {name: f.result() for name, f in futures.items()}
+            wall = time.perf_counter() - t0
+            say(f"phase 15a make_synthetic_dataset (320x240, host, {len(jobs)} processes "
+                f"beside the card's phases, {wall:.2f} s until all were waited for): " + "; ".join(
+                    f"{name} {n} frames{' a camera' if 'EuRoC' in name else ''} {secs:.2f} s"
+                    for name, (n, secs) in done.items()))
+            TOOLS["datasets"] = {"wall_s": wall, **done}
+            return [jobs[f"textured seed {seed}"][1] for seed in TOOLS_SEEDS]
+
+        yield wait
+
+
+def tool_benchmark(dev, datasets):
+    """Phase 15b: run_benchmark.main over the textured datasets with
+    TOOLS_FLAGS on the card; the steps' graph pool, captures and their
+    seconds after each sequence."""
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.graphs import graph_pool_bytes
+    from hybvio_tpu_torch.tools import run_benchmark
+
+    per_seq = []
+    run_sequence = run_benchmark.run_sequence
+    with counted_captures() as seen:
+        def sequence(*args, **kwargs):  # run_benchmark's, then the pool it leaves
+            result = run_sequence(*args, **kwargs)
+            per_seq.append({**result, "pool_mib": graph_pool_bytes(dev) / 2**20,
+                            "captures": seen["captures"], "capture_s": seen["capture_s"]})
+            seen.update(captures=0, capture_s=0.0)
+            return result
+
+        run_benchmark.run_sequence = sequence
+        ops.reset_launch_counts()
+        try:
+            rc, lines = tool_output(run_benchmark.main, [*datasets, *TOOLS_FLAGS], device=dev)
+        finally:
+            run_benchmark.run_sequence = run_sequence
+        launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    summary = json.loads(lines[-1])
+    for s in per_seq:
+        say(f"phase 15b {s['dataset']}: {s['frames']} outputs, {s['fps']} frames/s, ATE "
+            f"{s.get('ate_rmse_m')} m; captures {s['captures']} in {s['capture_s']:.2f} s; the "
+            f"steps' graph pool after it {s['pool_mib']:.1f} MiB")
+    growth = per_seq[-1]["pool_mib"] / max(per_seq[0]["pool_mib"], 1e-9)
+    say(f"phase 15b summary: completed {summary['completed']}/{summary['total']}, ATE median "
+        f"{summary['ate_rmse_m_median']} m (limit {TOOLS_ATE_LIMIT_M}), mean "
+        f"{summary['ate_rmse_m_mean']} m; pool sequence 3 / sequence 1 {growth:.4f} (limit "
+        f"{POOL_GROWTH_LIMIT})")
+    TOOLS["benchmark"] = {"sequences": per_seq, "summary": summary, "pool_growth": growth}
+    if rc != 0 or summary["completed"] != summary["total"]:
+        raise AssertionError(f"phase 15b: run_benchmark rc {rc}, {summary}")
+    if summary["ate_rmse_m_median"] is None or not summary["ate_rmse_m_median"] < TOOLS_ATE_LIMIT_M:
+        raise AssertionError(f"phase 15b: ATE median {summary['ate_rmse_m_median']} m")
+    if not growth <= POOL_GROWTH_LIMIT:
+        raise AssertionError(f"phase 15b: the steps' graph pool grew {growth:.4f}x over "
+                             f"{len(per_seq)} sequences")
+    return launches, by_shape, None
+
+
+def tool_profile(dev):
+    """Phase 15c: profile_step, stereo, B=16, every ablation, each stage's
+    captured outputs against its eager run."""
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.graphs import graph_pool_bytes
+    from hybvio_tpu_torch.tools import profile_step
+
+    before = graph_pool_bytes(dev) / 2**20
+    ops.reset_launch_counts()
+    res, _ = tool_output(profile_step.profile, config="stereo", batch=PROFILE_BATCH,
+                         reps=PROFILE_REPS, device=dev, check_eager=True)
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    stages = res["stages"]
+    say(f"phase 15c profile_step stereo B={PROFILE_BATCH}, {PROFILE_REPS} replays a stage (CUDA "
+        f"events): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + f"; full {stages['full']:.3f} ms beside phase 4's replayed stereo median "
+        f"{PATH_MEDIAN_MS.get('stereo', float('nan')):.3f} ms; leaves not bit-equal with the eager run "
+        f"{json.dumps(res['eager_leaves_differ'])}; the steps' graph pool {before:.1f} -> "
+        f"{res['pool_mib']:.1f} MiB")
+    TOOLS["profile"] = res
+    bad = [k for k, v in stages.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"phase 15c: non-finite stage times {bad}")
+    differ = {k: v for k, v in res["eager_leaves_differ"].items() if v}
+    if differ:
+        raise AssertionError(f"phase 15c: captured stages differ from eager: {differ}")
+    return launches, by_shape, None
+
+
+@contextlib.contextmanager
+def timed_add_frames():
+    """The wall ms of every Slam.add_frame call inside the block, in the
+    list it yields (slam_cost_curve times the same calls)."""
+    from hybvio_tpu_torch.slam.session import Slam
+
+    times, original = [], Slam.add_frame
+
+    def add_frame(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = original(self, *args, **kwargs)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return result
+
+    Slam.add_frame = add_frame
+    try:
+        yield times
+    finally:
+        Slam.add_frame = original
+
+
+def _cpu_slam_curve(n_kf, threads):
+    """(slam_cost_curve.run's result on the host CPU with ``threads``
+    threads, each add_frame's ms, the run's s): phase 15d, in a worker
+    process."""
+    import torch
+
+    from hybvio_tpu_torch.tools import slam_cost_curve
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    with timed_add_frames() as ms:
+        result = slam_cost_curve.run(n_kf, descriptors=True, device="cpu")
+    return result, ms, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def cpu_slam_curve():
+    """Phase 15d's host-CPU run (the JAX package's placement) in a spawned
+    process while the block runs on the card, on all host cores but the one
+    this process drives the card from; yields a function that waits for
+    it."""
+    import concurrent.futures
+    import multiprocessing
+
+    threads = max((os.cpu_count() or 2) - 1, 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        future = pool.submit(_cpu_slam_curve, SLAM_CURVE_CPU_KF, threads)
+        yield lambda: (*future.result(), threads)
+
+
+def tool_slam_curve(dev, cpu_run):
+    """Phase 15d: slam_cost_curve.run at SLAM_CURVE_KF keyframes with
+    descriptors on the card, beside ``cpu_run`` (``cpu_slam_curve``'s
+    result): the mean ms a keyframe of both over the same keyframes after
+    the tool's warm-up ones."""
+    from hybvio_tpu_torch.tools import slam_cost_curve
+
+    t0 = time.perf_counter()
+    with timed_add_frames() as card_ms:
+        card = slam_cost_curve.run(SLAM_CURVE_KF, descriptors=True, device=dev)
+    secs = time.perf_counter() - t0
+    say(f"phase 15d slam_cost_curve on the card ({secs:.1f} s): {json.dumps(card)}")
+    cpu, cpu_ms, cpu_s, threads = cpu_run
+    same = slice(SLAM_CURVE_WARM_KF, SLAM_CURVE_CPU_KF)
+    say(f"phase 15d keyframes {same.start}-{same.stop - 1}, mean ms a keyframe: the card "
+        f"{np.mean(card_ms[same]):.2f}, the host CPU {np.mean(cpu_ms[same]):.2f} ({threads} "
+        f"threads in a process beside 15e and 15f; its run {cpu_s:.1f} s: {cpu['ms_per_kf']} "
+        f"by bucket, p95 {cpu['p95_ms']}, loops applied {cpu['loops_applied']}, map points "
+        f"{cpu['map_points']})")
+    TOOLS["slam_curve"] = {"card": card, "card_s": secs, "cpu": cpu, "cpu_s": cpu_s,
+                           "card_ms": card_ms, "cpu_ms": cpu_ms, "cpu_threads": threads}
+    if card["loops_applied"] == 0:
+        raise AssertionError("phase 15d: no loop closure applied")
+    over = {k: v for k, v in card["signatures"].items() if v > SIGNATURE_LIMIT}
+    if over:
+        raise AssertionError(f"phase 15d: programs past {SIGNATURE_LIMIT} signatures: {over}")
+
+
+def tool_scaling(dev):
+    """Phase 15e: the BA sweep over scaling_bench's grid (the peak device
+    memory of each row) and the mesh check over MESH_CHECK_SHARDS shards of
+    the card."""
+    import torch
+
+    from hybvio_tpu_torch.graphs import GraphPools
+    from hybvio_tpu_torch.tools import scaling_bench
+
+    pools = GraphPools("scaling_bench (15e)")
+    rows = []
+    for NK, mps in scaling_bench.GRID:
+        fn = scaling_bench.ba_program(pools)
+        for MP in mps:
+            torch.cuda.reset_peak_memory_stats(dev)
+            row = scaling_bench.sweep_row(fn, NK, MP, dev)
+            row["max_memory_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+            rows.append(row)
+            say(f"phase 15e ba-sweep NK={NK} MP={MP}: {row['ms']:.3f} ms (8 iterations, "
+                f"float64, replays, host clock), peak allocated {row['max_memory_mib']:.1f} MiB")
+        del fn
+    analysis = scaling_bench.analyze(rows)
+    say(f"phase 15e ba-sweep analysis: {json.dumps(analysis)}; its pool "
+        f"{pools.nbytes(dev) / 2**20:.1f} MiB")
+    t0 = time.perf_counter()
+    mesh = scaling_bench.mesh_check(dev, shards=MESH_CHECK_SHARDS)
+    say(f"phase 15e mesh-check ({time.perf_counter() - t0:.1f} s): {json.dumps(mesh)}")
+    TOOLS["scaling"] = {"rows": rows, "analysis": analysis, "mesh": mesh}
+    bad = [r for r in mesh["results"] if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 15e: mesh-check not ok: {bad}")
+
+
+def tool_long_probe(dev):
+    """Phase 15f: run_long_probe.main over two families with an override."""
+    from hybvio_tpu_torch import ops
+    from hybvio_tpu_torch.tools import run_long_probe
+
+    ops.reset_launch_counts()
+    rc, lines = tool_output(run_long_probe.main, list(PROBE_ARGV))
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    results = [json.loads(ln) for ln in lines]
+    TOOLS["long_probe"] = results
+    if rc != 0 or len(results) != 2 or not all(r["finite"] for r in results):
+        raise AssertionError(f"phase 15f: run_long_probe rc {rc}: {results}")
+    return launches, by_shape, None
+
+
+def dataset_api_outputs(dataset, dev, stream, frames=TWO_STREAM_FRAMES):
+    """The outputs of a VioApi (B=1, on ``stream``) fed the first
+    ``frames`` frames of ``dataset``'s data.jsonl in order with its
+    parameters.txt, calibration and TOOLS_FLAGS, as the CLI configures it:
+    a list of VioOutputs."""
+    import torch
+
+    from hybvio_tpu_torch.api.vio import VioApi
+    from hybvio_tpu_torch.config import Parameters
+    from hybvio_tpu_torch.config.loader import apply_argv, apply_parameters_text
+    from hybvio_tpu_torch.io import jsonl as jio
+
+    data = os.path.join(dataset, "data.jsonl")
+    p = Parameters()
+    with open(os.path.join(dataset, "parameters.txt")) as f:
+        apply_parameters_text(p, f.read())
+    jio.set_parameters_from_data(p, data)
+    if apply_argv(p, list(TOOLS_FLAGS)):
+        raise AssertionError("phase 15g: a flag was not applied")
+    events = list(jio.python_events(data))
+    first = next(ev for ev in events if ev.kind == jio.FRAME)
+    fr = first.frames[0]
+    p.tracker.focalLengthX, p.tracker.focalLengthY = fr.focal_length_x, fr.focal_length_y
+    p.tracker.principalPointX, p.tracker.principalPointY = fr.principal_point_x, fr.principal_point_y
+    H, W = np.load(os.path.join(dataset, f"frame_{first.frames_index:06d}_cam0.npy")).shape
+    outputs = []
+    with torch.cuda.stream(stream):
+        api = VioApi(p, W, H, device=dev)
+        api.on_output = outputs.append
+        for ev in events:
+            if ev.kind == jio.GYROSCOPE:
+                api.add_gyro(ev.t, ev.values)
+            elif ev.kind == jio.ACCELEROMETER:
+                api.add_acc(ev.t, ev.values)
+            elif ev.kind == jio.FRAME:
+                if ev.frames_index >= frames:
+                    break
+                api.add_frame_mono(ev.t, np.load(os.path.join(
+                    dataset, f"frame_{ev.frames_index:06d}_cam0.npy")))
+        api.finish()
+    return outputs
+
+
+def outputs_part(a, b):
+    """(outputs not bit-equal, the time of the first, the field where it
+    parts) between two runs' VioOutputs."""
+    import dataclasses
+
+    if len(a) != len(b):
+        return abs(len(a) - len(b)), None, "count"
+    n, first = 0, (None, None)
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            same = (u is None and v is None) or (
+                u is not None and v is not None
+                and np.array_equal(np.asarray(u), np.asarray(v), equal_nan=True))
+            if not same:
+                n += 1
+                if first[0] is None:
+                    first = (x.t, f.name)
+                break
+    return n, first[0], first[1]
+
+
+def tool_two_streams(dev, dataset):
+    """Phase 15g: two VioApis built under two CUDA streams, stepped from two
+    threads at once over ``dataset``, each against a run of the API alone:
+    every output bit for bit."""
+    import threading
+
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    alone = dataset_api_outputs(dataset, dev, streams[0])
+    ops.reset_launch_counts()
+    together, errors = [None, None], []
+
+    def work(i):
+        try:
+            together[i] = dataset_api_outputs(dataset, dev, streams[i])
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.perf_counter() - t0
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    if errors:
+        raise AssertionError(f"phase 15g: a thread raised: {errors[0]!r}")
+    parts = [outputs_part(alone, together[i]) for i in range(2)]
+    say(f"phase 15g two VioApis on two streams from two threads ({secs:.1f} s, "
+        f"{len(together[0])} / {len(together[1])} outputs of {TWO_STREAM_FRAMES} frames): "
+        f"outputs not bit-equal with the API alone {parts[0][0]} / {parts[1][0]} (first at "
+        f"t = {parts[0][1]} / {parts[1][1]} s, field {parts[0][2]} / {parts[1][2]})")
+    TOOLS["two_streams"] = {"parts": parts, "s": secs}
+    if any(n for n, _, _ in parts) or not alone:
+        raise AssertionError(f"phase 15g: the runs part: {parts}")
+    return launches, by_shape, None
+
+
+def time_tool_shapes(dev, results, runs):
+    """Phase 15: each input shape a tool's run launched that phase 3 did
+    not time, timed as phase 3 times its rows (random inputs of the shape,
+    exact against the plain version), into the kernel's shape table."""
+    import torch
+
+    from hybvio_tpu_torch import ops
+
+    g = torch.Generator(device="cpu").manual_seed(15)
+    for c, (_, by_shape, _) in runs.items():
+        for (name, shape) in sorted(by_shape, key=str):
+            key = shape_key(shape)
+            if name not in results or key in results[name]["shapes"]:
+                continue
+            label = f"{name} {key} ({c})"
+            if name == "patch_gather":
+                k, b, n, ps, h, w, layout = shape
+                planes = [torch.rand((1 if layout == "shared" else b, h, w), generator=g)
+                          .to(dev).expand(b, h, w) for _ in range(k)]
+                y0 = torch.randint(0, h - ps + 1, (b, n), generator=g, dtype=torch.int32).to(dev)
+                x0 = torch.randint(0, w - ps + 1, (b, n), generator=g, dtype=torch.int32).to(dev)
+                r = torch.arange(ps, device=dev)
+                idx = (((y0.long()[..., None] + r) * w)[..., :, None]
+                       + (x0.long()[..., None] + r)[..., None, :]).reshape(b, -1)
+                flat = torch.stack([p.reshape(b, h * w) for p in planes])
+                covered = torch.zeros((1 if layout == "shared" else b, h * w), dtype=torch.bool,
+                                      device=dev)
+                covered.scatter_(1, idx if layout != "shared" else idx.reshape(1, -1), True)
+                read_px = int(covered.sum())
+                gidx = idx.expand(k, b, -1)
+                got = ops.gather_patches(planes, y0, x0, ps)
+                err = max(max_err(a, ops.gather_patches_plain(im, y0, x0, ps))
+                          for a, im in zip(got, planes))
+                row = timed(label, err, 0.0, lambda: ops.gather_patches(planes, y0, x0, ps),
+                            lambda: torch.gather(flat, 2, gidx),
+                            4 * (k * b * n * ps * ps + k * read_px + 2 * b * n), 0,
+                            plain=lambda: [ops.gather_patches_plain(im, y0, x0, ps)
+                                           for im in planes])
+            elif name == "pyramid_scharr":
+                c_n, b, H, W, L = shape
+                frames = torch.rand((b, 2, H, W), generator=g).to(dev)
+                images = (frames[:, 0], frames[:, 1])[:c_n]
+                lhw = [(H, W)]
+                for _ in range(L):
+                    lhw.append(((lhw[-1][0] + 1) // 2, (lhw[-1][1] + 1) // 2))
+                blur = sum(9 * lhw[l - 1][0] * w + 9 * h * w for l, (h, w) in enumerate(lhw)
+                           if l > 0)
+                grad = sum(2 * 10 * h * w for h, w in lhw)
+                nbytes = 4 * b * (c_n * H * W + c_n * sum(h * w for h, w in lhw[1:])
+                                  + 2 * sum(h * w for h, w in lhw))
+                row = timed(label, fused_err(images, L), 0.0,
+                            lambda: ops.pyramid_with_gradients(images, L), None, nbytes,
+                            b * (c_n * blur + grad),
+                            plain=lambda: ops.pyramid_with_gradients_plain(images, L))
+            elif name == "corner_response":
+                b, H, W, bs = shape
+                img = torch.rand((b, H, W) if b > 1 else (H, W), generator=g).to(dev)
+                row = timed(label, max_err(ops.corner_response(img, bs),
+                                           ops.corner_response_plain(img, bs)), 0.0,
+                            lambda: ops.corner_response(img, bs), None, 4 * 2 * b * H * W,
+                            (46 + 6 * (bs - 3)) * b * H * W,
+                            plain=lambda: ops.corner_response_plain(img, bs))
+            elif name == "greedy_nms":
+                b, K, layout = shape
+                d2, ok, min_d2 = greedy_inputs(g, max(b, 2), K, layout == "shared", False, dev)
+                if b == 1:  # the lane with eligible candidates
+                    d2, ok = d2[1:].contiguous(), ok[1:].contiguous()
+                row = timed(label, float((ops.greedy_min_distance(d2, ok, min_d2)
+                                          != ops.greedy_min_distance_plain(d2, ok, min_d2)).sum()),
+                            0.0, lambda: ops.greedy_min_distance(d2, ok, min_d2), None,
+                            4 * K * K * (1 if layout == "shared" else b) + 2 * b * K,
+                            b * K * (K - 1) // 2,
+                            plain=lambda: ops.greedy_min_distance_plain(d2, ok, min_d2),
+                            plain_reps=10)
+            else:
+                continue
+            results[name]["shapes"][key] = shape_row(row)
+
+
+def run_tools(dev, kern):
+    """Phase 15, the tools on the card (the block above TOOLS_SEEDS); each
+    tool's kernel launches counted from 0 just before it and read just
+    after. Returns their runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="tools_") as root:
+        with tool_datasets(root) as datasets_made:
+            runs["tools_profile_step"] = tool_profile(dev)
+            datasets = datasets_made()
+        with cpu_slam_curve() as cpu_curve:
+            tool_scaling(dev)
+            runs["tools_long_probe"] = tool_long_probe(dev)
+            cpu_run = cpu_curve()
+        runs["tools_run_benchmark"] = tool_benchmark(dev, datasets)
+        runs["tools_two_streams"] = tool_two_streams(dev, datasets[0])
+    tool_slam_curve(dev, cpu_run)
+    for c, (launches, _, _) in runs.items():
+        missing = [k for k in PATH_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"{c}: kernels not launched: {missing}")
+    time_tool_shapes(dev, kern, runs)
+    TOOLS["seconds"] = time.perf_counter() - t0
+    say(f"phase 15 {TOOLS['seconds']:.1f} s")
+    return runs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -3763,6 +4317,7 @@ def main() -> int:
         runs.update(run_multi_device(dev))
         with torch_detector():
             runs.update(run_compiled_slam(dev))
+        runs.update(run_tools(dev, kern))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3782,7 +4337,8 @@ def main() -> int:
         return fail(f"{type(e).__name__}: {e}")
     if "jax" in sys.modules:
         return fail("jax was imported")
-    say("host syncs per step: " + ", ".join(f"{c} {runs[c][2]}" for c in paths)
+    say("host syncs per step: " + ", ".join(
+        f"{c} {'not counted' if runs[c][2] is None else runs[c][2]}" for c in paths)
         + "; options: " + ", ".join(f"{o} {n}" for o, n in option_syncs.items()))
     synced = [c for c in paths if runs[c][2]] + [o for o, n in option_syncs.items() if n]
     if synced:

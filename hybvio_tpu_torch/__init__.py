@@ -29,6 +29,9 @@ Layout:
   ops/         CUDA kernels (csrc/) with their plain PyTorch versions
   parallel/    the batched step, over one device or a mesh, and the scan
   graphs.py    the compiled step: CUDA graphs of a step, the card's jax.jit
+  tools/       the repository's tools: datasets, the multi-sequence runner,
+               the long probe, the stage profiler, the SLAM cost curve, the
+               BA sweep (each ``python -m hybvio_tpu_torch.tools.<name>``)
   convert.py   state exchange with the reference package
 """
 

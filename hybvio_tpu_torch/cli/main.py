@@ -745,6 +745,10 @@ def run(argv=None, device=None) -> int:
     if api.vu_stats.enabled:
         # totals at exit (reference: printVisualUpdateStats final report)
         print(api.vu_stats.report(), file=sys.stderr)
+    # on_output closes over the API: without it the API and its step graphs
+    # are freed when run returns, not at a later collection, so the next
+    # run (the next sequence of a benchmark) captures into their memory
+    api.on_output = None
     return 0
 
 

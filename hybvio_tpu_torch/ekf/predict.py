@@ -14,7 +14,7 @@ import torch
 
 from ..geometry.quaternion import gyro_update_matrix, quat_to_rmat
 from ..lanes import lane_where
-from ..runtime import constant
+from ..runtime import FORWARD_AD_LOCK, constant
 from .state import (
     BAA, BAT, BGA, INER_DIM, ORI, POS, Q_ACC, Q_BAA_DRIFT, Q_BGA_DRIFT, Q_DIM,
     Q_GYRO, VEL, EKFState, process_noise_values,
@@ -50,7 +50,8 @@ def predict_mean_and_jacobians(po, m, dt, xg, xa):
     new_q = (A @ prev_q[..., None])[..., 0]
     R = quat_to_rmat(new_q)
     Rt = R.transpose(-1, -2)
-    dR = _dquat_to_rmat(new_q).movedim(-1, 1)  # (B, 4, 3, 3)
+    with FORWARD_AD_LOCK:
+        dR = _dquat_to_rmat(new_q).movedim(-1, 1)  # (B, 4, 3, 3)
 
     Txab = m[:, BAT:BAT + 3] * xa - m[:, BAA:BAA + 3]
     new_p = m[:, POS:POS + 3] + m[:, VEL:VEL + 3] * dtc

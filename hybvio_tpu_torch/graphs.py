@@ -41,13 +41,18 @@ makes no host sync. A capture or a replay that fails raises, naming the
 signature; nothing falls back to the eager function, which stays reachable
 as ``.eager``. On the CPU a call is the eager call.
 
-Pools (``GraphPools``): graphs that share a memory pool must never replay
-at once. The VIO steps of a card replay one after another on the caller's
-stream and share ``STEP_POOLS``; the SLAM session's programs replay on its
-worker's stream beside them, so each session captures into pools of its
-own (``Slam.graph_pools``), with capture streams of their own. A program
-takes the pools of the ``capturing_into`` block it is made in, else
-``STEP_POOLS``.
+Pools (``GraphPools``): graphs that share a memory pool share their
+scratch memory, so they must never replay at once. A pool orders them
+itself: a replay (its copies in and out included) waits on the card for
+the pool's previous replay, whatever stream either ran on, and the
+pool's captures run one at a time (they share its capture stream). So two
+``VioApi``s stepped from two threads on two streams, whose step graphs
+all share ``STEP_POOLS``, replay one after the other on the card and give
+the bits each gives alone. The SLAM session's programs replay on its
+worker's stream beside the steps, so each session captures into pools of
+its own (``Slam.graph_pools``), with capture streams of their own, and the
+two overlap. A program takes the pools of the ``capturing_into`` block it
+is made in, else ``STEP_POOLS``.
 
 The signature is the tree of the arguments (tuples, lists, NamedTuples,
 dicts, dataclasses such as a per-frame ``Camera``), each tensor's shape,
@@ -108,6 +113,9 @@ class _CardPool(NamedTuple):
     handle: tuple  # the graph memory pool
     keep: torch.cuda.CUDAGraph  # a one-kernel graph that keeps the pool alive
     stream: torch.cuda.Stream  # the warm-ups and captures
+    capturing: threading.Lock  # held by the capture under way
+    replaying: threading.Lock  # held while a replay is queued
+    last: list  # [the event after the last replay queued, or None]
 
 
 class GraphPools:
@@ -139,8 +147,25 @@ class GraphPools:
                         torch.zeros(1, device=torch.device("cuda", index))
                         keep.capture_end()
                     torch.cuda.current_stream().wait_stream(stream)
-                self._cards[index] = _CardPool(handle, keep, stream)
+                self._cards[index] = _CardPool(handle, keep, stream, threading.Lock(),
+                                               threading.Lock(), [None])
             return self._cards[index]
+
+    @contextlib.contextmanager
+    def replaying(self, device):
+        """A block that queues one replay of a graph of the pool on the
+        current stream: it starts on the card after the pool's previous
+        replay, on any stream, has ended (no host sync), and the next one
+        waits for it."""
+        card = self.card(device)
+        with card.replaying:
+            stream = torch.cuda.current_stream(device)
+            if card.last[0] is not None:
+                stream.wait_event(card.last[0])
+            yield
+            done = torch.cuda.Event()
+            done.record(stream)
+            card.last[0] = done
 
     def add(self, program) -> None:
         self._programs = [r for r in self._programs if r() is not None] + [weakref.ref(program)]
@@ -366,6 +391,10 @@ class CapturedStep:
                                f"{describe(key)}")
         device = leaves[0].device
         card = self.pools.card(device)
+        with card.capturing:
+            return self._capture_locked(key, leaves, device, card)
+
+    def _capture_locked(self, key, leaves, device, card) -> _Graph:
         stream, current = card.stream, torch.cuda.current_stream(device)
         t0 = time.perf_counter()
         static_in = [_empty_like(x) for x in leaves]
@@ -394,14 +423,15 @@ class CapturedStep:
         return entry
 
     def _replay(self, key, entry: _Graph, leaves):
-        _copy(entry.inputs, [_compact(x) for x in leaves])
-        try:
-            entry.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.name}: the replay of {describe(key)} failed: {e}") from e
+        with self.pools.replaying(leaves[0].device):
+            _copy(entry.inputs, [_compact(x) for x in leaves])
+            try:
+                entry.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.name}: the replay of {describe(key)} failed: {e}") from e
+            outs = [_empty_like(t) for t in entry.outputs]
+            _copy([_compact(o) for o in outs], [_compact(t) for t in entry.outputs])
         _lib.add_launches(entry.launches)
-        outs = [_empty_like(t) for t in entry.outputs]
-        _copy([_compact(o) for o in outs], [_compact(t) for t in entry.outputs])
         self.replays += 1
         return _unflatten(entry.out_spec, iter(outs))
 

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..ekf.state import CAM, ORI, POS, POSE_DIM, SFT
+from ..runtime import FORWARD_AD_LOCK
 from .triangulation import (
     TRI_BAD_COND, TRI_BAD_DEPTH, TRI_HYBRID, TRI_OK, CameraPoses, camera_poses_from_states,
     triangulate_gn, triangulate_linear, triangulate_stereo_fused,
@@ -149,14 +150,16 @@ def make_prepare_track_update(po, imu_to_camera, second_imu_to_camera, use_stere
         trail = trail_from_states(ps_f)
         if hybrid:
             pf = flat(map_point)
-            J, f = jac_map(x0, vels_f, pf)
+            with FORWARD_AD_LOCK:
+                J, f = jac_map(x0, vels_f, pf)
             tri_status = torch.full((NB,), TRI_HYBRID, dtype=torch.int64, device=pf.device)
         else:
-            if use_indep_stereo and stereo_idp is not None:
-                J, (f, pf, tri_status) = jac_stereo(x0, vels_f, mask_f, flat(stereo_idp),
-                                                    flat(stereo_cov), flat(stereo_valid))
-            else:
-                J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
+            with FORWARD_AD_LOCK:
+                if use_indep_stereo and stereo_idp is not None:
+                    J, (f, pf, tri_status) = jac_stereo(x0, vels_f, mask_f, flat(stereo_idp),
+                                                        flat(stereo_cov), flat(stereo_valid))
+                else:
+                    J, (f, pf, tri_status) = jac(x0, ips_f, vels_f, mask_f)
             depth = torch.linalg.norm(pf - trail.p[:, 0], dim=-1)
             max_dist = po.triangulationMaxDist
             if max_dist > torch.finfo(dtype).max:

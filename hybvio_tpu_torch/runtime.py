@@ -105,6 +105,13 @@ def scoped_precision(fn):
     return wrapped
 
 
+# torch.func.jacfwd keeps its forward-AD dual level in a process-global: two
+# threads in forward mode at once break each other's level ("no level
+# exists"), e.g. two VioApis stepped from two threads. Each forward-mode
+# Jacobian of the step is taken under this lock (the SLAM side takes jacrev).
+FORWARD_AD_LOCK = threading.RLock()
+
+
 @functools.lru_cache(maxsize=None)
 def _constant(values, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(values), dtype=dtype).to(device)

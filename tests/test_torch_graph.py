@@ -492,3 +492,86 @@ def test_captured_step_equals_the_eager_step_on_the_card(kind):
             assert torch.equal(torch.nan_to_num(t, nan=7.0), torch.nan_to_num(c, nan=7.0)) \
                 if t.is_floating_point() else torch.equal(t, c)
     assert step.graphs[0].captures >= 1 and step.graphs[0].replays >= 2
+
+
+def _chain(x, k):
+    """A program with large scratch tensors: matmuls and pointwise ops
+    whose intermediates a pool's graphs share."""
+    for i in range(12):
+        x = torch.tanh(x @ x.T * (0.01 + 0.001 * (i + k))) + x
+    return x.sum(0)
+
+
+@pytest.mark.cuda
+def test_a_pools_graphs_replayed_from_two_streams_keep_their_bits():
+    """On the card: two programs captured into one pool (their graphs share
+    scratch memory), replayed from two threads on two streams at once, give
+    every replay the bits each gives alone: the pool orders its replays
+    on the card (``GraphPools.replaying``). Two ``VioApi``s stepped from two
+    threads share ``STEP_POOLS`` in the same way (chip_smoke.py phase 15g)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py phase 15g runs two VioApis")
+    pools = graphs.GraphPools("two streams")
+    with graphs.capturing_into(pools):
+        programs = [graphs.CapturedStep(lambda x, k=k: _chain(x, k), f"chain {k}")
+                    for k in range(2)]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    inputs = [torch.randn((1536, 1536), generator=g).cuda() for _ in range(2)]
+    alone = [programs[k](inputs[k]) for k in range(2)]  # each captures
+    alone = [programs[k](inputs[k]) for k in range(2)]  # and replays alone
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+    streams = [torch.cuda.Stream() for _ in range(2)]
+
+    def work(k):
+        try:
+            with torch.cuda.stream(streams[k]):
+                for _ in range(30):
+                    outs[k].append(programs[k](inputs[k]))
+            streams[k].synchronize()
+        except Exception:  # surfaced below
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
+    for k in range(2):
+        assert programs[k].captures == 1 and programs[k].replays == 31
+        assert all(torch.equal(o, alone[k]) for o in outs[k]), f"program {k} lost its bits"
+
+
+def test_forward_mode_jacobians_from_two_threads_keep_their_values():
+    """The step's forward-mode Jacobians (``torch.func.jacfwd``, whose dual
+    level PyTorch keeps in a process-global) taken from two threads at once,
+    as two VioApis stepped from two threads take them, equal each thread's
+    own first result every time: they run under ``runtime.FORWARD_AD_LOCK``
+    (without it the threads' levels mix and the Jacobians come out wrong or
+    raise)."""
+    from hybvio_tpu_torch.ekf.predict import predict_mean_and_jacobians
+
+    po = Parameters().odometry
+    errors = []
+
+    def work(k):
+        try:
+            g = torch.Generator().manual_seed(k)
+            m = torch.randn((4, 40), generator=g, dtype=torch.float64)
+            m[:, 6:10] /= m[:, 6:10].norm(dim=1, keepdim=True)
+            dt = torch.full((4,), 0.01, dtype=torch.float64)
+            xg, xa = (torch.randn((4, 3), generator=g, dtype=torch.float64) for _ in range(2))
+            first = predict_mean_and_jacobians(po, m, dt, xg, xa)
+            for _ in range(300):
+                out = predict_mean_and_jacobians(po, m, dt, xg, xa)
+                assert all(torch.equal(a, b) for a, b in zip(out, first)), f"thread {k}"
+        except Exception:  # surfaced below
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
