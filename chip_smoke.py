@@ -262,6 +262,26 @@ Phases (any failure exits non-zero and prints no result line):
      closure or a program past 24 signatures, a mesh not ok, a probe family
      not finite, two-stream outputs that part, or a tool that launched none
      of the path kernels.
+ 16. the benchmark program (hybvio_tpu_torch/bench.py) on the card: (a)
+     one run of ``python -m hybvio_tpu_torch.bench`` in a subprocess with
+     every stage on (BENCH_RUN: stereo, B=16, 60 frames, the scan, 21 live
+     and 21 seed-diverse frames, 3 s textured legs, mono seed 9), each
+     stage's wall time; beside it (b) BENCH_CONFIG=vislam over 40 frames
+     (its short textured probe off), (c) BENCH_MODE=single, mono, 20
+     frames, and (d) a run whose budget (BENCH_CUT) it cannot meet (the
+     four processes and (e) share the card and the host: their times are
+     not each one's alone); (e) in this process, through
+     the module's functions at B=16 over BENCH_E_FRAMES frames: the
+     headline loop, live ingest (float32 and uint8, serial and prefetch)
+     and the scan, the steps' graph pool before and after the uint8
+     capture, each CapturedStep's signatures, the kernel launches (counted
+     from 0 before (e) and read after it; the subprocesses' launches are
+     their own). Fails unless (a)-(c) exit 0 with a line, (a) has 16/16
+     finite lanes, an ATE median <= 0.05 m, every stage run and no
+     stage error or budget skip, (d) prints one line (a stub or a partial
+     one) and exits non-zero, and in (e) the float32 live runs and the
+     scan give the loop's positions bit for bit and the uint8 runs are
+     finite.
 Before the last line come the kernel JSON and the card's name and power
 limit; the last line is the device JSON."""
 from __future__ import annotations
@@ -466,6 +486,20 @@ PROBE_ARGV = ("mono", "stereo", "--duration", "3", "--override", "odometry.visua
 MESH_CHECK_SHARDS = (1, 2, 4, 8)
 TWO_STREAM_FRAMES = 12  # of dataset (a)'s first 50 (cut for time)
 TOOLS = {}  # phase 15's numbers
+# phase 16: the benchmark program. (a) every stage on at a cut size, (b)
+# vislam, (c) single mono, (d) a budget it cannot meet, (e) in process at
+# B=16 over BENCH_E_FRAMES frames; each subprocess's time limit
+BENCH_RUN = {"BENCH_CONFIG": "stereo", "BENCH_BATCH": str(B), "BENCH_FRAMES": "60",
+             "BENCH_SCAN": "1", "BENCH_LIVE_FRAMES": "21", "BENCH_SEED_DIVERSE_FRAMES": "21",
+             "BENCH_LONG_DURATION": "3", "BENCH_VISLAM_DURATION": "3", "BENCH_MONO_SEEDS": "9"}
+BENCH_STAGES = ("scan_throughput", "long_stereo", "long_vislam", "long_mono", "long_fisheye",
+                "live_ingest", "seed_diverse", "long_stereo_api", "long_mono_seed9")
+BENCH_VISLAM = {"BENCH_CONFIG": "vislam", "BENCH_FRAMES": "40", "BENCH_TEXTURED": "0"}
+BENCH_SINGLE = {"BENCH_MODE": "single", "BENCH_CONFIG": "mono", "BENCH_FRAMES": "20"}
+BENCH_CUT = {"BENCH_BUDGET_S": "2", "BENCH_WATCHDOG_GRACE_S": "1"}
+BENCH_E_FRAMES = 21
+BENCH_TIMEOUT_S = 400
+BENCH = {}  # phase 16's numbers
 R = 100  # back-to-back calls in one timed run
 RUNS = 5  # timed runs; their median is kept
 SLEEP_CYCLES_PER_S = 2e9  # the H100's top SM clock, rounded up
@@ -4235,6 +4269,167 @@ def run_tools(dev, kern):
     return runs
 
 
+def bench_env(settings):
+    """This process's environment without its BENCH_* variables, with
+    ``settings``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.pop("HYBVIO_PLATFORM", None)
+    return {**env, **settings}
+
+
+def start_bench(name, settings):
+    """``python -m hybvio_tpu_torch.bench`` under ``settings``, started; a
+    thread collects its output and the moment it exits."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "hybvio_tpu_torch.bench"],
+                            env=bench_env(settings),
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    run = {"name": name, "proc": proc, "t0": time.perf_counter()}
+
+    def collect():
+        try:
+            run["out"], run["err"] = proc.communicate(timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            run["out"], run["err"] = proc.communicate()
+            run["timed_out"] = True
+        run["wall"] = time.perf_counter() - run["t0"]
+
+    run["thread"] = threading.Thread(target=collect)
+    run["thread"].start()
+    return run
+
+
+def bench_result(run):
+    """(rc, the JSON lines printed, wall s from start to exit) of a
+    started bench; its last stderr lines said when it did not exit 0."""
+    run["thread"].join()
+    name, rc = run["name"], run["proc"].returncode
+    if run.get("timed_out"):
+        raise AssertionError(f"phase 16 {name}: no exit within {BENCH_TIMEOUT_S} s")
+    lines = [json.loads(ln) for ln in run["out"].splitlines() if ln.startswith("{")]
+    say(f"phase 16 {name}: rc {rc}, {run['wall']:.1f} s from start to exit, "
+        f"{len(lines)} line(s)")
+    for ln in lines:
+        say(f"  | {json.dumps(ln)}")
+    if rc != 0:
+        for ln in run["err"].strip().splitlines()[-25:]:
+            say(f"  ! {ln}")
+    return rc, lines, run["wall"]
+
+
+def bench_runs(started):
+    """Phase 16 (a)-(d): the checks on the lines of the runs ``started``."""
+    rc, lines, wall = bench_result(started["a"])
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"phase 16a: rc {rc}, {len(lines)} lines")
+    (a,) = lines
+    extra = a["extra"]
+    BENCH["a"] = {"wall_s": wall, "line": a}
+    say("phase 16a stages, wall s: " + json.dumps(extra.get("stage_wall_s"))
+        + "; set-up: " + json.dumps(extra.get("core_wall_s")))
+    ran = set(extra.get("stage_wall_s", {}))
+    if extra.get("stage_errors") or extra.get("skipped_budget") or ran != set(BENCH_STAGES):
+        raise AssertionError(f"phase 16a: stages {sorted(ran)}, errors "
+                             f"{extra.get('stage_errors')}, skipped {extra.get('skipped_budget')}")
+    if extra["finite_lanes"] != B or not extra["ate_rmse_m_median"] <= ATE_LIMIT_M:
+        raise AssertionError(f"phase 16a: {extra['finite_lanes']}/{B} lanes, ATE median "
+                             f"{extra['ate_rmse_m_median']} m")
+    for key, metric in (("b", "synthetic_vislam_fps_per_chip"),
+                        ("c", "synthetic_mono_vio_fps_per_chip")):
+        rc, lines, wall = bench_result(started[key])
+        if rc != 0 or len(lines) != 1 or lines[0]["metric"] != metric:
+            raise AssertionError(f"phase 16{key}: rc {rc}, lines {lines}")
+        ate = lines[0]["extra"]["ate_rmse_m"]
+        if not (lines[0]["value"] > 0 and ate is not None and ate <= ATE_LIMIT_M):
+            raise AssertionError(f"phase 16{key}: value {lines[0]['value']}, ATE {ate} m")
+        BENCH[key] = {"wall_s": wall, "line": lines[0]}
+    rc, lines, wall = bench_result(started["d"])
+    if rc == 0 or len(lines) != 1 or lines[0]["extra"].get("emitted_by") != "watchdog":
+        raise AssertionError(f"phase 16d: rc {rc}, lines {lines}")
+    BENCH["d"] = {"rc": rc, "stub": lines[0]["value"] is None, "wall_s": wall}
+
+
+def bits_apart(a, b) -> int:
+    """The elements of two float32 arrays whose bits differ (all of them
+    when the shapes do)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.size, b.size)
+    return int(np.sum(a.view(np.int32) != b.view(np.int32)))
+
+
+def bench_in_process(dev):
+    """Phase 16e: the module's stages in this process at B=16; (launches,
+    launches by shape, None)."""
+    import torch
+
+    from hybvio_tpu_torch import bench, graphs, ops, runtime
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    pool_start = graphs.graph_pool_bytes(dev)
+    with runtime.full_precision():
+        world = bench.setup("stereo", BENCH_E_FRAMES, B, dev)
+        run = bench.stage_batched(world, shared=True)
+        headline, est = bench.run_headline(run)
+        torch.cuda.synchronize()
+        pool0 = graphs.graph_pool_bytes(dev)
+        live, pos = bench.live_ingest(run, BENCH_E_FRAMES)
+        torch.cuda.synchronize()
+        pool1 = graphs.graph_pool_bytes(dev)
+        signatures = {p.name: p.keys for p in graphs.STEP_POOLS.programs if p.keys}
+        scan, scan_est = bench.scan_throughput(run)
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.SHAPE_LAUNCHES)
+    n = BENCH_E_FRAMES - 1
+    diffs = {k: bits_apart(pos[k], est[:n]) for k in ("serial", "prefetch")}
+    diffs["scan"] = bits_apart(scan_est, est)
+    finite_u8 = {k: bool(np.isfinite(pos[k]).all()) for k in ("serial_u8", "prefetch_u8")}
+    BENCH["e"] = {"headline": headline["value"], "step_ms": headline["extra"]["step_latency_ms"],
+                  "live": live, "scan": scan,
+                  "pool_mib": (pool_start / 2**20, pool0 / 2**20, pool1 / 2**20),
+                  "diffs": diffs, "signatures": signatures}
+    say(f"phase 16e (B={B}, {n} steps): headline {headline['value']} frames/s, "
+        f"{headline['extra']['step_latency_ms']} ms a step; live {json.dumps(live)}; scan "
+        f"{json.dumps(scan)}")
+    say(f"phase 16e: the steps' graph pool {pool_start / 2**20:.1f} MiB before (e), "
+        f"{pool0 / 2**20:.1f} after the float32 capture, {pool1 / 2**20:.1f} after the uint8 "
+        f"capture (+{(pool1 - pool0) / 2**20:.1f} MiB, "
+        f"{100.0 * (pool1 - pool0) / max(pool0, 1):.2f}% of the pool); signatures of the live "
+        f"programs {json.dumps(signatures)}")
+    say(f"phase 16e: differences from the prestaged loop {json.dumps(diffs)} (not bit-equal "
+        f"elements); uint8 runs finite {json.dumps(finite_u8)}")
+    say(f"phase 16e: kernel launches {json.dumps(launches)}")
+    if any(diffs.values()) or not all(finite_u8.values()):
+        raise AssertionError(f"phase 16e: positions parted {diffs}, uint8 finite {finite_u8}")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 16e: kernels not launched: {missing}")
+    return launches, by_shape, None
+
+
+def run_bench(dev, kern):
+    """Phase 16 (the block above BENCH_RUN): (a)-(d) started at once, (e)
+    run while they run; the in-process run's launches as the "bench"
+    path."""
+    t0 = time.perf_counter()
+    started = {"a": start_bench("(a) every stage", BENCH_RUN),
+               "b": start_bench("(b) vislam", BENCH_VISLAM),
+               "c": start_bench("(c) single mono", BENCH_SINGLE),
+               "d": start_bench("(d) cut", {**BENCH_RUN, **BENCH_CUT})}
+    try:
+        runs = {"bench": bench_in_process(dev)}
+    finally:
+        for run in started.values():
+            run["thread"].join()
+    bench_runs(started)
+    time_tool_shapes(dev, kern, runs)
+    BENCH["seconds"] = time.perf_counter() - t0
+    say(f"phase 16 {BENCH['seconds']:.1f} s")
+    return runs
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -4318,6 +4513,7 @@ def main() -> int:
         with torch_detector():
             runs.update(run_compiled_slam(dev))
         runs.update(run_tools(dev, kern))
+        runs.update(run_bench(dev, kern))
         torch.cuda.synchronize()
         paths = list(runs)
         rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
