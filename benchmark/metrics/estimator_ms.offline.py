@@ -1,0 +1,6 @@
+"""ms a call of the step's estimator stage, captured alone (the offline path)."""
+from benchmark.readers import stage_ms
+
+
+def read(record):
+    return stage_ms(record, "offline", "estimator")

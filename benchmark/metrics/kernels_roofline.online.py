@@ -1,0 +1,6 @@
+"""The five kernels' share of their roofline on the online path."""
+from benchmark.readers import kernels_roofline
+
+
+def read(record):
+    return kernels_roofline(record, "online")
