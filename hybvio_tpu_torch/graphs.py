@@ -75,6 +75,7 @@ from typing import NamedTuple
 import torch
 
 from .ops import _lib
+from .utils import timer
 
 MAX_KEYS = 32  # signatures one program may capture before a new one raises
 _ALIGN_BYTES = 16  # the widest vector load of a kernel
@@ -331,6 +332,11 @@ class _Graph(NamedTuple):
     out_spec: tuple
     outputs: list  # the static outputs
     launches: dict  # (kernel, shape) -> launches a replay
+    copy_bytes: int  # the bytes a replay copies in and out
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in map(_compact, tensors))
 
 
 class CapturedStep:
@@ -350,8 +356,16 @@ class CapturedStep:
         self.replays = 0
 
     def __call__(self, *args, **kwargs):
-        leaves = []
-        key = _flatten((args, kwargs), leaves)
+        """The span recorder's ``graph.call``, with the children
+        ``graph.flatten`` (the signature), and on a replay ``graph.copy_in``,
+        ``graph.replay`` and ``graph.copy_out``."""
+        with timer.span("graph.call"):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
+        with timer.span("graph.flatten"):
+            leaves = []
+            key = _flatten((args, kwargs), leaves)
         devices = {t.device for t in leaves}
         if all(d.type == "cpu" for d in devices):
             return self.eager(*args, **kwargs)
@@ -417,22 +431,28 @@ class CapturedStep:
         out_leaves = []
         out_spec = _flatten(out, out_leaves)
         entry = self._graphs[key] = _Graph(graph, [_compact(s) for s in static_in], out_spec,
-                                           out_leaves, dict(launches))
+                                           out_leaves, dict(launches),
+                                           _nbytes(static_in) + _nbytes(out_leaves))
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return entry
 
     def _replay(self, key, entry: _Graph, leaves):
         with self.pools.replaying(leaves[0].device):
-            _copy(entry.inputs, [_compact(x) for x in leaves])
+            with timer.span("graph.copy_in"):
+                _copy(entry.inputs, [_compact(x) for x in leaves])
             try:
-                entry.graph.replay()
+                with timer.span("graph.replay"):
+                    entry.graph.replay()
             except RuntimeError as e:
                 raise RuntimeError(f"{self.name}: the replay of {describe(key)} failed: {e}") from e
-            outs = [_empty_like(t) for t in entry.outputs]
-            _copy([_compact(o) for o in outs], [_compact(t) for t in entry.outputs])
+            with timer.span("graph.copy_out"):
+                outs = [_empty_like(t) for t in entry.outputs]
+                _copy([_compact(o) for o in outs], [_compact(t) for t in entry.outputs])
         _lib.add_launches(entry.launches)
         self.replays += 1
+        timer.count("graph.copy_bytes", entry.copy_bytes)
+        timer.count("graph.copy_tensors", len(entry.inputs) + len(entry.outputs))
         return _unflatten(entry.out_spec, iter(outs))
 
     @property

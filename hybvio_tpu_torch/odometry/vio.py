@@ -5,6 +5,9 @@ each frame (stereo: each pair) or have one frame each.
     step = imu_only -> track_stage (predict_flow, Tracker.track_frame)
            -> backend_stage (Backend.process_frame)
 
+with a stage marker (an empty kernel of its own name, on the card) after
+each of the first two.
+
 ``predict_flow`` gives each track an LK guess: its distance from the
 widest-baseline two-view triangulation over the pose trail (at least
 predictOpticalFlowMinTriangulationDistance), the previous corner unprojected
@@ -43,6 +46,7 @@ from ..frontend.rectify import build_remap, remap, stereo_rectify
 from ..frontend.tracker import Tracker, TrackerState
 from ..geometry.cameras import pixel_to_ray, ray_to_pixel
 from ..geometry.poses import to_camera_to_world, to_world_to_camera, transform_vec3
+from ..ops._lib import mark_stage
 from ..runtime import IMAGE_DTYPE, constant, random_int_bits, scoped_precision
 from . import trail as tr
 from .backend import Backend, BackendState, ImuBatch, TrackerInput
@@ -242,7 +246,10 @@ class Vio(nn.Module):
         whatever the caller set (restored on return). ``n_valid``: the
         count of valid IMU columns, where the caller knows it (the rest are
         then skipped, as ``Backend.imu_scan``); ``camera0``: the frame's
-        own first camera (mono)."""
+        own first camera (mono). On the card an empty kernel marks the end
+        of the IMU propagation and of the front end (``ops._lib.mark_stage``)."""
         state = self.imu_only(state, imu, n_valid)
+        mark_stage("imu", imu.t)
         state, tin = self.track_stage(state, imu.t[:, -1], image, second_image, camera0)
+        mark_stage("frontend", imu.t)
         return self.backend_stage(state, tin, camera0)

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "hv_greedy_nms": [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, _P, _P],
     "hv_empty": [_P],
+    "hv_mark_stage": [ctypes.c_int, _P],
 }
 
 _loaded = {}
@@ -148,6 +149,18 @@ def recording_launches():
 def launch_empty() -> None:
     """Launch the empty kernel (the card's per-launch floor); not counted."""
     _call("hv_empty")
+
+
+STAGE_MARKS = ("imu", "frontend")  # the step's stage markers, in its order
+
+
+def mark_stage(stage: str, like: torch.Tensor) -> None:
+    """Launch the empty kernel that marks the end of ``stage`` of the step
+    (``hv_mark_<stage>_done`` on the profiler's timeline) on the current
+    stream, where ``like`` is on the card; not counted; nothing on the CPU.
+    A capture records it like any kernel, so every replay carries it."""
+    if like.device.type == "cuda":
+        _call("hv_mark_stage", STAGE_MARKS.index(stage))
 
 
 def _call(fn_name: str, *args) -> None:

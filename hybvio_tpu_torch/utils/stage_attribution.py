@@ -20,7 +20,6 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from .. import random as jr
@@ -109,28 +108,3 @@ class StageProbes:
                     out[label] = time.perf_counter() - t0
         return out
 
-
-def attribute_stages(tracker, image, second_image=None, reps: int = 5) -> Dict[str, float]:
-    """One-shot attribution on a single frame (mean ms over ``reps``) of a
-    ``tracker`` on ``image`` (and ``second_image`` in stereo), each an
-    (H, W) or (1, H, W) float32 tensor in [0, 1], with T track positions
-    drawn inside the frame (seed 0).
-
-    Kept for ad-hoc profiling; the `-timer` report accumulates per-frame
-    samples via StageProbes.run_frame during the actual run (api/vio.py)."""
-    img = image.reshape((1,) + image.shape[-2:]).to(torch.float32)
-    use_stereo = bool(tracker.stereo) and second_image is not None
-    sim = (second_image.reshape(img.shape).to(torch.float32) if use_stereo else None)
-    H, W = img.shape[-2:]
-    T = tracker.T
-    rng = np.random.RandomState(0)
-    pts = torch.as_tensor(rng.rand(1, T, 2) * np.array([W - 60, H - 60]) + 30,
-                          dtype=torch.float32).to(img.device)
-    valid = torch.ones((1, T), dtype=torch.bool, device=img.device)
-    probes = StageProbes(tracker, use_stereo)
-    acc: Dict[str, float] = {}
-    probes.run_frame(img, sim, pts, valid)  # warm-up
-    for _ in range(reps):
-        for k, sec in probes.run_frame(img, sim, pts, valid).items():
-            acc[k] = acc.get(k, 0.0) + sec
-    return {k: 1000.0 * v / reps for k, v in acc.items()}

@@ -392,7 +392,6 @@ def test_time_stats_equal_reference(monkeypatch):
             with ts.scope("predict"):
                 pass
             ts.add_sample("image pyramids", 0.004)
-        ts.add_attribution("ransac2 (rotation)", 1.5)
         reports.append((ts.per_frame_timings(), ts.report(), dict(ts.counts)))
     assert reports[0] == reports[1]
     ts = p_timer.TimeStats()
