@@ -35,6 +35,7 @@ from ..graphs import CapturedStep, capturing_into
 from ..runtime import default_device
 from ..slam.host import np_quat_to_rmat, np_rmat_to_quat
 from ..slam.session import Slam
+from ..utils import timer
 
 
 def _np_remove_z_tilt(R):
@@ -89,6 +90,8 @@ class SlamOdometryCoordinateTransformer:
 class _Pending:
     future: "concurrent.futures.Future"
     odo_cw: np.ndarray
+    frame: float = None  # the recorder's frame id (the frame's time)
+    submit_ns: int = None  # the recorder's clock at the submission, while it is on
 
 
 def quantize_u8(image: torch.Tensor) -> torch.Tensor:
@@ -178,10 +181,24 @@ class SlamCoupling:
     def maybe_submit(self, image, pos, quat, track_ids, norm_pts, t, frame_num) -> bool:
         """Call on every KEYFRAME (reference: applySlam); submits every
         interval-th. ``image``: the frame (H, W), a tensor on any device or a
-        numpy array. Returns True if a slam frame was submitted."""
+        numpy array. Returns True if a slam frame was submitted.
+
+        The span recorder: every interval-th keyframe counts in
+        ``slam.candidates``, then in ``slam.submitted`` or ``slam.dropped``;
+        the ``slam.submit`` span covers the consumption of due results, the
+        quantization and the enqueue; a submitted frame's ``slam.queue``
+        runs to the worker's start, its ``slam.frame`` span over the
+        worker's work (the session's stages its children), and its
+        ``slam.pending`` to its result's consumption. The frame id is the
+        frame's time."""
         self.frame_counter += 1
         if (self.frame_counter - 1) % self.interval != 0:
             return False
+        timer.count("slam.candidates")
+        with timer.span("slam.submit", frame=float(t)):
+            return self._submit(image, pos, quat, track_ids, norm_pts, t, frame_num)
+
+    def _submit(self, image, pos, quat, track_ids, norm_pts, t, frame_num) -> bool:
         odo_cw = self.imu_pose_to_camera_cw(pos, quat)
 
         # consume delayed results first (reference: backend.cpp:405-434)
@@ -199,37 +216,47 @@ class SlamCoupling:
                 self._consume(self.pending.pop(0))
             if len(self.pending) > max_pending + self.max_backlog:
                 self.dropped += 1
+                timer.count("slam.dropped")
                 return False
 
         # after the drop check: a dropped candidate costs no quantization
         image, event = self._frame_for_worker(image)
+        submit_ns = timer.now_ns() if timer.recording() else None
 
         def work(img=image, ev=event, ocw=odo_cw, ids=np.array(track_ids),
                  pts=np.array(norm_pts), tt=float(t), fn=int(frame_num)):
-            sel = ids >= 0
-            if img is not None:
-                if ev is not None:
-                    torch.cuda.current_stream().wait_event(ev)
-                # integer frames are raw 0-255; the SLAM detectors and
-                # descriptors take [0, 1]
-                if isinstance(img, torch.Tensor):
-                    img = (img.to(torch.float32) / 255.0 if not img.is_floating_point()
-                           else img.to(torch.float32))
-                else:
-                    raw = np.asarray(img)
-                    img = (raw.astype(np.float32) / 255.0 if raw.dtype.kind in "ui"
-                           else np.asarray(raw, np.float32))
-            pix = self._project_pixels(pts[sel]) if self.camera is not None else None
-            return self.slam.add_frame(img, ocw, ids[sel], pts[sel], tt, fn,
-                                       pix_pts=pix), ocw
+            if submit_ns is not None:
+                timer.interval("slam.queue", submit_ns, timer.now_ns(), frame=tt)
+            with timer.span("slam.frame", frame=tt):
+                return self._work(img, ev, ocw, ids, pts, tt, fn)
 
         if self.pool is not None:
             fut = self.pool.submit(self._on_worker_stream, work)
         else:
             fut = concurrent.futures.Future()
             fut.set_result(work())
-        self.pending.append(_Pending(fut, odo_cw))
+        self.pending.append(_Pending(fut, odo_cw, float(t), submit_ns))
+        timer.count("slam.submitted")
         return True
+
+    def _work(self, img, ev, ocw, ids, pts, tt, fn):
+        """The worker's part of a submitted frame: the frame as the session
+        takes it, its features' pixels, ``Slam.add_frame``."""
+        sel = ids >= 0
+        if img is not None:
+            if ev is not None:
+                torch.cuda.current_stream().wait_event(ev)
+            # integer frames are raw 0-255; the SLAM detectors and
+            # descriptors take [0, 1]
+            if isinstance(img, torch.Tensor):
+                img = (img.to(torch.float32) / 255.0 if not img.is_floating_point()
+                       else img.to(torch.float32))
+            else:
+                raw = np.asarray(img)
+                img = (raw.astype(np.float32) / 255.0 if raw.dtype.kind in "ui"
+                       else np.asarray(raw, np.float32))
+        pix = self._project_pixels(pts[sel]) if self.camera is not None else None
+        return self.slam.add_frame(img, ocw, ids[sel], pts[sel], tt, fn, pix_pts=pix), ocw
 
     def _on_worker_stream(self, work):
         if self.stream is None:
@@ -239,6 +266,8 @@ class SlamCoupling:
 
     def _consume(self, pending: _Pending) -> None:
         result, odo_cw = pending.future.result()
+        if pending.submit_ns is not None:
+            timer.interval("slam.pending", pending.submit_ns, timer.now_ns(), frame=pending.frame)
         self.coord.set_coordinates(odo_cw, result.pose_cw)
         self.point_cloud = result.point_cloud
 

@@ -49,6 +49,7 @@ import torch
 
 from ..graphs import CapturedStep, GraphPools, capturing_into
 from ..runtime import default_device
+from ..utils import timer
 from . import loopclosure, orb, posegraph
 from .ba import BAProblem, ba_iterate, make_sharded_ba
 from .host import np_quat_to_rmat as _np_quat_to_rmat, np_relative_pose, np_rmat_to_quat
@@ -214,6 +215,9 @@ class Slam:
         # ORB/keyframe debug viewers (off by default: memory)
         self.store_keyframe_images = False
         self.last_adjacent_matches = None  # (kf_a, kf_b, [(i, j)])
+        # the last local BA as it ran: (its BAProblem, (poses, points, cost)),
+        # numpy arrays on the host, or None before the first
+        self.last_local_ba = None
 
         # the keyframe-rate programs, captured on the card into the
         # session's own graph pools (the module docstring)
@@ -270,6 +274,7 @@ class Slam:
 
         if not self._keyframe_decision(pose, t, track_ids):
             return SlamResult(pose_cw=pose_to_mat(pose), point_cloud=self._cloud())
+        timer.count("slam.keyframes")
 
         sel = track_ids >= 0
         kf = KeyFrame(
@@ -281,17 +286,17 @@ class Slam:
 
         # per-label keyframe timing (reference: slam::TIME_STATS scope
         # timers, util/timer.hpp:54-64 + timer.cpp:8-11; reported by the CLI
-        # -timer flag and the bench vislam leg)
-        from ..utils.timer import SLAM_TIME_STATS as TS
-
-        TS.start_frame()
+        # -timer flag and the bench vislam leg), each stage also a span of
+        # the recorder
+        stage = timer.slam_stage
+        timer.SLAM_TIME_STATS.start_frame()
         if self.compute_descriptors and image is not None:
-            with TS.scope("orb descriptors"):
+            with stage("orb descriptors"):
                 self._add_descriptors(
                     kf, image,
                     pix_pts[sel].copy() if pix_pts is not None else None)
             if self.ps.orbExtraKeyPoints:
-                with TS.scope("multi-scale keypoints"):
+                with stage("multi-scale keypoints"):
                     self._add_keypoints(kf, image)
 
         self.keyframes[kf.kf_id] = kf
@@ -304,21 +309,21 @@ class Slam:
             if kf.kp_desc is not None:
                 desc = np.concatenate([desc, kf.kp_desc])
                 val = np.concatenate([np.asarray(val, bool), kf.kp_valid])
-            with TS.scope("bow vocabulary"):
+            with stage("bow vocabulary"):
                 self.vocabulary.add_keyframe(kf.kf_id, desc, val)
-        with TS.scope("map points"):
+        with stage("map points"):
             self._update_map_points(kf, t)
 
         if (self.store_keyframe_images and len(self.kf_order) >= 2
                 and kf.descriptors is not None):
             self._match_adjacent_for_viz(kf)
 
-        with TS.scope("loop closure"):
+        with stage("loop closure"):
             retried = self._retry_pending_loops()
             loop = self._detect_loop_closure(kf)
-        with TS.scope("local BA"):
+        with stage("local BA"):
             self._local_ba()
-        with TS.scope("culling"):
+        with stage("culling"):
             self._cull_map_points(t)
             self._cull_keyframes()
 
@@ -349,6 +354,30 @@ class Slam:
                 proj.append(Xc[:2] / Xc[2] * f + c)
         obs = kf.pix_pts if kf.pix_pts is not None else np.zeros((0, 2))
         return (np.asarray(proj) if proj else np.zeros((0, 2))), obs
+
+    def warm_programs(self) -> list:
+        """Run the two keyframe-rate programs that a stream reaches only
+        later, the loop matcher (on a revisit) and the vocabulary's k-means
+        (on a retrain), on the map as it stands until each is captured (its
+        warm-ups, then the capture; on the CPU, which captures nothing, as
+        many eager calls). Their results are not used. Call it with the
+        session idle, once it holds two keyframes; the names of the
+        programs run."""
+        from .vocabulary import _kmeans
+
+        v = self.vocabulary
+        calls = []
+        if len(self.kf_order) >= 2:
+            a, b = (self.keyframes[k] for k in self.kf_order[-2:])
+            calls.append((self._match_program, lambda: self._loop_matches(b, a)))
+        if len(v._reservoir):
+            calls.append((v.kmeans_program, lambda: _kmeans(
+                v._reservoir, v.n_words, v.kmeans_iters, v.seed, v.device, v.kmeans_program)))
+        for program, call in calls:
+            for _ in range(self.graph_pools.eager_calls + 1):
+                if not program.captures:
+                    call()
+        return [program.name for program, _ in calls]
 
     def end(self, map_save_path: Optional[str] = None) -> bool:
         """(reference: slam::Slam::end) final GLOBAL adjustment over all
@@ -758,14 +787,23 @@ class Slam:
     def _ba_fn(self):
         """Local BA of a numpy BAProblem, 8 iterations, on the session's
         device (or over the mesh of ``set_ba_mesh``): numpy (poses, points,
-        cost)."""
-        def run(prob):
+        cost). With ``timed``, while the recorder is on, the device time of
+        the program's call is its interval ``slam.local_ba_device``."""
+        def run(prob, timed=False):
             prob = BAProblem(*(torch.as_tensor(np.asarray(v)) for v in prob))
+            clock = None
             if self._ba_sharded is not None:
                 out = self._ba_sharded(prob)
             else:
-                out = self._ba_program(BAProblem(*(v.to(self.device) for v in prob)))
-            return tuple(o.cpu().numpy() for o in out)
+                prob = BAProblem(*(v.to(self.device) for v in prob))
+                clock = timer.device_timer(self.device) if timed else None
+                out = self._ba_program(prob)
+                if clock is not None:
+                    clock.stop()
+            out = tuple(o.cpu().numpy() for o in out)
+            if clock is not None:
+                clock.emit("slam.local_ba_device")
+            return out
 
         return run
 
@@ -837,7 +875,15 @@ class Slam:
             prior_w_pos=np.float64(self.ps.odometryPriorStrengthPosition) / 100.0,
             prior_w_rot=np.float64(self.ps.odometryPriorStrengthRotation) / 100.0,
         )
-        new_poses, new_points, cost = self._ba_fn()(prob)
+        # the keyframe-rate local BA is counted and timed; end()'s sweeps not
+        local = window is None
+        if local:
+            timer.count("slam.local_ba")
+            timer.count("slam.ba_points", mp_n)
+            timer.count("slam.ba_obs", int(obs_mask.sum()))
+        result = self._ba_fn()(prob, timed=local)
+        self.last_local_ba = (prob, result)
+        new_poses, new_points, cost = result
         new_poses = np.asarray(new_poses)
         new_points = np.asarray(new_points)
         if not np.isfinite(new_poses).all():
@@ -872,6 +918,8 @@ class Slam:
             kf.kf_id, exclude=exclude,
             min_in_common_ratio=ps.bowMinInCommonRatio,
             min_score=min_score, max_results=3)
+        timer.count("slam.loop_queries")
+        timer.count("slam.loop_candidates", len(cands))
         if not cands:
             return None
 

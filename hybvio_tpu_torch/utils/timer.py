@@ -21,6 +21,8 @@ to its bound (``dropped`` counts the rest):
 - ``count(name, n=1)``: a counter.
 
 ``drain()`` returns {"spans", "counters", "dropped"} and clears them.
+``slam_stage`` opens a SLAM stage's ``SLAM_TIME_STATS`` scope and its span
+at once; ``device_timer`` adds a block's device time as an interval.
 Times are ``time.time_ns()``, the clock of ``torch.profiler``'s (kineto's)
 events; while a profiler runs, each span also opens a
 ``torch.profiler.record_function`` of its name, so that it lies on the
@@ -113,6 +115,18 @@ class TimeStats:
 SLAM_STAGES = ("orb descriptors", "multi-scale keypoints", "bow vocabulary", "map points",
                "loop closure", "local BA", "culling")
 SLAM_TIME_STATS = TimeStats(enabled=False)
+# the span recorder's name of each stage (children of the worker's slam.frame)
+SLAM_SPANS = dict(zip(SLAM_STAGES, ("slam.orb", "slam.keypoints", "slam.bow", "slam.map_points",
+                                    "slam.loop", "slam.local_ba", "slam.cull")))
+
+
+@contextmanager
+def slam_stage(label: str):
+    """A stage of the SLAM worker's keyframe: its scope in
+    ``SLAM_TIME_STATS`` (the ``-timer`` table) and its span in the
+    recorder (``SLAM_SPANS``), each off until turned on."""
+    with SLAM_TIME_STATS.scope(label), RECORDER.span(SLAM_SPANS[label]):
+        yield
 
 
 # --- the span recorder (the module docstring) ---
@@ -228,6 +242,43 @@ def self_ns(spans) -> Dict[int, int]:
         if r["kind"] == "span" and r["parent"] in out:
             out[r["parent"]] -= r["end_ns"] - r["start_ns"]
     return out
+
+
+class DeviceTimer:
+    """The device time of the work queued on the current stream between
+    this timer's making and ``stop()``: CUDA events on the card; on the
+    CPU, where that work is done when ``stop()`` is reached, the host
+    clock. ``emit(name)`` adds it to the recorder as an interval that ends
+    at the host clock, once the host has waited for that work (a copy of
+    its result to the host does)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.start_ns = time.perf_counter_ns()
+
+    def stop(self) -> None:
+        if self.cuda:
+            self.end.record()
+        else:
+            self.elapsed_ns = time.perf_counter_ns() - self.start_ns
+
+    def emit(self, name: str, frame=None) -> None:
+        if self.cuda:
+            self.end.synchronize()  # done already: the caller waited for the work
+            self.elapsed_ns = int(self.start.elapsed_time(self.end) * 1e6)
+        end = now_ns()
+        RECORDER.interval(name, end - self.elapsed_ns, end, frame)
+
+
+def device_timer(device):
+    """A ``DeviceTimer`` started now on ``device``'s current stream while
+    the recorder is on; None while it is off."""
+    return DeviceTimer(device) if RECORDER.on else None
 
 
 now_ns = time.time_ns  # the recorder's clock
